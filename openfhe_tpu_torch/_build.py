@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each source in `csrc/` is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface under `build/openfhe_tpu_torch/`
+(next to the package), all sources in parallel, at first use. The library
+name carries a hash of its source, so an edited source is rebuilt. The
+libraries are loaded with `ctypes`; every entry point returns
+`cudaGetLastError()`, which `record_launch` turns into an exception.
+
+`LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
+card; the plain versions used for CPU tensors never count.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parent / "build" / "openfhe_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source -> {C entry point: argtypes}
+SOURCES = {
+    "ntt": {"ntt_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "rowmod": {"mod_matmul_rowmod": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _P]},
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    libs: dict        # source name -> ctypes.CDLL
+    log: dict         # source name -> nvcc output ("" when cached)
+    seconds: float
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> Built:
+    """Compile (in parallel) and load every kernel library, once."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets, jobs = {}, {}
+    for name in SOURCES:
+        src = _PKG / "csrc" / f"{name}.cu"
+        digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        targets[name] = so
+        if not so.exists():
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp)
+    log = {name: "" for name in SOURCES}
+    failed = []
+    for name, (proc, tmp) in jobs.items():
+        log[name], _ = proc.communicate()
+        if proc.returncode:
+            failed.append(name)
+        else:
+            os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(log[n] for n in failed))
+    libs = {}
+    for name, entries in SOURCES.items():
+        lib = ctypes.CDLL(str(targets[name]))
+        for fn, argtypes in entries.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return Built(libs=libs, log=log, seconds=time.perf_counter() - t0)
+
+
+def entry(source: str, fn: str):
+    """The C entry point `fn` of library `source` (building on first use)."""
+    return getattr(build().libs[source], fn)
+
+
+def record_launch(rc: int, kernel: str) -> None:
+    """Raise if a launch failed; else count it in LAUNCHES."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+    LAUNCHES[kernel] += 1

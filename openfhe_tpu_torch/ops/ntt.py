@@ -1,0 +1,112 @@
+"""Batched negacyclic NTT over RNS towers: kernels 1 and 2 of the port.
+
+Counterpart of `openfhe_tpu/ops/ntt.py` + `ops/ntt_fused.py` (reference:
+`ForwardTransformToBitReverse` / `InverseTransformFromBitReverse`,
+transformnat-impl.h). Cooley-Tukey DIT forward and Gentleman-Sande
+inverse with twiddles in bit-reversed order; EVAL form is bit-reversed,
+with the JAX package's roots, so the words are the JAX package's.
+
+`ntt_fwd` / `ntt_inv` take `[..., k, N]` int32 residues and a `Basis`.
+On a CUDA tensor they launch the hand-written kernel of `csrc/ntt.cu`
+(or raise); on a CPU tensor they run the plain int64 stage loop
+`_ntt_fwd_ref` / `_ntt_inv_ref`, which the tests hold against JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from openfhe_tpu_torch import _build
+from openfhe_tpu_torch.lattice.basis import Basis
+
+
+def ntt_fwd(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """Negacyclic forward NTT: COEFF (natural order) -> EVAL (bit-reversed)."""
+    if x.device.type == "cpu":
+        return _ntt_fwd_ref(x, b)
+    out, rows, log_n = _prepare(x, b, "ntt_fwd")
+    rc = _build.entry("ntt", "ntt_fwd")(
+        x.data_ptr(), out.data_ptr(), b.psi_br.data_ptr(),
+        b.psi_br_sh.data_ptr(), b.q.data_ptr(), rows, b.k, log_n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.record_launch(rc, "ntt_fwd")
+    return out
+
+
+def ntt_inv(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """Negacyclic inverse NTT: EVAL (bit-reversed) -> COEFF (natural)."""
+    if x.device.type == "cpu":
+        return _ntt_inv_ref(x, b)
+    out, rows, log_n = _prepare(x, b, "ntt_inv")
+    rc = _build.entry("ntt", "ntt_inv")(
+        x.data_ptr(), out.data_ptr(), b.ipsi_br.data_ptr(),
+        b.ipsi_br_sh.data_ptr(), b.q.data_ptr(), b.ninv.data_ptr(),
+        b.ninv_sh.data_ptr(), rows, b.k, log_n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.record_launch(rc, "ntt_inv")
+    return out
+
+
+def _prepare(x: torch.Tensor, b: Basis, name: str):
+    """Check a kernel call's operands; allocate its output."""
+    n = b.ring_dim
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if b.device != x.device:
+        raise ValueError(f"{name}: tensor on {x.device}, basis on "
+                         f"{b.device}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32 residues, got {x.dtype}")
+    if x.dim() < 2 or x.shape[-2] != b.k or x.shape[-1] != n:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} does not match "
+                         f"[..., {b.k}, {n}]")
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"{name}: ring dimension {n} is not a power of 2")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    return torch.empty_like(x), x.numel() // n, n.bit_length() - 1
+
+
+def _ntt_fwd_ref(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """Plain int64 version of the forward kernel (`_ntt_fwd_vpu`)."""
+    n = b.ring_dim
+    lead = tuple(x.shape[:-1])
+    q = b.q.long().view(b.k, 1, 1)
+    psi = b.psi_br.long()
+    y = x.long()
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        ys = y.reshape(lead + (m, 2, t))
+        u = ys[..., 0, :]
+        v = torch.remainder(ys[..., 1, :] * psi[:, m:2 * m, None], q)
+        s = u + v
+        d = u - v
+        y = torch.stack([torch.where(s >= q, s - q, s),
+                         torch.where(d < 0, d + q, d)],
+                        dim=-2).reshape(lead + (n,))
+        m *= 2
+    return y.int()
+
+
+def _ntt_inv_ref(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """Plain int64 version of the inverse kernel (`_ntt_inv_vpu`)."""
+    n = b.ring_dim
+    lead = tuple(x.shape[:-1])
+    q = b.q.long().view(b.k, 1, 1)
+    ipsi = b.ipsi_br.long()
+    y = x.long()
+    m, t = n // 2, 1
+    while m >= 1:
+        ys = y.reshape(lead + (m, 2, t))
+        u = ys[..., 0, :]
+        v = ys[..., 1, :]
+        s = u + v
+        d = u - v
+        lo = torch.where(s >= q, s - q, s)
+        hi = torch.remainder(torch.where(d < 0, d + q, d)
+                             * ipsi[:, m:2 * m, None], q)
+        y = torch.stack([lo, hi], dim=-2).reshape(lead + (n,))
+        m //= 2
+        t *= 2
+    return torch.remainder(y * b.ninv.long(), b.q.long()).int()

@@ -1,0 +1,43 @@
+"""Key types.
+
+Counterpart of `openfhe_tpu/pke/keys.py` (reference analog: publickey.h,
+privatekey.h, evalkey.h, keypair.h). Keys are `[k, N]` int32 EVAL residue
+tensors plus a `key_tag` naming the secret-key family. The port's
+unfused key switch needs no Shoup companions of the key (the JAX
+package's `bv_sh` / `av_sh` serve its fused TPU chain only).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class PrivateKey:
+    """Secret key s: residues over the extended basis QP (EVAL)."""
+    s_qp: torch.Tensor                     # [kQ + kP, N]
+    key_tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class PublicKey:
+    """pk = (b, a) with b = -a*s + e over QP (EVAL)."""
+    b: torch.Tensor                        # [kQ + kP, N]
+    a: torch.Tensor
+    key_tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalKey:
+    """Hybrid key-switch key: bv/av are [dnum, kQ+kP, N] over QP."""
+    bv: torch.Tensor
+    av: torch.Tensor
+    key_tag: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyPair:
+    public_key: PublicKey
+    secret_key: PrivateKey

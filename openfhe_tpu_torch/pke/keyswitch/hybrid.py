@@ -1,0 +1,157 @@
+"""HYBRID (GHS) key switching, unfused.
+
+Counterpart of `openfhe_tpu/pke/keyswitch/hybrid.py` without its fused
+TPU chain (reference analog: keyswitch-hybrid.cpp KeySwitchGenInternal,
+EvalKeySwitchPrecomputeCore, EvalFastKeySwitchCoreExt, ApproxModDown).
+
+  * KeyGen digit j: b_j = -a_j*s_new + e_j + P*s_old*mask_j over QP, where
+    mask_j zeroes every tower outside digit j.
+  * Switch: digit j of c = [c]_{Q_j} extended from the digit's towers to
+    Q_l*P (ApproxModUp); inner product with the key digits; ApproxModDown
+    divides by P.
+
+Per EvalMult at the top level (two digits) this runs four forward NTTs,
+four inverse NTTs and four base conversions: one of each per digit and
+per element of the mod-down.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from openfhe_tpu_torch.lattice import rns_tools as rt
+from openfhe_tpu_torch.lattice.basis import Basis
+from openfhe_tpu_torch.math import modops as mo
+from openfhe_tpu_torch.math import sampling
+from openfhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
+from openfhe_tpu_torch.pke.keys import EvalKey, PrivateKey
+
+
+@dataclasses.dataclass(frozen=True)
+class PartTables:
+    """Per-digit conversion tables at one level."""
+    switch: rt.SwitchTables
+    digit_basis: Basis
+    compl_basis: Basis
+    start: int
+    end: int
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridTables:
+    """All hybrid-KS tables for one ciphertext level (size_ql towers)."""
+    parts: tuple                 # tuple[PartTables]
+    moddown: rt.ModDownTables
+    basis_ql: Basis
+    basis_p: Basis
+    basis_qlp: Basis
+    size_ql: int
+    k_q_full: int
+
+
+def make_hybrid_tables(basis_q: Basis, basis_p: Basis, size_ql: int,
+                       num_parts_full: int) -> HybridTables:
+    """Host precompute for the level with `size_ql` towers (reference:
+    rns-cryptoparameters.h m_paramsPartQ / m_paramsComplPartQ)."""
+    dev = basis_q.device
+    k_full = basis_q.k
+    alpha = -(-k_full // num_parts_full)
+    q_mods = basis_q.moduli[:size_ql]
+    p_mods = basis_p.moduli
+    num_parts = min(-(-size_ql // alpha), num_parts_full)
+    parts = []
+    for j in range(num_parts):
+        start = j * alpha
+        end = min(start + alpha, size_ql)
+        compl_basis = (basis_q.slice(0, start)
+                       .concat(basis_q.slice(end, size_ql))
+                       .concat(basis_p))
+        parts.append(PartTables(
+            switch=rt.make_switch_tables(q_mods[start:end],
+                                         compl_basis.moduli, dev),
+            digit_basis=basis_q.slice(start, end), compl_basis=compl_basis,
+            start=start, end=end))
+    basis_ql = basis_q.slice(0, size_ql)
+    return HybridTables(
+        parts=tuple(parts),
+        moddown=rt.make_mod_down_tables(p_mods, q_mods, dev),
+        basis_ql=basis_ql, basis_p=basis_p,
+        basis_qlp=basis_ql.concat(basis_p),
+        size_ql=size_ql, k_q_full=k_full)
+
+
+def keyswitch_gen(gen: torch.Generator, s_old: PrivateKey,
+                  s_new: PrivateKey, basis_qp: Basis, k_q: int,
+                  num_parts: int, p_modq, p_modq_sh) -> EvalKey:
+    """Generate the hybrid KS key s_old -> s_new over QP.
+
+    p_modq(+_sh): [P mod q_i] per Q tower, zero over the P towers.
+    """
+    n = basis_qp.ring_dim
+    alpha = -(-k_q // num_parts)
+    ps_old = mo.mul_mod_shoup(s_old.s_qp, p_modq, p_modq_sh, basis_qp.q)
+    rows = torch.arange(basis_qp.k, device=basis_qp.device)[:, None]
+    bs, as_ = [], []
+    for part in range(num_parts):
+        a = sampling.uniform_residues(gen, basis_qp)           # EVAL-uniform
+        e = ntt_fwd(sampling.to_residues(
+            sampling.discrete_gaussian(gen, (n,)), basis_qp), basis_qp)
+        b = mo.sub_mod(e, mo.mul_mod(a, s_new.s_qp, basis_qp.q), basis_qp.q)
+        # + P * s_old on this digit's towers only (the CRT mask)
+        start, end = alpha * part, min(alpha * (part + 1), k_q)
+        mask = (rows >= start) & (rows < end)
+        b = torch.where(mask, mo.add_mod(b, ps_old, basis_qp.q), b)
+        bs.append(b)
+        as_.append(a)
+    return EvalKey(bv=torch.stack(bs), av=torch.stack(as_),
+                   key_tag=s_new.key_tag)
+
+
+def _decompose_digits(c: torch.Tensor, tabs: HybridTables) -> list:
+    """EvalKeySwitchPrecomputeCore: per digit, extend [c]_{Q_j} to Q_l*P.
+
+    c: [kQl, N] EVAL. Returns a list of [kQl + kP, N] EVAL tensors.
+    """
+    digits = []
+    for pt in tabs.parts:
+        own_eval = c[pt.start:pt.end]
+        own_coeff = ntt_inv(own_eval, pt.digit_basis)
+        conv = rt.switch_crt_basis_approx(own_coeff, pt.digit_basis,
+                                          pt.compl_basis, pt.switch)
+        conv = ntt_fwd(conv, pt.compl_basis)
+        # compl_basis is Q_l without the digit's towers, then P
+        digits.append(torch.cat([conv[:pt.start], own_eval,
+                                 conv[pt.start:]], dim=0))
+    return digits
+
+
+def _key_slice(arr: torch.Tensor, j: int, tabs: HybridTables):
+    """Digit j of a key restricted to the Q_l*P towers."""
+    if tabs.size_ql == tabs.k_q_full:
+        return arr[j]
+    return torch.cat([arr[j, :tabs.size_ql], arr[j, tabs.k_q_full:]], dim=0)
+
+
+def _fast_core_ext(digits: list, ek: EvalKey, tabs: HybridTables):
+    """EvalFastKeySwitchCoreExt: (sum_j d_j*b_j, sum_j d_j*a_j) over Q_l*P."""
+    q = tabs.basis_qlp.q
+    acc0 = acc1 = None
+    for j, d in enumerate(digits):
+        t0 = mo.mul_mod(d, _key_slice(ek.bv, j, tabs), q)
+        t1 = mo.mul_mod(d, _key_slice(ek.av, j, tabs), q)
+        acc0 = t0 if acc0 is None else mo.add_mod(acc0, t0, q)
+        acc1 = t1 if acc1 is None else mo.add_mod(acc1, t1, q)
+    return acc0, acc1
+
+
+def keyswitch_core(c: torch.Tensor, ek: EvalKey, tabs: HybridTables):
+    """KeySwitchCore on one polynomial (usually ct[last]): returns
+    (delta0, delta1) over Q_l in EVAL."""
+    ext0, ext1 = _fast_core_ext(_decompose_digits(c, tabs), ek, tabs)
+    size_ql = tabs.size_ql
+    return tuple(rt.approx_mod_down(ext[:size_ql], ext[size_ql:],
+                                    tabs.basis_ql, tabs.basis_p,
+                                    tabs.moddown)
+                 for ext in (ext0, ext1))
