@@ -3,7 +3,8 @@
 Each source in `csrc/` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface under `build/openfhe_tpu_torch/`
 (next to the package), all sources in parallel, at first use. The library
-name carries a hash of its source, so an edited source is rebuilt. The
+name carries a hash of its source and of the shared headers
+(`csrc/*.cuh`), so an edited source or header is rebuilt. The
 libraries are loaded with `ctypes`; every entry point returns
 `cudaGetLastError()`, which `record_launch` turns into an exception.
 
@@ -36,6 +37,11 @@ SOURCES = {
             "ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "rowmod": {"mod_matmul_rowmod": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _P]},
+    "ks_fused": {"tensor_intt": [_P] * 9 + [_I] * 2 + [_P],
+                 "conv_digits": [_P] * 5 + [_I] * 4 + [_P],
+                 "ntt_keymul_acc": [_P] * 11 + [_I] * 6 + [_P],
+                 "intt_conv_p": [_P] * 11 + [_I] * 3 + [_P],
+                 "ntt_submul_final": [_P] * 13 + [_I] * 3 + [_P]},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -62,9 +68,11 @@ def build() -> Built:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets, jobs = {}, {}
+    headers = b"".join(h.read_bytes()
+                       for h in sorted((_PKG / "csrc").glob("*.cuh")))
     for name in SOURCES:
         src = _PKG / "csrc" / f"{name}.cu"
-        digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+        digest = hashlib.sha1(src.read_bytes() + headers).hexdigest()[:12]
         so = BUILD_DIR / f"lib{name}-{digest}.so"
         targets[name] = so
         if not so.exists():

@@ -2,44 +2,60 @@
 
 The JAX package's objects are handed over as numpy uint32 arrays
 (`np.asarray(jax_array)`); these functions build the port's objects on a
-chosen device, and `to_numpy` turns the port's int32 tensors back into
-uint32 words. Keys and encryptions are random and the two packages' RNGs
-never agree, so word-exact comparisons feed JAX-made keys and ciphertexts
-into the port through this module.
+device, `cuda` unless another is named (they raise when there is no GPU,
+as the context does), and `to_numpy` turns the port's int32 tensors back
+into uint32 words. Keys and encryptions are random and the two packages'
+RNGs never agree, so word-exact comparisons feed JAX-made keys and
+ciphertexts into the port through this module.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from openfhe_tpu_torch._device import resolve_device
 from openfhe_tpu_torch.math.modops import to_u32, u32_tensor
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext
 from openfhe_tpu_torch.pke.keys import EvalKey, PrivateKey, PublicKey
+from openfhe_tpu_torch.pke.keyswitch.hybrid import shoup_companions
 
 
 def private_key_from_numpy(s_qp, key_tag: str = "",
-                           device="cpu") -> PrivateKey:
+                           device=None) -> PrivateKey:
     """s_qp: [kQ+kP, N] uint32 EVAL words."""
-    return PrivateKey(s_qp=u32_tensor(s_qp, device), key_tag=key_tag)
+    return PrivateKey(s_qp=u32_tensor(s_qp, resolve_device(device)),
+                      key_tag=key_tag)
 
 
-def public_key_from_numpy(b, a, key_tag: str = "", device="cpu") -> PublicKey:
-    return PublicKey(b=u32_tensor(b, device), a=u32_tensor(a, device),
+def public_key_from_numpy(b, a, key_tag: str = "", device=None) -> PublicKey:
+    dev = resolve_device(device)
+    return PublicKey(b=u32_tensor(b, dev), a=u32_tensor(a, dev),
                      key_tag=key_tag)
 
 
-def eval_key_from_numpy(bv, av, key_tag: str = "", device="cpu") -> EvalKey:
-    """bv, av: [nd, kQ+kP, N] uint32 words of a hybrid key-switch key."""
-    return EvalKey(bv=u32_tensor(bv, device), av=u32_tensor(av, device),
-                   key_tag=key_tag)
+def eval_key_from_numpy(bv, av, key_tag: str = "", device=None, bv_sh=None,
+                        av_sh=None, moduli_qp=None) -> EvalKey:
+    """bv, av: [nd, kQ+kP, N] uint32 words of a hybrid key-switch key;
+    bv_sh, av_sh: their Shoup companions, computed from the QP moduli
+    `moduli_qp` when not given."""
+    dev = resolve_device(device)
+    ek = EvalKey(bv=u32_tensor(bv, dev), av=u32_tensor(av, dev),
+                 key_tag=key_tag)
+    if bv_sh is not None and av_sh is not None:
+        return EvalKey(bv=ek.bv, av=ek.av, bv_sh=u32_tensor(bv_sh, dev),
+                       av_sh=u32_tensor(av_sh, dev), key_tag=key_tag)
+    if moduli_qp is None:
+        raise ValueError("eval_key_from_numpy: give bv_sh and av_sh, or "
+                         "moduli_qp to compute them")
+    return shoup_companions(ek, moduli_qp)
 
 
 def ciphertext_from_numpy(elements, level: int = 0, noise_deg: int = 1,
                           scale: float = 1.0, slots: int = 0,
-                          key_tag: str = "", device="cpu") -> Ciphertext:
+                          key_tag: str = "", device=None) -> Ciphertext:
     """elements: a sequence of [k, N] uint32 EVAL words."""
-    return Ciphertext(elements=tuple(u32_tensor(e, device)
-                                     for e in elements),
+    dev = resolve_device(device)
+    return Ciphertext(elements=tuple(u32_tensor(e, dev) for e in elements),
                       level=level, noise_deg=noise_deg, scale=scale,
                       slots=slots, key_tag=key_tag)
 

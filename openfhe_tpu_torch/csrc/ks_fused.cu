@@ -1,0 +1,352 @@
+// The fused HYBRID mult + relinearize chain for Hopper (sm_90a): five
+// entry points, one per TPU kernel of openfhe_tpu/pke/keyswitch/ks_fused.py
+// (mult_relin_fused). Each is an NTT pass or a base conversion of
+// ntt_core.cuh / rowmod_core.cuh with a prologue or an epilogue.
+//
+//   tensor_intt       replaces _tensor_intt (K1t, pallas_call :366) and
+//                     _tensor_intt_single (:301): c2 = a1*b1 and
+//                     y = INTT(c2) * (B_j/b_i)^-1
+//   conv_digits       replaces _conv_digits (K2, :513): every digit
+//                     extended to all Q_l*P towers, own rows zero
+//   ntt_keymul_acc    replaces _ntt_keymul_acc (K3, :690): NTT of each
+//                     extended digit (c2 on the digit's own towers) times
+//                     the key halves, summed over the digits
+//   intt_conv_p       replaces _intt_conv_p (K45, :618): INTT of ext's P
+//                     rows * (P/p_i)^-1, then the P -> Q_l conversion
+//                     (the function of _conv_p_to_q, K5, :549)
+//   ntt_submul_final  replaces _ntt_submul_final (K6f, :802):
+//                     (ext - NTT(convq)) * P^-1 plus the tensor terms
+//
+// The TPU kernels multiply through int8 Karatsuba limbs and float
+// quotients on the MXU; here every product is exact 32-bit modular
+// arithmetic on canonical residues: Shoup with precomputed companions for
+// a constant or key factor (every odd q < 2^31), and a 64-bit product
+// reduced with % for the variable x variable tensor terms. Every output is
+// canonical (< q).
+//
+// What bounds them on an H100: device-memory bytes. At the main path's
+// shapes (kql 31, kp 16, 2 digits, N = 2^16) K3 reads the two key halves
+// and their companions (98 MB) and the others move 8-25 MB each, against
+// about ten integer operations per word and butterfly stage.
+//
+// Design: one tower (256 KB) is larger than a block's shared memory, so
+// each transform is the device-memory stage launches of ntt_core.cuh plus
+// one shared-memory tile pass, and each prologue or epilogue rides the
+// pass that touches the data first (inverse) or last (forward):
+//   * K1t's tile pass forms c2 from a1, b1 and writes it; the inverse
+//     stages follow, the last folding (N^-1 * (B_j/b_i)^-1) mod q.
+//   * K3 runs the forward stages over all nd * kqlp rows of the extended
+//     digits, then one tile pass per (tile, tower) that loops over the
+//     digits, takes c2 on own towers, and keeps both key-product sums in
+//     registers; the key is indexed in place (key_row), not copied.
+//   * K45's tile pass reads ext's P rows in place; the inverse stages fold
+//     (N^-1 * (P/p_i)^-1) into their last pass; the [2, kp, N]
+//     intermediate goes to device memory (it stays in L2), then the
+//     conversion kernel.
+//   * K6f's tile pass keeps c0 and c1 of its tile in registers and runs
+//     both elements' transforms, so the tensor terms are formed once.
+// There is no bucket padding: tower counts are runtime arguments.
+
+#include "ntt_core.cuh"
+#include "rowmod_core.cuh"
+
+namespace {
+
+// K1t tile pass: c2 = a1 * b1 for one (tile, tower), written out, then the
+// first inverse stages; with `scale` (no device stage follows) the folded
+// constant too.
+__global__ void tensor_intt_tile(const uint32_t* __restrict__ a1,
+                                 const uint32_t* __restrict__ b1,
+                                 uint32_t* __restrict__ c2,
+                                 uint32_t* __restrict__ y,
+                                 const uint32_t* __restrict__ ipsi,
+                                 const uint32_t* __restrict__ ipsi_sh,
+                                 const uint32_t* __restrict__ qs,
+                                 const uint32_t* __restrict__ c,
+                                 const uint32_t* __restrict__ c_sh,
+                                 int log_n, int log_tile, int scale) {
+  __shared__ uint32_t s[1 << kMaxTileLog];
+  const int tower = blockIdx.y;
+  const uint32_t tile = blockIdx.x;
+  const uint32_t size = 1u << log_tile;
+  const size_t row = static_cast<size_t>(tower) << log_n;
+  const size_t base = row + (static_cast<size_t>(tile) << log_tile);
+  const uint32_t q = qs[tower];
+  for (uint32_t x = threadIdx.x; x < size; x += blockDim.x) {
+    const uint32_t v = mul_mod(a1[base + x], b1[base + x], q);
+    c2[base + x] = v;
+    s[x] = v;
+  }
+  __syncthreads();
+  inv_tile_stages(s, ipsi + row, ipsi_sh + row, q, log_n, log_tile, tile);
+  if (scale) {
+    const uint32_t cv = c[tower], cv_sh = c_sh[tower];
+    for (uint32_t x = threadIdx.x; x < size; x += blockDim.x)
+      y[base + x] = mul_shoup(s[x], cv, cv_sh, q);
+  } else {
+    for (uint32_t x = threadIdx.x; x < size; x += blockDim.x)
+      y[base + x] = s[x];
+  }
+}
+
+// K3 tile pass, one (tile, tower tau of Q_l*P) per block: for each digit
+// j, the last forward stages of src[j, tau] (or c2[tau] itself on the
+// digit's own towers), times the key rows; both sums stay in registers.
+__global__ void keymul_tile(const uint32_t* __restrict__ src,
+                            const uint32_t* __restrict__ c2,
+                            const uint32_t* __restrict__ bv,
+                            const uint32_t* __restrict__ bv_sh,
+                            const uint32_t* __restrict__ av,
+                            const uint32_t* __restrict__ av_sh,
+                            uint32_t* __restrict__ ext,
+                            const uint32_t* __restrict__ psi,
+                            const uint32_t* __restrict__ psi_sh,
+                            const uint32_t* __restrict__ qs, int nd,
+                            int alpha, int kql, int kqlp, int key_rows,
+                            int key_shift, int log_n, int log_tile) {
+  __shared__ uint32_t s[1 << kMaxTileLog];
+  const int tau = blockIdx.y;
+  const uint32_t tile = blockIdx.x;
+  const uint32_t size = 1u << log_tile;
+  const size_t col0 = static_cast<size_t>(tile) << log_tile;
+  const size_t tw0 = static_cast<size_t>(tau) << log_n;
+  const uint32_t q = qs[tau];
+  const int krow = tau < kql ? tau : tau + key_shift;
+  uint32_t acc0[kTileWords], acc1[kTileWords];
+#pragma unroll
+  for (int w = 0; w < kTileWords; ++w) acc0[w] = acc1[w] = 0;
+  for (int j = 0; j < nd; ++j) {
+    const int end = (j + 1) * alpha < kql ? (j + 1) * alpha : kql;
+    const bool own = tau >= j * alpha && tau < end;      // block-uniform
+    const uint32_t* in =
+        own ? c2 + tw0 + col0
+            : src + ((static_cast<size_t>(j) * kqlp + tau) << log_n) + col0;
+    for (uint32_t x = threadIdx.x; x < size; x += blockDim.x) s[x] = in[x];
+    __syncthreads();
+    if (!own)
+      fwd_tile_stages(s, psi + tw0, psi_sh + tw0, q, log_n, log_tile, tile);
+    const size_t kb =
+        ((static_cast<size_t>(j) * key_rows + krow) << log_n) + col0;
+#pragma unroll
+    for (int w = 0; w < kTileWords; ++w) {
+      const uint32_t x = threadIdx.x + w * blockDim.x;
+      if (x < size) {
+        const uint32_t v = s[x];
+        acc0[w] = add_mod(acc0[w], mul_shoup(v, bv[kb + x], bv_sh[kb + x], q),
+                          q);
+        acc1[w] = add_mod(acc1[w], mul_shoup(v, av[kb + x], av_sh[kb + x], q),
+                          q);
+      }
+    }
+    __syncthreads();                 // s is reloaded for the next digit
+  }
+  uint32_t* o0 = ext + tw0 + col0;
+  uint32_t* o1 = ext + ((static_cast<size_t>(kqlp) + tau) << log_n) + col0;
+#pragma unroll
+  for (int w = 0; w < kTileWords; ++w) {
+    const uint32_t x = threadIdx.x + w * blockDim.x;
+    if (x < size) {
+      o0[x] = acc0[w];
+      o1[x] = acc1[w];
+    }
+  }
+}
+
+// K6f tile pass, one (tile, Q tower) per block: c0 = a0 b0 and
+// c1 = (a0 + a1)(b0 + b1) - c0 - a1 b1 in registers, then per element e
+// the last forward stages of src[e, tau] and
+// out[e] = c_e + (ext[e] - NTT(convq[e])) * P^-1.
+__global__ void submul_tile(const uint32_t* __restrict__ src,
+                            const uint32_t* __restrict__ ext,
+                            const uint32_t* __restrict__ a0,
+                            const uint32_t* __restrict__ a1,
+                            const uint32_t* __restrict__ b0,
+                            const uint32_t* __restrict__ b1,
+                            uint32_t* __restrict__ out,
+                            const uint32_t* __restrict__ psi,
+                            const uint32_t* __restrict__ psi_sh,
+                            const uint32_t* __restrict__ qs,
+                            const uint32_t* __restrict__ pinv,
+                            const uint32_t* __restrict__ pinv_sh, int kql,
+                            int kqlp, int log_n, int log_tile) {
+  __shared__ uint32_t s[1 << kMaxTileLog];
+  const int tau = blockIdx.y;
+  const uint32_t tile = blockIdx.x;
+  const uint32_t size = 1u << log_tile;
+  const size_t col0 = static_cast<size_t>(tile) << log_tile;
+  const size_t tw0 = static_cast<size_t>(tau) << log_n;
+  const size_t base = tw0 + col0;
+  const uint32_t q = qs[tau];
+  const uint32_t pv = pinv[tau], pv_sh = pinv_sh[tau];
+  uint32_t cs[2][kTileWords];
+#pragma unroll
+  for (int w = 0; w < kTileWords; ++w) {
+    const uint32_t x = threadIdx.x + w * blockDim.x;
+    if (x < size) {
+      const uint32_t x0 = a0[base + x], x1 = a1[base + x];
+      const uint32_t y0 = b0[base + x], y1 = b1[base + x];
+      const uint32_t c0 = mul_mod(x0, y0, q);
+      const uint32_t c2 = mul_mod(x1, y1, q);
+      const uint32_t cross = mul_mod(add_mod(x0, x1, q), add_mod(y0, y1, q), q);
+      cs[0][w] = c0;
+      cs[1][w] = sub_mod(sub_mod(cross, c0, q), c2, q);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const uint32_t* in =
+        src + ((static_cast<size_t>(e) * kql + tau) << log_n) + col0;
+    for (uint32_t x = threadIdx.x; x < size; x += blockDim.x) s[x] = in[x];
+    __syncthreads();
+    fwd_tile_stages(s, psi + tw0, psi_sh + tw0, q, log_n, log_tile, tile);
+    const uint32_t* xe =
+        ext + ((static_cast<size_t>(e) * kqlp + tau) << log_n) + col0;
+    uint32_t* oe = out + ((static_cast<size_t>(e) * kql + tau) << log_n) + col0;
+#pragma unroll
+    for (int w = 0; w < kTileWords; ++w) {
+      const uint32_t x = threadIdx.x + w * blockDim.x;
+      if (x < size) {
+        const uint32_t d = mul_shoup(sub_mod(xe[x], s[x], q), pv, pv_sh, q);
+        oe[x] = add_mod(cs[e][w], d, q);
+      }
+    }
+    __syncthreads();                 // s is reloaded for the next element
+  }
+}
+
+}  // namespace
+
+// a1, b1, c2, y: [kql, N] words; ipsi(_sh): [kql, N] of the Q_l towers;
+// q, scale(_sh): [kql] with scale = N^-1 * (B_j/b_i)^-1 mod q_i.
+extern "C" int tensor_intt(const void* a1, const void* b1, void* c2, void* y,
+                           const void* ipsi, const void* ipsi_sh,
+                           const void* q, const void* scale,
+                           const void* scale_sh, int kql, int log_n,
+                           void* stream) {
+  if (int bad = check_shape(kql, kql, log_n)) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* yp = static_cast<uint32_t*>(y);
+  const auto* w = static_cast<const uint32_t*>(ipsi);
+  const auto* w_sh = static_cast<const uint32_t*>(ipsi_sh);
+  const auto* qs = static_cast<const uint32_t*>(q);
+  const auto* c = static_cast<const uint32_t*>(scale);
+  const auto* c_sh = static_cast<const uint32_t*>(scale_sh);
+  const int log_tile = tile_log(log_n);
+  tensor_intt_tile<<<tile_grid(log_n, kql), tile_threads(log_tile), 0, st>>>(
+      static_cast<const uint32_t*>(a1), static_cast<const uint32_t*>(b1),
+      static_cast<uint32_t*>(c2), yp, w, w_sh, qs, c, c_sh, log_n, log_tile,
+      log_tile == log_n);
+  inv_stages(yp, w, w_sh, qs, c, c_sh, kql, kql, log_n, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y: [nd, alpha, N] (each digit's rows, zero-padded to alpha); w, w_sh:
+// [nd, alpha, kqlp]; q: [kqlp]; out: [nd, kqlp, N].
+extern "C" int conv_digits(const void* y, const void* w, const void* w_sh,
+                           const void* q, void* out, int nd, int alpha,
+                           int kqlp, int n, void* stream) {
+  if (int bad = rowmod_run(static_cast<const uint32_t*>(y),
+                           static_cast<const uint32_t*>(w),
+                           static_cast<const uint32_t*>(w_sh),
+                           static_cast<const uint32_t*>(q),
+                           static_cast<uint32_t*>(out), nd, alpha, kqlp, n,
+                           static_cast<size_t>(alpha) * kqlp,
+                           static_cast<cudaStream_t>(stream)))
+    return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// conv: [nd, kqlp, N] COEFF; c2: [kql, N] EVAL; bv, bv_sh, av, av_sh:
+// [>= nd, key_rows, N] with key_rows = k_q_full + kp; scratch: [nd, kqlp,
+// N]; ext: [2, kqlp, N]; psi(_sh): [kqlp, N]; q: [kqlp].
+extern "C" int ntt_keymul_acc(const void* conv, const void* c2,
+                              const void* bv, const void* bv_sh,
+                              const void* av, const void* av_sh,
+                              void* scratch, void* ext, const void* psi,
+                              const void* psi_sh, const void* q, int nd,
+                              int alpha, int kql, int kp, int k_q_full,
+                              int log_n, void* stream) {
+  const int kqlp = kql + kp;
+  if (int bad = check_shape(nd * kqlp, kqlp, log_n)) return bad;
+  if (nd < 1 || alpha < 1 || kql > nd * alpha || k_q_full < kql)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const uint32_t*>(psi);
+  const auto* w_sh = static_cast<const uint32_t*>(psi_sh);
+  const auto* qs = static_cast<const uint32_t*>(q);
+  const uint32_t* src =
+      fwd_stages(static_cast<const uint32_t*>(conv),
+                 static_cast<uint32_t*>(scratch), w, w_sh, qs, nd * kqlp,
+                 kqlp, log_n, st);
+  const int log_tile = tile_log(log_n);
+  keymul_tile<<<tile_grid(log_n, kqlp), tile_threads(log_tile), 0, st>>>(
+      src, static_cast<const uint32_t*>(c2),
+      static_cast<const uint32_t*>(bv), static_cast<const uint32_t*>(bv_sh),
+      static_cast<const uint32_t*>(av), static_cast<const uint32_t*>(av_sh),
+      static_cast<uint32_t*>(ext), w, w_sh, qs, nd, alpha, kql, kqlp,
+      k_q_full + kp, k_q_full - kql, log_n, log_tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ext: [2, kql + kp, N] EVAL; pc: [2, kp, N] scratch; out: [2, kql, N]
+// COEFF. ipsi(_sh): [kp, N] and qp, scale(_sh): [kp] of the P towers, with
+// scale = N^-1 * (P/p_i)^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql].
+extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
+                           const void* ipsi, const void* ipsi_sh,
+                           const void* qp, const void* scale,
+                           const void* scale_sh, const void* w,
+                           const void* w_sh, const void* qq, int kql, int kp,
+                           int log_n, void* stream) {
+  if (int bad = check_shape(2 * kp, kp, log_n)) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* pcp = static_cast<uint32_t*>(pc);
+  const auto* tw = static_cast<const uint32_t*>(ipsi);
+  const auto* tw_sh = static_cast<const uint32_t*>(ipsi_sh);
+  const auto* qs = static_cast<const uint32_t*>(qp);
+  const auto* c = static_cast<const uint32_t*>(scale);
+  const auto* c_sh = static_cast<const uint32_t*>(scale_sh);
+  const int log_tile = tile_log(log_n);
+  const auto* p_rows =
+      static_cast<const uint32_t*>(ext) + (static_cast<size_t>(kql) << log_n);
+  inv_tile<<<tile_grid(log_n, 2 * kp), tile_threads(log_tile), 0, st>>>(
+      p_rows, kql + kp, pcp, tw, tw_sh, qs, c, c_sh, kp, log_n, log_tile,
+      log_tile == log_n);
+  inv_stages(pcp, tw, tw_sh, qs, c, c_sh, 2 * kp, kp, log_n, st);
+  if (int bad = rowmod_run(pcp, static_cast<const uint32_t*>(w),
+                           static_cast<const uint32_t*>(w_sh),
+                           static_cast<const uint32_t*>(qq),
+                           static_cast<uint32_t*>(out), 2, kp, kql,
+                           1 << log_n, 0, st))
+    return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// convq: [2, kql, N] COEFF; ext: [2, kql + kp, N] EVAL; a0, a1, b0, b1:
+// [kql, N] EVAL; scratch, out: [2, kql, N]; psi(_sh): [kql, N]; q,
+// pinv(_sh): [kql] with pinv = P^-1 mod q_i.
+extern "C" int ntt_submul_final(const void* convq, const void* ext,
+                                const void* a0, const void* a1,
+                                const void* b0, const void* b1,
+                                void* scratch, void* out, const void* psi,
+                                const void* psi_sh, const void* q,
+                                const void* pinv, const void* pinv_sh,
+                                int kql, int kp, int log_n, void* stream) {
+  if (int bad = check_shape(2 * kql, kql, log_n)) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const uint32_t*>(psi);
+  const auto* w_sh = static_cast<const uint32_t*>(psi_sh);
+  const auto* qs = static_cast<const uint32_t*>(q);
+  const uint32_t* src =
+      fwd_stages(static_cast<const uint32_t*>(convq),
+                 static_cast<uint32_t*>(scratch), w, w_sh, qs, 2 * kql, kql,
+                 log_n, st);
+  const int log_tile = tile_log(log_n);
+  submul_tile<<<tile_grid(log_n, kql), tile_threads(log_tile), 0, st>>>(
+      src, static_cast<const uint32_t*>(ext),
+      static_cast<const uint32_t*>(a0), static_cast<const uint32_t*>(a1),
+      static_cast<const uint32_t*>(b0), static_cast<const uint32_t*>(b1),
+      static_cast<uint32_t*>(out), w, w_sh, qs,
+      static_cast<const uint32_t*>(pinv),
+      static_cast<const uint32_t*>(pinv_sh), kql, kql + kp, log_n, log_tile);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -66,6 +66,11 @@ def u32(t: torch.Tensor) -> torch.Tensor:
     return t.long() & _MASK32
 
 
+def i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor with the same 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).int()
+
+
 def _wide(q):
     return q.long() if isinstance(q, torch.Tensor) else int(q)
 

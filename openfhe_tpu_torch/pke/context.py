@@ -6,10 +6,14 @@ the conversion tables (built lazily per level) and the key stores, all on
 one device. Method names mirror the reference.
 
 Ported: CKKS with HYBRID key switching and FIXEDMANUAL / FIXEDAUTO
-scaling. EvalMult is the tensor product plus relinearization through the
-unfused key switch (`hybrid.keyswitch_core`), as `_k_mult_relin_hybrid`
-runs it off the TPU. BGV/BFV, BV key switching, rotations, FLEXIBLE and
-composite scaling raise NotImplementedError.
+scaling. EvalMult of two 2-element ciphertexts is the tensor product plus
+relinearization as `_k_mult_relin_hybrid` runs it: on a CUDA context
+through the fused five-kernel chain (`ks_fused.mult_relin_fused`), on the
+CPU through the unfused key switch (`hybrid.keyswitch_core`), with the
+same words. Relinearize, and EvalMult of a 3-element input, run the
+unfused chain on every device: the fused `keyswitch_core_fused` (TPU
+kernels h, i, j) is not ported yet. BGV/BFV, BV key switching, rotations,
+FLEXIBLE and composite scaling raise NotImplementedError.
 
 Devices are explicit: the context's tensors live on `device`, `cuda` when
 None (it raises if there is no GPU). Randomness comes from one
@@ -24,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from openfhe_tpu_torch._device import resolve_device
 from openfhe_tpu_torch.lattice import rns_tools as rt
 from openfhe_tpu_torch.lattice.basis import Basis, make_basis
 from openfhe_tpu_torch.lattice.dcrt import COEFF, EVAL, Poly
@@ -38,25 +43,24 @@ from openfhe_tpu_torch.pke.constants import (DecryptionNoiseMode,
                                              ScalingTechnique, Scheme)
 from openfhe_tpu_torch.pke.encoding import ckks_packed
 from openfhe_tpu_torch.pke.keys import EvalKey, KeyPair, PrivateKey, PublicKey
-from openfhe_tpu_torch.pke.keyswitch import hybrid
+from openfhe_tpu_torch.pke.keyswitch import hybrid, ks_fused
 from openfhe_tpu_torch.pke.schemes import rns_pke
-
-
-def _resolve_device(device=None) -> torch.device:
-    """`device`, or the GPU when None; never falls back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain PyTorch path")
-    return torch.device("cuda")
 
 
 def mult_relin_hybrid(a0, a1, b0, b1, ek: EvalKey,
                       tabs: hybrid.HybridTables):
-    """Tensor product + relinearization (the unfused branch of the JAX
-    package's `_k_mult_relin_hybrid`): Karatsuba c1 = (a0+a1)(b0+b1) -
-    c0 - c2, then c2 is key-switched and folded into (c0, c1)."""
+    """Tensor product + relinearization, as the JAX package's
+    `_k_mult_relin_hybrid`: the fused chain `ks_fused.mult_relin_fused`
+    when the level's tables carry it (a CUDA context), else Karatsuba
+    c1 = (a0+a1)(b0+b1) - c0 - c2 with c2 key-switched by the unfused
+    `hybrid.keyswitch_core` and folded into (c0, c1). Both give the same
+    words."""
+    if tabs.fused is not None:
+        if ek.bv_sh is None or ek.av_sh is None:
+            raise ValueError("the fused key switch needs the key's Shoup "
+                             "companions (hybrid.shoup_companions)")
+        return ks_fused.mult_relin_fused(a0, a1, b0, b1, ek.bv, ek.av,
+                                         ek.bv_sh, ek.av_sh, tabs.fused)
     q = tabs.basis_ql.q
     c0 = mo.mul_mod(a0, b0, q)
     c2 = mo.mul_mod(a1, b1, q)
@@ -82,7 +86,7 @@ class CryptoContext:
         if (params.decryption_noise_mode
                 == DecryptionNoiseMode.NOISE_FLOODING_DECRYPT):
             raise NotImplementedError("noise-flooding decryption")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.params = params
         self._features = PKESchemeFeature(0)
         self._gen = torch.Generator(device=self.device)

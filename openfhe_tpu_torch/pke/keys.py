@@ -2,9 +2,7 @@
 
 Counterpart of `openfhe_tpu/pke/keys.py` (reference analog: publickey.h,
 privatekey.h, evalkey.h, keypair.h). Keys are `[k, N]` int32 EVAL residue
-tensors plus a `key_tag` naming the secret-key family. The port's
-unfused key switch needs no Shoup companions of the key (the JAX
-package's `bv_sh` / `av_sh` serve its fused TPU chain only).
+tensors plus a `key_tag` naming the secret-key family.
 """
 
 from __future__ import annotations
@@ -31,9 +29,16 @@ class PublicKey:
 
 @dataclasses.dataclass(frozen=True)
 class EvalKey:
-    """Hybrid key-switch key: bv/av are [dnum, kQ+kP, N] over QP."""
+    """Hybrid key-switch key: bv/av are [dnum, kQ+kP, N] over QP.
+
+    bv_sh/av_sh are their per-word Shoup companions floor(v * 2^32 / q)
+    as int32 bit patterns, for the fused chain's key products
+    (`hybrid.shoup_companions`; `keyswitch_gen` and `convert` attach them).
+    """
     bv: torch.Tensor
     av: torch.Tensor
+    bv_sh: torch.Tensor | None = None
+    av_sh: torch.Tensor | None = None
     key_tag: str = ""
 
 

@@ -1,8 +1,8 @@
 """HYBRID (GHS) key switching, unfused.
 
-Counterpart of `openfhe_tpu/pke/keyswitch/hybrid.py` without its fused
-TPU chain (reference analog: keyswitch-hybrid.cpp KeySwitchGenInternal,
-EvalKeySwitchPrecomputeCore, EvalFastKeySwitchCoreExt, ApproxModDown).
+Counterpart of `openfhe_tpu/pke/keyswitch/hybrid.py` (reference analog:
+keyswitch-hybrid.cpp KeySwitchGenInternal, EvalKeySwitchPrecomputeCore,
+EvalFastKeySwitchCoreExt, ApproxModDown).
 
   * KeyGen digit j: b_j = -a_j*s_new + e_j + P*s_old*mask_j over QP, where
     mask_j zeroes every tower outside digit j.
@@ -10,9 +10,11 @@ EvalKeySwitchPrecomputeCore, EvalFastKeySwitchCoreExt, ApproxModDown).
     Q_l*P (ApproxModUp); inner product with the key digits; ApproxModDown
     divides by P.
 
-Per EvalMult at the top level (two digits) this runs four forward NTTs,
+At the top level (two digits) `keyswitch_core` runs four forward NTTs,
 four inverse NTTs and four base conversions: one of each per digit and
-per element of the mod-down.
+per element of the mod-down. On a CUDA context the level's tables also
+carry the fused chain's tables (`HybridTables.fused`), which EvalMult
+takes instead (`ks_fused.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from openfhe_tpu_torch.math import modops as mo
 from openfhe_tpu_torch.math import sampling
 from openfhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 from openfhe_tpu_torch.pke.keys import EvalKey, PrivateKey
+from openfhe_tpu_torch.pke.keyswitch import ks_fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,12 +52,15 @@ class HybridTables:
     basis_qlp: Basis
     size_ql: int
     k_q_full: int
+    fused: ks_fused.FusedKSTables | None = None   # CUDA tables only
 
 
 def make_hybrid_tables(basis_q: Basis, basis_p: Basis, size_ql: int,
                        num_parts_full: int) -> HybridTables:
     """Host precompute for the level with `size_ql` towers (reference:
-    rns-cryptoparameters.h m_paramsPartQ / m_paramsComplPartQ)."""
+    rns-cryptoparameters.h m_paramsPartQ / m_paramsComplPartQ). On a CUDA
+    device the fused chain's tables come too, as the JAX package builds
+    them only where its kernels run."""
     dev = basis_q.device
     k_full = basis_q.k
     alpha = -(-k_full // num_parts_full)
@@ -74,12 +80,16 @@ def make_hybrid_tables(basis_q: Basis, basis_p: Basis, size_ql: int,
             digit_basis=basis_q.slice(start, end), compl_basis=compl_basis,
             start=start, end=end))
     basis_ql = basis_q.slice(0, size_ql)
+    basis_qlp = basis_ql.concat(basis_p)
+    fused = None
+    if dev.type == "cuda":
+        fused = ks_fused.make_fused_ks_tables(basis_qlp, size_ql, k_full,
+                                              num_parts_full)
     return HybridTables(
         parts=tuple(parts),
         moddown=rt.make_mod_down_tables(p_mods, q_mods, dev),
-        basis_ql=basis_ql, basis_p=basis_p,
-        basis_qlp=basis_ql.concat(basis_p),
-        size_ql=size_ql, k_q_full=k_full)
+        basis_ql=basis_ql, basis_p=basis_p, basis_qlp=basis_qlp,
+        size_ql=size_ql, k_q_full=k_full, fused=fused)
 
 
 def keyswitch_gen(gen: torch.Generator, s_old: PrivateKey,
@@ -105,8 +115,18 @@ def keyswitch_gen(gen: torch.Generator, s_old: PrivateKey,
         b = torch.where(mask, mo.add_mod(b, ps_old, basis_qp.q), b)
         bs.append(b)
         as_.append(a)
-    return EvalKey(bv=torch.stack(bs), av=torch.stack(as_),
-                   key_tag=s_new.key_tag)
+    return shoup_companions(EvalKey(bv=torch.stack(bs), av=torch.stack(as_),
+                                    key_tag=s_new.key_tag), basis_qp.moduli)
+
+
+def shoup_companions(ek: EvalKey, moduli_qp) -> EvalKey:
+    """Attach the Shoup companions floor(v * 2^32 / q) of every key word
+    (int32 bit patterns), which the fused chain's key products use. Exact
+    in int64: v < q < 2^31."""
+    q = torch.tensor([int(m) for m in moduli_qp], dtype=torch.int64,
+                     device=ek.bv.device).view(-1, 1)
+    sh = lambda v: mo.i32_bits((v.long() << 32) // q)
+    return dataclasses.replace(ek, bv_sh=sh(ek.bv), av_sh=sh(ek.av))
 
 
 def _decompose_digits(c: torch.Tensor, tabs: HybridTables) -> list:

@@ -1,0 +1,330 @@
+"""Fused HYBRID mult + relinearize: the five-kernel chain of EvalMult on CUDA.
+
+Counterpart of `openfhe_tpu/pke/keyswitch/ks_fused.py` (`mult_relin_fused`
+and its tables; reference analogs: keyswitch-hybrid.cpp
+EvalKeySwitchPrecomputeCore / EvalFastKeySwitchCore, DCRTPolyImpl::
+ApproxModDown, rns-leveledshe.cpp EvalMult). One EvalMult of two
+2-element ciphertexts at a level with kql Q towers is five kernel calls
+of `csrc/ks_fused.cu`:
+
+  tensor_intt       (K1t) c2 = a1*b1 and y = INTT(c2) * (B_j/b_i)^-1
+  conv_digits       (K2)  every digit of y extended to all Q_l*P towers
+  ntt_keymul_acc    (K3)  ext = sum_j s_j * (bv_j, av_j), s_j = c2 on the
+                          digit's own towers, else NTT of the extension
+  intt_conv_p       (K45) INTT(ext's P rows) * (P/p_i)^-1, then P -> Q_l
+  ntt_submul_final  (K6f) out = tensor terms + (ext - NTT(convq)) * P^-1
+
+Every step is exact modular arithmetic on canonical residues, so the
+words equal the unfused chain's (tensor product + `hybrid.keyswitch_core`).
+
+Tables are canonical residues with Shoup companions, like
+`rns_tools.SwitchTables`; the JAX package's int8 Karatsuba limb stacks
+and f32 ratios are the TPU's number scheme and have no counterpart here.
+There is no bucket padding (`bucket_size`, `pad_to`, `kql_real`): XLA
+compiles once per shape, but the CUDA kernels take the tower counts as
+runtime arguments, so tables are built for each level's real size_ql.
+BGV's noise scale t (`ns_int`) is not ported yet.
+
+Each kernel has a wrapper and its plain twin (`_..._ref`) here. The
+wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from openfhe_tpu_torch import _build
+from openfhe_tpu_torch.lattice.basis import Basis
+from openfhe_tpu_torch.math import modops as mo
+from openfhe_tpu_torch.ops.modmatmul import _mod_matmul_rowmod_ref
+from openfhe_tpu_torch.ops.ntt import _ntt_fwd_ref, _ntt_inv_ref
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedKSTables:
+    """Tables of the fused chain for one level (kql Q towers, kp P towers,
+    nd digits of alpha towers). Per-tower constants are [k, 1] columns;
+    every `_sh` is the Shoup companion of the table before it."""
+    basis_qlp: Basis             # Q_l then P: moduli, twiddles, N^-1
+    basis_ql: Basis
+    basis_p: Basis
+    bhatinv_q: torch.Tensor      # [kql, 1] (B_j/b_i)^-1 mod b_i, i in digit j
+    bhatinv_q_sh: torch.Tensor
+    k1_scale: torch.Tensor       # [kql, 1] N^-1 * bhatinv_q, K1t's last pass
+    k1_scale_sh: torch.Tensor
+    conv_w: torch.Tensor         # [nd, alpha, kqlp] [B_j/b_i]_{q_tau}, zero
+    conv_w_sh: torch.Tensor      #   on the digit's own rows and past its end
+    pscale: torch.Tensor         # [kp, 1] (P/p_i)^-1 mod p_i
+    pscale_sh: torch.Tensor
+    k45_scale: torch.Tensor      # [kp, 1] N^-1 * pscale, K45's last pass
+    k45_scale_sh: torch.Tensor
+    pconv_w: torch.Tensor        # [kp, kql] [P/p_j]_{q_i}
+    pconv_w_sh: torch.Tensor
+    pinv_q: torch.Tensor         # [kql, 1] P^-1 mod q_i
+    pinv_q_sh: torch.Tensor
+    kql: int
+    kp: int
+    nd: int
+    alpha: int
+    k_q_full: int
+
+
+def _pair(vals, mods, device):
+    """Residues and their Shoup companions, as int32 tensors of vals'
+    shape; mods broadcasts against vals (numpy rules)."""
+    v = np.asarray(vals, np.uint64)
+    sh = (v << np.uint64(32)) // np.asarray(mods, np.uint64)
+    return mo.u32_tensor(v, device), mo.u32_tensor(sh, device)
+
+
+def make_fused_ks_tables(basis_qlp: Basis, size_ql: int, k_q_full: int,
+                         num_parts: int) -> FusedKSTables:
+    """Host precompute (Python ints) for the level with `size_ql` Q towers;
+    `basis_qlp` is Q_l followed by P, `k_q_full` the full chain's Q tower
+    count and `num_parts` its digit count."""
+    dev = basis_qlp.device
+    n = basis_qlp.ring_dim
+    kql = size_ql
+    mq = basis_qlp.moduli[:kql]
+    mp = basis_qlp.moduli[kql:]
+    mqlp = basis_qlp.moduli
+    kp, kqlp = len(mp), len(mqlp)
+    alpha = -(-k_q_full // num_parts)
+    nd = min(-(-kql // alpha), num_parts)
+    col = lambda vals, mods: _pair(np.reshape(vals, (-1, 1)),
+                                   np.reshape(mods, (-1, 1)), dev)
+
+    # K1t: the digit-local CRT lift inverse, alone and with N^-1 folded in
+    bhat = [math.prod(mq[j * alpha:(j + 1) * alpha]) for j in range(nd)]
+    bhatinv = [pow(bhat[i // alpha] // q % q, -1, q)
+               for i, q in enumerate(mq)]
+    k1 = [v * pow(n, -1, q) % q for v, q in zip(bhatinv, mq)]
+    # K2: W[j, i, tau] = [B_j / b_i]_{q_tau}, zero on digit j's own rows
+    w = np.zeros((nd, alpha, kqlp), np.uint64)
+    for j in range(nd):
+        start, end = j * alpha, min((j + 1) * alpha, kql)
+        for i, b in enumerate(mq[start:end]):
+            for tau, qt in enumerate(mqlp):
+                if not start <= tau < end:
+                    w[j, i, tau] = bhat[j] // b % qt
+    # K45: (P/p_i)^-1 (and with N^-1), and W5[j, i] = [P / p_j]_{q_i}
+    big_p = math.prod(mp)
+    pscale = [pow(big_p // p % p, -1, p) for p in mp]
+    k45 = [v * pow(n, -1, p) % p for v, p in zip(pscale, mp)]
+    w5 = np.array([[big_p // p % q for q in mq] for p in mp], np.uint64)
+    # K6f: P^-1 mod q_i
+    pinv = [pow(big_p % q, -1, q) for q in mq]
+    return FusedKSTables(
+        basis_qlp, basis_qlp.slice(0, kql), basis_qlp.slice(kql, kqlp),
+        *col(bhatinv, mq), *col(k1, mq),
+        *_pair(w, np.reshape(mqlp, (1, 1, -1)), dev),
+        *col(pscale, mp), *col(k45, mp),
+        *_pair(w5, np.reshape(mq, (1, -1)), dev),
+        *col(pinv, mq),
+        kql=kql, kp=kp, nd=nd, alpha=alpha, k_q_full=k_q_full)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the plain twin for a CPU tensor, else the kernel or an error
+# ---------------------------------------------------------------------------
+
+def _check(name: str, tabs: FusedKSTables, **tensors) -> None:
+    """Each keyword is (tensor, leading shape): the tensor must be a
+    contiguous int32 [*lead, N] on the tables' CUDA device."""
+    n = tabs.basis_qlp.ring_dim
+    for arg, (t, lead) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: no kernel for device {t.device}")
+        if t.device != tabs.basis_qlp.device:
+            raise ValueError(f"{name}: {arg} on {t.device}, tables on "
+                             f"{tabs.basis_qlp.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous int32 "
+                             "tensor")
+        if tuple(t.shape) != tuple(lead) + (n,):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(lead) + (n,)}")
+
+
+def _launch(kernel: str, *args) -> None:
+    """Call entry point `kernel` of ks_fused.cu: tensors pass their data
+    pointers, ints pass as they are, and the current stream of the first
+    operand's device comes last."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = _build.entry("ks_fused", kernel)(
+        *ptrs, torch.cuda.current_stream(args[0].device).cuda_stream)
+    _build.record_launch(rc, kernel)
+
+
+def _log_n(tabs: FusedKSTables) -> int:
+    return tabs.basis_qlp.ring_dim.bit_length() - 1
+
+
+def tensor_intt(a1: torch.Tensor, b1: torch.Tensor, tabs: FusedKSTables):
+    """K1t: a1, b1 [kql, N] EVAL -> (c2 = a1*b1 [kql, N] EVAL,
+    y = INTT(c2) * (B_j/b_i)^-1 [kql, N] COEFF)."""
+    if a1.device.type == "cpu":
+        return _tensor_intt_ref(a1, b1, tabs)
+    kql = tabs.kql
+    _check("tensor_intt", tabs, a1=(a1, (kql,)), b1=(b1, (kql,)))
+    c2, y = torch.empty_like(a1), torch.empty_like(a1)
+    bq = tabs.basis_ql
+    _launch("tensor_intt", a1, b1, c2, y, bq.ipsi_br, bq.ipsi_br_sh, bq.q,
+            tabs.k1_scale, tabs.k1_scale_sh, kql, _log_n(tabs))
+    return c2, y
+
+
+def _tensor_intt_ref(a1, b1, tabs: FusedKSTables):
+    bq = tabs.basis_ql
+    c2 = mo.mul_mod(a1, b1, bq.q)
+    y = mo.mul_mod_shoup(_ntt_inv_ref(c2, bq), tabs.bhatinv_q,
+                         tabs.bhatinv_q_sh, bq.q)
+    return c2, y
+
+
+def conv_digits(y_pad: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
+    """K2: y_pad [nd, alpha, N] COEFF (each digit's rows, zero-padded) ->
+    [nd, kqlp, N] COEFF, sum_i y[j, i] * W[j, i, tau] mod q_tau."""
+    if y_pad.device.type == "cpu":
+        return _conv_digits_ref(y_pad, tabs)
+    nd, alpha, kqlp = tabs.conv_w.shape
+    _check("conv_digits", tabs, y_pad=(y_pad, (nd, alpha)))
+    n = y_pad.shape[-1]
+    out = y_pad.new_empty((nd, kqlp, n))
+    _launch("conv_digits", y_pad, tabs.conv_w, tabs.conv_w_sh,
+            tabs.basis_qlp.q, out, nd, alpha, kqlp, n)
+    return out
+
+
+def _conv_digits_ref(y_pad, tabs: FusedKSTables):
+    return torch.stack([_mod_matmul_rowmod_ref(y_pad[j], tabs.conv_w[j],
+                                               tabs.basis_qlp.q)
+                        for j in range(tabs.nd)])
+
+
+def ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh,
+                   tabs: FusedKSTables) -> torch.Tensor:
+    """K3: conv [nd, kqlp, N] COEFF, c2 [kql, N] EVAL and the key halves
+    [>= nd, k_q_full + kp, N] (with companions) -> ext [2, kqlp, N] EVAL,
+    (sum_j s_j * bv_j, sum_j s_j * av_j) over Q_l*P."""
+    if conv.device.type == "cpu":
+        return _ntt_keymul_acc_ref(conv, c2, bv, bv_sh, av, av_sh, tabs)
+    kql, kp, nd = tabs.kql, tabs.kp, tabs.nd
+    kqlp = kql + kp
+    key = (bv.shape[0], tabs.k_q_full + kp)
+    if bv.dim() != 3 or key[0] < nd:
+        raise ValueError(f"ntt_keymul_acc: key shape {tuple(bv.shape)} has "
+                         f"fewer than {nd} digits")
+    _check("ntt_keymul_acc", tabs, conv=(conv, (nd, kqlp)), c2=(c2, (kql,)),
+           bv=(bv, key), bv_sh=(bv_sh, key), av=(av, key),
+           av_sh=(av_sh, key))
+    scratch = torch.empty_like(conv)
+    ext = conv.new_empty((2, kqlp, conv.shape[-1]))
+    b = tabs.basis_qlp
+    _launch("ntt_keymul_acc", conv, c2, bv, bv_sh, av, av_sh, scratch, ext,
+            b.psi_br, b.psi_br_sh, b.q, nd, tabs.alpha, kql, kp,
+            tabs.k_q_full, _log_n(tabs))
+    return ext
+
+
+def _ntt_keymul_acc_ref(conv, c2, bv, bv_sh, av, av_sh, tabs: FusedKSTables):
+    kql, kf, alpha = tabs.kql, tabs.k_q_full, tabs.alpha
+    b = tabs.basis_qlp
+    rows = lambda k, j: torch.cat([k[j, :kql], k[j, kf:]])   # key_row
+    acc0 = acc1 = None
+    for j in range(tabs.nd):
+        start, end = j * alpha, min((j + 1) * alpha, kql)
+        s = _ntt_fwd_ref(conv[j], b)
+        s = torch.cat([s[:start], c2[start:end], s[end:]])
+        t0 = mo.mul_mod_shoup(s, rows(bv, j), rows(bv_sh, j), b.q)
+        t1 = mo.mul_mod_shoup(s, rows(av, j), rows(av_sh, j), b.q)
+        acc0 = t0 if acc0 is None else mo.add_mod(acc0, t0, b.q)
+        acc1 = t1 if acc1 is None else mo.add_mod(acc1, t1, b.q)
+    return torch.stack([acc0, acc1])
+
+
+def intt_conv_p(ext: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
+    """K45: ext [2, kqlp, N] EVAL -> [2, kql, N] COEFF, the P -> Q_l
+    conversion of INTT(ext[:, kql:]) * (P/p_i)^-1."""
+    if ext.device.type == "cpu":
+        return _intt_conv_p_ref(ext, tabs)
+    kql, kp = tabs.kql, tabs.kp
+    _check("intt_conv_p", tabs, ext=(ext, (2, kql + kp)))
+    n = ext.shape[-1]
+    pc = ext.new_empty((2, kp, n))
+    out = ext.new_empty((2, kql, n))
+    bp = tabs.basis_p
+    _launch("intt_conv_p", ext, pc, out, bp.ipsi_br, bp.ipsi_br_sh, bp.q,
+            tabs.k45_scale, tabs.k45_scale_sh, tabs.pconv_w, tabs.pconv_w_sh,
+            tabs.basis_ql.q, kql, kp, _log_n(tabs))
+    return out
+
+
+def _intt_conv_p_ref(ext, tabs: FusedKSTables):
+    bp = tabs.basis_p
+    pc = mo.mul_mod_shoup(_ntt_inv_ref(ext[:, tabs.kql:], bp), tabs.pscale,
+                          tabs.pscale_sh, bp.q)
+    return _mod_matmul_rowmod_ref(pc, tabs.pconv_w, tabs.basis_ql.q)
+
+
+def ntt_submul_final(convq, ext, a0, a1, b0, b1,
+                     tabs: FusedKSTables) -> torch.Tensor:
+    """K6f: convq [2, kql, N] COEFF, ext [2, kqlp, N] EVAL and the inputs
+    a0, a1, b0, b1 [kql, N] EVAL -> [2, kql, N] EVAL:
+    d_e = (ext[e] - NTT(convq[e])) * P^-1, c0 = a0 b0, c2 = a1 b1,
+    c1 = (a0 + a1)(b0 + b1) - c0 - c2, out = (c0 + d_0, c1 + d_1)."""
+    if convq.device.type == "cpu":
+        return _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs)
+    kql, kp = tabs.kql, tabs.kp
+    _check("ntt_submul_final", tabs, convq=(convq, (2, kql)),
+           ext=(ext, (2, kql + kp)), a0=(a0, (kql,)), a1=(a1, (kql,)),
+           b0=(b0, (kql,)), b1=(b1, (kql,)))
+    scratch, out = torch.empty_like(convq), torch.empty_like(convq)
+    bq = tabs.basis_ql
+    _launch("ntt_submul_final", convq, ext, a0, a1, b0, b1, scratch, out,
+            bq.psi_br, bq.psi_br_sh, bq.q, tabs.pinv_q, tabs.pinv_q_sh, kql,
+            kp, _log_n(tabs))
+    return out
+
+
+def _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables):
+    bq = tabs.basis_ql
+    q = bq.q
+    c0 = mo.mul_mod(a0, b0, q)
+    c2 = mo.mul_mod(a1, b1, q)
+    cross = mo.mul_mod(mo.add_mod(a0, a1, q), mo.add_mod(b0, b1, q), q)
+    c1 = mo.sub_mod(mo.sub_mod(cross, c0, q), c2, q)
+    d = mo.mul_mod_shoup(mo.sub_mod(ext[:, :tabs.kql], _ntt_fwd_ref(convq, bq),
+                                    q), tabs.pinv_q, tabs.pinv_q_sh, q)
+    return torch.stack([mo.add_mod(c0, d[0], q), mo.add_mod(c1, d[1], q)])
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+def _pad_digits(y: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
+    """y [kql, N] -> [nd, alpha, N], the last digit zero-padded."""
+    pad = tabs.nd * tabs.alpha - tabs.kql
+    if pad:
+        y = torch.cat([y, y.new_zeros((pad, y.shape[-1]))])
+    return y.view(tabs.nd, tabs.alpha, y.shape[-1])
+
+
+def mult_relin_fused(a0, a1, b0, b1, bv, av, bv_sh, av_sh,
+                     tabs: FusedKSTables):
+    """Tensor product + relinearization as one five-kernel chain.
+
+    a0, a1, b0, b1: [kql, N] EVAL; bv, av (+ companions): the eval key
+    [dnum, k_q_full + kp, N]. Returns (o0, o1) [kql, N] EVAL."""
+    c2, y = tensor_intt(a1, b1, tabs)
+    conv = conv_digits(_pad_digits(y, tabs), tabs)
+    ext = ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh, tabs)
+    convq = intt_conv_p(ext, tabs)
+    out = ntt_submul_final(convq, ext, a0, a1, b0, b1, tabs)
+    return out[0], out[1]

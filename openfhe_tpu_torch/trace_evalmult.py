@@ -3,8 +3,9 @@
     python3 -m openfhe_tpu_torch.trace_evalmult
 
 Builds the main path's context (N=2^16, 31 Q + 16 P towers, 2 digits),
-warms up, then traces 5 EvalMults. Prints the device time of every kernel
-name (summed over the 5 calls, divided by 5), the share taken by the
+warms up, then traces 5 EvalMults (the fused chain of
+`pke/keyswitch/ks_fused.py` on the card). Prints the device time of every
+kernel name (summed over the 5 calls, divided by 5), the share taken by the
 port's own kernels (`csrc/`) against the plain torch ops around them, and
 the device's busy share of the wall time measured with CUDA events. Needs
 a CUDA card; exits non-zero without one.
@@ -20,8 +21,9 @@ import numpy as np
 import torch
 
 CALLS = 5
-# kernel function names of csrc/ntt.cu and csrc/rowmod.cu
-OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "rowmod")
+# kernel function names of csrc/ (ntt_core.cuh, rowmod_core.cuh, ks_fused.cu)
+OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "rowmod",
+       "tensor_intt_tile", "keymul_tile", "submul_tile")
 
 
 def main() -> int:

@@ -74,9 +74,11 @@ def port_side(jax_side):
     jek = jax_side["cc"].eval_mult_keys[jax_side["kp"].secret_key.key_tag]
     tag = jax_side["kp"].secret_key.key_tag
     cc.eval_mult_keys[tag] = convert.eval_key_from_numpy(
-        np.asarray(jek.bv), np.asarray(jek.av), key_tag=tag)
+        np.asarray(jek.bv), np.asarray(jek.av), key_tag=tag, device="cpu",
+        bv_sh=np.asarray(jek.bv_sh), av_sh=np.asarray(jek.av_sh))
     sk = convert.private_key_from_numpy(
-        np.asarray(jax_side["kp"].secret_key.s_qp), key_tag=tag)
+        np.asarray(jax_side["kp"].secret_key.s_qp), key_tag=tag,
+        device="cpu")
     return cc, sk
 
 
@@ -84,7 +86,7 @@ def _ct(jct):
     return convert.ciphertext_from_numpy(
         [np.asarray(e) for e in jct.elements], level=jct.level,
         noise_deg=jct.noise_deg, scale=jct.scale, slots=jct.slots,
-        key_tag=jct.key_tag)
+        key_tag=jct.key_tag, device="cpu")
 
 
 def _assert_ct_equal(got, want):
@@ -248,6 +250,18 @@ def test_context_without_device_needs_a_gpu():
         pytest.skip("a GPU is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fhe.GenCryptoContext(_port_params())
+
+
+def test_convert_without_device_needs_a_gpu(jax_side):
+    """The conversions default to the GPU, as the context does."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    jct = jax_side["a"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.ciphertext_from_numpy([np.asarray(e) for e in jct.elements])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.private_key_from_numpy(
+            np.asarray(jax_side["kp"].secret_key.s_qp))
 
 
 def test_unported_options_raise():

@@ -25,6 +25,7 @@ from openfhe_tpu.ops import ntt as jntt  # noqa: E402
 from openfhe_tpu_torch.lattice.basis import make_basis  # noqa: E402
 from openfhe_tpu_torch.math import modops as mo  # noqa: E402
 from openfhe_tpu_torch.ops import ntt  # noqa: E402
+from openfhe_tpu_torch.pke.keyswitch import ks_fused  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VEC = os.path.join(ROOT, "tests", "vectors", "reference_vectors.json")
@@ -132,6 +133,25 @@ def test_kernel_wrappers_take_no_fallback():
         ntt.ntt_fwd(x, tb)
     with pytest.raises(ValueError, match="no kernel"):
         ntt.ntt_inv(x, tb)
+    # the fused chain's five wrappers, at 2 Q + 1 P towers and 2 digits
+    mods = [nbtheory.first_prime(b, 2 * n) for b in (26, 27, 28)]
+    tabs = ks_fused.make_fused_ks_tables(make_basis(mods, n), 2, 2, 2)
+    meta = lambda *shape: torch.empty(shape + (n,), dtype=torch.int32,
+                                      device="meta")
+    y_pad, ext = meta(2, 1), meta(2, 3)
+    q_in, key = meta(2), meta(2, 3)
+    calls = {
+        "tensor_intt": lambda: ks_fused.tensor_intt(q_in, q_in, tabs),
+        "conv_digits": lambda: ks_fused.conv_digits(y_pad, tabs),
+        "ntt_keymul_acc": lambda: ks_fused.ntt_keymul_acc(
+            meta(2, 3), q_in, key, key, key, key, tabs),
+        "intt_conv_p": lambda: ks_fused.intt_conv_p(ext, tabs),
+        "ntt_submul_final": lambda: ks_fused.ntt_submul_final(
+            meta(2, 2), ext, q_in, q_in, q_in, q_in, tabs),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=f"{name}: no kernel"):
+            call()
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "openfhe_tpu")
