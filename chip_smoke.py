@@ -11,18 +11,25 @@ is not beside it. Phases, none of which catches its own failure:
 3. kernel phase: each kernel is compared word for word with its plain
    PyTorch version on the same card inputs, and both are timed with CUDA
    events (median of 20 after warm-up). The NTT and the conversion run at
-   the main path's shapes; the five kernels of the fused key switch at
+   the main path's shapes; the seven kernels of the fused key switches at
    level 0 (31 Q towers), level 1 (30) and on a chain of the largest
-   31-bit primes (4 Q + 2 P towers, N=2^16);
-4. main path at N=2^16, L=30 (31 Q + 16 P towers, 2 digits): context,
-   KeyGen, EvalMultKeyGen, encode, Encrypt x2, EvalMult (the fused
-   chain: one launch of each fused kernel, none of the others), the same
-   product through EvalMultNoRelin + Relinearize (the unfused chain of the
-   NTT and conversion kernels), Rescale, both products again at level 1,
-   Rescale, Decrypt, decode, with the launch counters reset just before
-   and read just after. The fused words must equal the unfused ones at
-   both levels and the port's plain path run on the CPU; the decryptions
-   must be within the limits below; every kernel must have been launched;
+   31-bit primes (4 Q + 2 P towers, N=2^16), `intt_scale` also in its K4
+   form (ext's P rows, 2 elements) and `ntt_subscale` also with BGV's
+   t = 65537 in the tables;
+4. main path at N=2^16, L=30 (31 Q + 16 P towers, 2 digits), with the
+   launch counters reset just before and read just after: context,
+   KeyGen, EvalMultKeyGen, rotation keys (1, -1, the EvalSum ladder of
+   batch 64, conjugation), encode, Encrypt x3; then at level 0 and at
+   level 1 EvalMult (one launch of each kernel of the mult chain),
+   Relinearize(EvalMultNoRelin) and EvalRotate (one launch of each kernel
+   of the general chain, nothing else) and the same ops through the
+   unfused chain (`dataclasses.replace(tables, fused=None)`: the NTT and
+   conversion kernels); hoisted rotations (EvalFastRotationPrecompute +
+   EvalFastRotation, unfused by design); EvalConjugate; EvalInnerProduct
+   (EvalMult + the EvalSum ladder); Rescale; Decrypt. The fused words must
+   equal the unfused ones at both levels and the port's plain path run on
+   the CPU; the decryptions must be within the limits below; every kernel
+   must have been launched;
 5. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 
 bound_ms is the least time the card could take for a call: the larger of
@@ -53,8 +60,13 @@ ROWMOD_TERM_OPS = 7    # Shoup multiply 5 + add_mod 2
 MULMOD_OPS = 10        # a 64-bit product reduced mod q
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
-FUSED = ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
-         "ntt_submul_final")
+FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
+         "intt_conv_p", "ntt_subscale", "ntt_submul_final")
+# the kernels of one EvalMult, and of one Relinearize or automorphism
+MULT_CHAIN = ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
+              "ntt_submul_final")
+KS_CHAIN = ("intt_scale", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
+            "ntt_subscale")
 WHERE = {
     "ntt_fwd": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
     "ntt_inv": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
@@ -62,12 +74,17 @@ WHERE = {
                           "openfhe_tpu/ops/modmatmul.py:232"),
     "tensor_intt": ("csrc/ks_fused.cu",
                     "openfhe_tpu/pke/keyswitch/ks_fused.py:366"),
+    "intt_scale": ("csrc/ks_fused.cu",
+                   "openfhe_tpu/pke/keyswitch/ks_fused.py:422, "
+                   "openfhe_tpu/pke/keyswitch/ks_fused.py:476"),
     "conv_digits": ("csrc/ks_fused.cu",
                     "openfhe_tpu/pke/keyswitch/ks_fused.py:513"),
     "ntt_keymul_acc": ("csrc/ks_fused.cu",
                        "openfhe_tpu/pke/keyswitch/ks_fused.py:690"),
     "intt_conv_p": ("csrc/ks_fused.cu",
                     "openfhe_tpu/pke/keyswitch/ks_fused.py:618"),
+    "ntt_subscale": ("csrc/ks_fused.cu",
+                     "openfhe_tpu/pke/keyswitch/ks_fused.py:747"),
     "ntt_submul_final": ("csrc/ks_fused.cu",
                          "openfhe_tpu/pke/keyswitch/ks_fused.py:802"),
 }
@@ -77,9 +94,39 @@ WHERE = {
 # it under TOL. The product of the two decrypted inputs carries the same
 # fresh noise, so EvalMult + Rescale must land closer to it: what is left
 # is mostly the rescale's rounding (tau0 + tau1*s, about 2e-4 per slot).
+#
+# A key switch ends in ApproxModDown, whose P -> Q conversion is approximate:
+# it leaves -(Y0 + Y1*s) in the coefficients, Y = sum_i y_i / p_i over the
+# 16 P towers, mean c = sum_i (p_i - 1) / (2 p_i) ~ 8 on every coefficient
+# (the residues are not centred; the JAX package and the reference do the
+# same). Its mean part -c(1 + (1,...,1)*s) is a low-frequency polynomial
+# that, at a 2^26 scale, moves the few slots near X = 1 by up to ~1 (a
+# numpy model over random secrets: 0.4-1.8), so a rotation at level 0
+# cannot be held to MULT_TOL. Two checks follow from that:
+#   * at the product's scale 2^52 the key switch's error vanishes in the
+#     rescale: Rescale(rotate(prod)) against the rotated decryption of
+#     Rescale(prod) differs by two rescale roundings, each at most
+#     1.5e-3 per slot on the H100 (PERF.md), so MULT_TOL holds;
+#   * at level 0 the error of rotate(ct_a) against the rotated decryption,
+#     minus the mean part computed from this run's secret
+#     (`modown_mean_slots`), leaves the fluctuation Y - c (per coefficient
+#     std sqrt(16/12) * sqrt(2N/3) ~ 240, slot max 5e-3 to 8e-3 in the
+#     model) and the key's own error e_j times the extended digits over P
+#     (digit 0 is 2^-8 of P; slot max 7e-3 to 2.4e-2 in the model, which
+#     cannot be predicted without e_j): ROT_RESID_TOL = 6e-2. A wrong
+#     rotation leaves |z_i+1 - z_i-1|, up to 0.5.
+# EvalSum of batch 64 runs at the product's scale too (EvalInnerProduct,
+# then Rescale) and is held against the same ladder run in numpy on
+# dec(Rescale(prod)): each of its slots sums 64 slots, each with its own
+# rescale rounding (complex std ~3.3e-4), so std 8 * 3.3e-4 ~ 2.6e-3 and a
+# max over 32768 slots near 4.5 std ~ 1.2e-2, plus the sum's own rescale
+# rounding (<= 2.1e-3 complex): SUM_TOL = 2e-2.
 Z_MAX = 0.25
 TOL = 1e-2
 MULT_TOL = 4e-3
+ROT_RESID_TOL = 6e-2
+SUM_BATCH = 64
+SUM_TOL = 2e-2
 REPS = 20
 
 
@@ -174,14 +221,19 @@ def rowmod_case(mm, tab, d_basis, gen, label):
 def fused_work(tabs) -> dict:
     """(bytes, operations) of each fused kernel at one table set: each
     input and output once, twiddles and keys included; the conversions'
-    operations count their nonzero weights only."""
+    operations count their nonzero weights only. `intt_scale_p` is
+    intt_scale's K4 form (2 elements of kp rows)."""
     n, kql, kp, nd = (tabs.basis_qlp.ring_dim, tabs.kql, tabs.kp, tabs.nd)
     kqlp, log_n = kql + kp, n.bit_length() - 1
     digits = [min(tabs.alpha, kql - j * tabs.alpha) for j in range(nd)]
     ntt = lambda rows: rows * n // 2 * log_n * BUTTERFLY_OPS
+    t_ops = 0 if tabs.t_is_one else SHOUP_OPS
     return {
         "tensor_intt": (WORD * n * 6 * kql,
                         kql * n * (MULMOD_OPS + SHOUP_OPS) + ntt(kql)),
+        "intt_scale": (WORD * n * 4 * kql, ntt(kql) + kql * n * SHOUP_OPS),
+        "intt_scale_p": (WORD * n * 6 * kp,
+                         ntt(2 * kp) + 2 * kp * n * SHOUP_OPS),
         "conv_digits": (WORD * n * nd * (tabs.alpha + kqlp),
                         n * ROWMOD_TERM_OPS * sum(a * (kqlp - a)
                                                   for a in digits)),
@@ -192,16 +244,37 @@ def fused_work(tabs) -> dict:
         "intt_conv_p": (WORD * n * (2 * kp + 2 * kp + 2 * kql),
                         ntt(2 * kp) + 2 * kp * n * SHOUP_OPS
                         + 2 * kp * kql * n * ROWMOD_TERM_OPS),
+        "ntt_subscale": (WORD * n * 8 * kql,
+                         ntt(2 * kql) + 2 * kql * n * (SHOUP_OPS + 3
+                                                       + t_ops)),
         "ntt_submul_final": (WORD * n * 12 * kql,
                              ntt(2 * kql) + kql * n * (3 * MULMOD_OPS + 12)
                              + 2 * kql * n * (SHOUP_OPS + 5)),
     }
 
 
+def kernel_case(name, kern, ref, args, tabs, work, label) -> dict:
+    """kern(*args, tabs) vs ref(*args, tabs): word-equal or raise; both
+    timed."""
+    got, want = kern(*args, tabs), ref(*args, tabs)
+    torch.cuda.synchronize()
+    if isinstance(got, tuple):
+        got, want = torch.stack(got), torch.stack(want)
+    err = max_abs_err(got, want)
+    require(err == 0, f"{name} {label} differs from its plain version "
+            f"(max abs err {err})")
+    b_ms, b_by = bound(*work)
+    return dict(shape=[tabs.kql, tabs.kp, tabs.nd, tabs.basis_qlp.ring_dim],
+                moduli=label, max_abs_err=err,
+                ms=cuda_ms(lambda: kern(*args, tabs)),
+                plain_ms=cuda_ms(lambda: ref(*args, tabs)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def fused_cases(ksf, tabs, key, gen, label) -> dict:
-    """Each kernel of the fused key switch vs its plain twin on one table
-    set, on random residues (and a random key with companions)."""
-    n, kql, nd = tabs.basis_qlp.ring_dim, tabs.kql, tabs.nd
+    """Each kernel of the fused key switches vs its plain twin on one
+    table set, on random residues (and a random key with companions)."""
+    n, nd = tabs.basis_qlp.ring_dim, tabs.nd
     mq, mqlp = tabs.basis_ql.moduli, tabs.basis_qlp.moduli
     a = [rand_residues(gen, mq, n) for _ in range(4)]
     y_pad = ksf._pad_digits(rand_residues(gen, mq, n), tabs)
@@ -212,30 +285,37 @@ def fused_cases(ksf, tabs, key, gen, label) -> dict:
     calls = {
         "tensor_intt": (ksf.tensor_intt, ksf._tensor_intt_ref,
                         (a[1], a[3])),
+        "intt_scale": (ksf.intt_scale, ksf._intt_scale_ref, (a[2],)),
         "conv_digits": (ksf.conv_digits, ksf._conv_digits_ref, (y_pad,)),
         "ntt_keymul_acc": (ksf.ntt_keymul_acc, ksf._ntt_keymul_acc_ref,
                            (conv, a[0], *keys)),
         "intt_conv_p": (ksf.intt_conv_p, ksf._intt_conv_p_ref, (ext,)),
+        "ntt_subscale": (ksf.ntt_subscale, ksf._ntt_subscale_ref,
+                         (convq, ext)),
         "ntt_submul_final": (ksf.ntt_submul_final,
                              ksf._ntt_submul_final_ref, (convq, ext, *a)),
     }
     work = fused_work(tabs)
-    out = {}
-    for name, (kern, ref, args) in calls.items():
-        got, want = kern(*args, tabs), ref(*args, tabs)
-        torch.cuda.synchronize()
-        if isinstance(got, tuple):
-            got, want = torch.stack(got), torch.stack(want)
-        err = max_abs_err(got, want)
-        require(err == 0, f"{name} {label} differs from its plain version "
-                f"(max abs err {err})")
-        b_ms, b_by = bound(*work[name])
-        out[name] = dict(shape=[kql, tabs.kp, nd, n], moduli=label,
-                         max_abs_err=err,
-                         ms=cuda_ms(lambda: kern(*args, tabs)),
-                         plain_ms=cuda_ms(lambda: ref(*args, tabs)),
-                         bound_ms=b_ms, bound_by=b_by)
-    return out
+    return {name: kernel_case(name, kern, ref, args, tabs, work[name],
+                              label)
+            for name, (kern, ref, args) in calls.items()}
+
+
+def modown_mean_slots(cc, sk, scale: float) -> np.ndarray:
+    """Slot values of the mean part of a key switch's ApproxModDown
+    rounding, -c (1 + (1,...,1)*s) with c = sum_i (p_i - 1) / (2 p_i) over
+    the P towers (see the noise note above), from this run's secret."""
+    from openfhe_tpu_torch.lattice.basis import make_basis
+    from openfhe_tpu_torch.ops.ntt import _ntt_inv_ref
+    from openfhe_tpu_torch.pke.encoding import ckks_packed
+    n, q0 = cc.ring_dim, cc.moduli_q[0]
+    s = _ntt_inv_ref(sk.s_qp[:1].cpu(), make_basis(cc.moduli_q[:1], n))
+    s = s[0].numpy().astype(np.int64)
+    s = np.where(s > q0 // 2, s - q0, s)
+    c = sum((p - 1) / (2 * p) for p in cc.moduli_p)
+    ones_s = 2 * np.cumsum(s) - s.sum()       # (1,...,1) * s, negacyclic
+    return ckks_packed.decode_from_coeffs(-c * (1.0 + ones_s), n, cc.slots,
+                                          scale)
 
 
 def same_words(x, y) -> bool:
@@ -249,9 +329,12 @@ def main() -> int:
         return 2
     import openfhe_tpu_torch as fhe
     from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.lattice.automorph import (
+        eval_indices, rotation_automorphism_index)
     from openfhe_tpu_torch.lattice.basis import make_basis
     from openfhe_tpu_torch.math import nbtheory
     from openfhe_tpu_torch.ops import modmatmul, ntt
+    from openfhe_tpu_torch.pke import context
     from openfhe_tpu_torch.pke.keys import EvalKey
     from openfhe_tpu_torch.pke.keyswitch import hybrid
     from openfhe_tpu_torch.pke.keyswitch import ks_fused
@@ -331,9 +414,25 @@ def main() -> int:
                                       label).items():
             cases[name].append(case)
     del key_main, key31
+    # intt_scale's K4 form (both elements' P rows of ext, read in place)
+    # and ntt_subscale with BGV's t = 65537 (K6's t multiply), at level 0
+    work0 = fused_work(top.fused)
+    ext = rand_residues(gen, top.basis_qlp.moduli, n, (2,))
+    cases["intt_scale"].append(kernel_case(
+        "intt_scale", lambda x, t: ks_fused.intt_scale(x, t, p_rows=True),
+        lambda x, t: ks_fused._intt_scale_ref(x, t, p_rows=True), (ext,),
+        top.fused, work0["intt_scale_p"], "K4 form: ext [2, 47, N] P rows"))
+    tabs_t = ks_fused.make_fused_ks_tables(top.basis_qlp, cc.size_ql(0),
+                                           len(cc.moduli_q), 2,
+                                           ns_int=65537)
+    cases["ntt_subscale"].append(kernel_case(
+        "ntt_subscale", ks_fused.ntt_subscale, ks_fused._ntt_subscale_ref,
+        (rand_residues(gen, top.basis_ql.moduli, n, (2,)), ext), tabs_t,
+        fused_work(tabs_t)["ntt_subscale"], "level 0, t = 65537"))
+    del ext
     for name, rows in cases.items():
         for c in rows:
-            print(f"  {name:18s} {str(c['shape']):18s} {c['moduli']:28s} "
+            print(f"  {name:18s} {str(c['shape']):18s} {c['moduli']:32s} "
                   f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
                   f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})  "
                   f"max_abs_err {c['max_abs_err']}")
@@ -342,11 +441,22 @@ def main() -> int:
     _build.LAUNCHES.clear()
     t0 = time.perf_counter()
     kp = cc.KeyGen()
-    cc.EvalMultKeyGen(kp.secret_key)
-    z = np.random.default_rng(0).uniform(-Z_MAX, Z_MAX, size=cc.slots)
+    sk = kp.secret_key
+    cc.EvalMultKeyGen(sk)
+    cc.EvalRotateKeyGen(sk, [1, -1])
+    cc.EvalSumKeyGen(sk, SUM_BATCH)
+    cc.EvalConjugateKeyGen(sk)
+    rng = np.random.default_rng(0)
+    z = rng.uniform(-Z_MAX, Z_MAX, size=cc.slots)
+    # complex slots for the conjugation, |w| <= Z_MAX
+    w = (rng.uniform(-Z_MAX, Z_MAX, cc.slots)
+         + 1j * rng.uniform(-Z_MAX, Z_MAX, cc.slots)) / np.sqrt(2)
     pt = cc.MakeCKKSPackedPlaintext(z)
     ct_a = cc.Encrypt(kp.public_key, pt)
     ct_b = cc.Encrypt(kp.public_key, pt)
+    ct_c = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(w))
+    ek_mult = cc.eval_mult_keys[sk.key_tag]
+    auto_keys = cc.eval_automorphism_keys[sk.key_tag]
 
     def counted(fn):
         """fn() and the launches it made, per kernel."""
@@ -355,76 +465,208 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, {k: _build.LAUNCHES[k] - before.get(k, 0) for k in cases}
 
-    unfused = lambda x, y: cc.Relinearize(cc.EvalMultNoRelin(x, y))
+    # the unfused chain, as the JAX package builds its oracle: the same
+    # level tables without the fused ones
+    plain = lambda ct: dataclasses.replace(
+        cc.hybrid_tables(cc.size_ql(ct.level)), fused=None)
+
+    def relin_unfused(ct3):
+        return dataclasses.replace(ct3, elements=context.relin_hybrid(
+            *ct3.elements, ek_mult, plain(ct3)))
+
+    def rotate_unfused(ct, r):
+        g = rotation_automorphism_index(r, n)
+        idx = torch.from_numpy(eval_indices(n, g).astype(np.int64)).cuda()
+        return dataclasses.replace(ct, elements=context.automorph_hybrid(
+            ct.elements, idx, auto_keys[g], plain(ct)))
+
+    unfused = lambda x, y: relin_unfused(cc.EvalMultNoRelin(x, y))
+    relin = lambda x, y: cc.Relinearize(cc.EvalMultNoRelin(x, y))
     prod, per_mult = counted(lambda: cc.EvalMult(ct_a, ct_b))
     prod_u, per_unfused = counted(lambda: unfused(ct_a, ct_b))
+    prod_r, per_relin = counted(lambda: relin(ct_a, ct_b))
+    rot, per_rot = {}, {}
+    for r in (1, -1):
+        rot[r], per_rot[r] = counted(lambda r=r: cc.EvalRotate(ct_a, r))
+    conj, per_conj = counted(lambda: cc.EvalConjugate(ct_c))
+    digits, per_pre = counted(lambda: cc.EvalFastRotationPrecompute(ct_a))
+    fast, per_fast = {}, {}
+    for r in (1, -1):
+        fast[r], per_fast[r] = counted(
+            lambda r=r: cc.EvalFastRotation(ct_a, r, 0, digits))
     resc = cc.Rescale(prod)
     prod1, per_mult1 = counted(lambda: cc.EvalMult(resc, resc))
     prod1_u = unfused(resc, resc)
+    prod1_r, per_relin1 = counted(lambda: relin(resc, resc))
+    rot1, per_rot1 = counted(lambda: cc.EvalRotate(resc, 1))
     resc1 = cc.Rescale(prod1)
-    dec = cc.Decrypt(kp.secret_key, resc)
-    dec1 = np.asarray(cc.Decrypt(kp.secret_key, resc1).values).real
-    dec_a = np.asarray(cc.Decrypt(kp.secret_key, ct_a).values).real
-    dec_b = np.asarray(cc.Decrypt(kp.secret_key, ct_b).values).real
+    # rotations at the product's scale 2^52, then Rescale
+    rot_p = {r: cc.Rescale(cc.EvalRotate(prod, r)) for r in (1, -1)}
+    digits_p = cc.EvalFastRotationPrecompute(prod)
+    fast_p = {r: cc.Rescale(cc.EvalFastRotation(prod, r, 0, digits_p))
+              for r in (1, -1)}
+    prod_c = cc.EvalMult(ct_c, ct_b)
+    conj_p = cc.Rescale(cc.EvalConjugate(prod_c))
+    isum = cc.Rescale(cc.EvalInnerProduct(ct_a, ct_b, SUM_BATCH))
+    decv = lambda ct: np.asarray(cc.Decrypt(sk, ct).values)
+    dec = cc.Decrypt(sk, resc)
+    dec1 = decv(resc1).real
+    dec_a, dec_b, dec_c = decv(ct_a), decv(ct_b), decv(ct_c)
+    dec_resc_c = decv(cc.Rescale(prod_c))
+    dec_rot = {r: decv(rot[r]) for r in rot}
+    dec_fast = {r: decv(fast[r]) for r in fast}
+    dec_conj = decv(conj)
+    dec_rot_p = {r: decv(rot_p[r]) for r in rot_p}
+    dec_fast_p = {r: decv(fast_p[r]) for r in fast_p}
+    dec_conj_p, dec_isum = decv(conj_p), decv(isum)
     launches = {k: _build.LAUNCHES[k] for k in cases}
     path_s = time.perf_counter() - t0
     vals = np.asarray(dec.values)
     require(vals.shape == (cc.slots,) and bool(np.isfinite(vals).all())
-            and bool(np.isfinite(dec1).all()),
+            and bool(np.isfinite(dec1).all())
+            and bool(np.isfinite(dec_isum).all()),
             "decrypted values are not finite or of the wrong shape")
     err = float(np.abs(vals.real - z * z).max())
-    fresh_err = float(np.abs(dec_a - z).max())
-    mult_err = float(np.abs(vals.real - dec_a * dec_b).max())
+    fresh_err = float(np.abs(dec_a.real - z).max())
+    mult_err = float(np.abs(vals.real - dec_a.real * dec_b.real).max())
     err1 = float(np.abs(dec1 - z ** 4).max())
     mult_err1 = float(np.abs(dec1 - vals.real ** 2).max())
     print(f"main path: {path_s:.2f} s; launches {launches}")
     print(f"per EvalMult (fused) {per_mult}; level 1 {per_mult1}; per "
-          f"EvalMultNoRelin + Relinearize (unfused) {per_unfused}")
+          f"EvalMultNoRelin + unfused relinearization {per_unfused}")
+    print(f"per Relinearize(EvalMultNoRelin) {per_relin}; level 1 "
+          f"{per_relin1}; per EvalRotate +1 {per_rot[1]}, -1 {per_rot[-1]}, "
+          f"level 1 {per_rot1}; per EvalConjugate {per_conj}")
+    print(f"EvalFastRotationPrecompute {per_pre}; EvalFastRotation +1 "
+          f"{per_fast[1]}, -1 {per_fast[-1]}")
     print(f"z ~ U(-{Z_MAX}, {Z_MAX}): max |dec(ct) - z| = {fresh_err:.3e}, "
           f"max |dec - dec(a)*dec(b)| = {mult_err:.3e} (limit {MULT_TOL}), "
           f"max |dec - z*z| = {err:.3e} (limit {TOL}); level 1: "
           f"max |dec1 - dec^2| = {mult_err1:.3e} (limit {MULT_TOL}), "
           f"max |dec1 - z^4| = {err1:.3e} (limit {TOL})")
-    same0, same1 = same_words(prod, prod_u), same_words(prod1, prod1_u)
-    print(f"fused EvalMult == unfused chain on the card: level 0 {same0}, "
-          f"level 1 {same1}")
-    require(same0 and same1, "the fused EvalMult differs from the unfused "
-            "chain on the card")
+
+    # words: fused == unfused on the card, at both levels
+    same = {"EvalMult": same_words(prod, prod_u),
+            "EvalMult, level 1": same_words(prod1, prod1_u),
+            "Relinearize": same_words(prod_r, prod_u),
+            "Relinearize, level 1": same_words(prod1_r, prod1_u),
+            "EvalRotate +1": same_words(rot[1], rotate_unfused(ct_a, 1)),
+            "EvalRotate -1": same_words(rot[-1], rotate_unfused(ct_a, -1)),
+            "EvalRotate +1, level 1": same_words(rot1,
+                                                 rotate_unfused(resc, 1))}
+    print(f"fused == unfused chain on the card: {same}")
+    require(all(same.values()),
+            f"the fused chain differs from the unfused one: {same}")
     require(mult_err <= MULT_TOL and mult_err1 <= MULT_TOL,
             f"EvalMult+Rescale error {mult_err} / {mult_err1} above "
             f"{MULT_TOL}")
     require(err <= TOL and err1 <= TOL,
             f"decryption error {err} / {err1} above {TOL}")
+
+    # decryptions of the automorphisms (see the noise note at the top)
+    resc_vals = np.asarray(dec.values)
+    hi = {f"EvalRotate {r:+d}": np.abs(dec_rot_p[r]
+                                       - np.roll(resc_vals, -r)).max()
+          for r in (1, -1)}
+    hi.update({f"EvalFastRotation {r:+d}": np.abs(
+        dec_fast_p[r] - np.roll(resc_vals, -r)).max() for r in (1, -1)})
+    hi["EvalConjugate"] = np.abs(dec_conj_p - np.conj(dec_resc_c)).max()
+    mean_slots = modown_mean_slots(cc, sk, ct_a.scale)
+    lo = {f"EvalRotate {r:+d}": dec_rot[r] - np.roll(dec_a, -r)
+          for r in (1, -1)}
+    lo.update({f"EvalFastRotation {r:+d}": dec_fast[r] - np.roll(dec_a, -r)
+               for r in (1, -1)})
+    lo["EvalConjugate"] = dec_conj - np.conj(dec_c)
+    raw = {k: float(np.abs(v).max()) for k, v in lo.items()}
+    resid = {k: float(np.abs(v - mean_slots).max()) for k, v in lo.items()}
+    ladder = resc_vals.copy()
+    j = 1
+    while j < SUM_BATCH:
+        ladder = ladder + np.roll(ladder, -j)
+        j <<= 1
+    sum_err = float(np.abs(dec_isum - ladder).max())
+    print(f"automorphisms at scale 2^52, then Rescale, against the "
+          f"automorphism of dec(Rescale(prod)): "
+          f"{ {k: float(v) for k, v in hi.items()} } (limit {MULT_TOL})")
+    print(f"automorphisms at level 0 (scale 2^26) against the automorphism "
+          f"of dec(ct): max error {raw}; predicted mod-down rounding mean "
+          f"max {float(np.abs(mean_slots).max()):.3e}; residual after it "
+          f"{resid} (limit {ROT_RESID_TOL})")
+    print(f"Rescale(EvalInnerProduct(a, b, {SUM_BATCH})) against the ladder "
+          f"on dec(Rescale(prod)): max error {sum_err:.3e} "
+          f"(limit {SUM_TOL})")
+    require(all(v <= MULT_TOL for v in hi.values()),
+            f"automorphism error at scale 2^52 above {MULT_TOL}: {hi}")
+    require(all(v <= ROT_RESID_TOL for v in resid.values()),
+            f"automorphism error at level 0 beyond the mod-down model: "
+            f"{resid}")
+    require(sum_err <= SUM_TOL, f"EvalSum error {sum_err} above {SUM_TOL}")
+
+    # launches: each op through its own chain, nothing else
     require(all(v > 0 for v in launches.values()),
             f"a kernel was not launched on the main path: {launches}")
-    want = {k: int(k in FUSED) for k in cases}
-    require(per_mult == want and per_mult1 == want,
-            f"EvalMult launches {per_mult} / {per_mult1}, expected {want}")
+    want_mult = {k: int(k in MULT_CHAIN) for k in cases}
+    want_ks = {k: int(k in KS_CHAIN) for k in cases}
+    require(per_mult == want_mult and per_mult1 == want_mult,
+            f"EvalMult launches {per_mult} / {per_mult1}, expected "
+            f"{want_mult}")
+    for label, got in (("Relinearize", per_relin),
+                       ("Relinearize, level 1", per_relin1),
+                       ("EvalRotate +1", per_rot[1]),
+                       ("EvalRotate -1", per_rot[-1]),
+                       ("EvalRotate, level 1", per_rot1),
+                       ("EvalConjugate", per_conj)):
+        require(got == want_ks, f"{label} launches {got}, expected "
+                f"{want_ks}")
     require(per_unfused == {k: 4 * (k in SLICE1) for k in cases},
             f"unfused launches {per_unfused}, expected 4 of each slice-1 "
             "kernel")
-    mult_ms = cuda_ms(lambda: cc.EvalMult(ct_a, ct_b), reps=10)
-    unfused_ms = cuda_ms(lambda: unfused(ct_a, ct_b), reps=10)
-    resc_ms = cuda_ms(lambda: cc.Rescale(prod), reps=10)
-    print(f"EvalMult fused {mult_ms:.3f} ms, unfused (EvalMultNoRelin + "
-          f"Relinearize) {unfused_ms:.3f} ms, Rescale {resc_ms:.3f} ms "
-          f"(median of 10, CUDA events, {card})")
+    want_hoist = {k: 2 * (k in SLICE1) for k in cases}
+    require(per_pre == want_hoist and per_fast[1] == want_hoist
+            and per_fast[-1] == want_hoist,
+            f"hoisted rotation launches {per_pre} / {per_fast}, expected "
+            f"{want_hoist} each")
 
-    # the same EvalMult on the port's plain path on the CPU
+    prod3 = cc.EvalMultNoRelin(ct_a, ct_b)
+    times = {
+        "evalmult_ms": cuda_ms(lambda: cc.EvalMult(ct_a, ct_b), reps=10),
+        "evalmult_unfused_ms": cuda_ms(lambda: unfused(ct_a, ct_b),
+                                       reps=10),
+        "relinearize_ms": cuda_ms(lambda: cc.Relinearize(prod3), reps=10),
+        "relinearize_unfused_ms": cuda_ms(lambda: relin_unfused(prod3),
+                                          reps=10),
+        "evalrotate_ms": cuda_ms(lambda: cc.EvalRotate(ct_a, 1), reps=10),
+        "evalfastrotation_ms": cuda_ms(
+            lambda: cc.EvalFastRotation(ct_a, 1, 0, digits), reps=10),
+        "evalfastrotation_precompute_ms": cuda_ms(
+            lambda: cc.EvalFastRotationPrecompute(ct_a), reps=10),
+        f"evalsum{SUM_BATCH}_ms": cuda_ms(
+            lambda: cc.EvalSum(ct_a, SUM_BATCH), reps=10),
+        "rescale_ms": cuda_ms(lambda: cc.Rescale(prod), reps=10),
+    }
+    print(f"op times (median of 10, CUDA events, {card}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+    # the same EvalMult and one EvalRotate on the port's plain path on the
+    # CPU
     t0 = time.perf_counter()
     cpu = fhe.GenCryptoContext(dataclasses.replace(params), seed=7,
                                device="cpu")
-    ek = cc.eval_mult_keys[kp.secret_key.key_tag]
-    cpu.eval_mult_keys[ek.key_tag] = EvalKey(bv=ek.bv.cpu(), av=ek.av.cpu(),
-                                             key_tag=ek.key_tag)
+    on_cpu_key = lambda ek: EvalKey(bv=ek.bv.cpu(), av=ek.av.cpu(),
+                                    key_tag=ek.key_tag)
+    cpu.eval_mult_keys[ek_mult.key_tag] = on_cpu_key(ek_mult)
+    g1 = rotation_automorphism_index(1, n)
+    cpu.InsertEvalAutomorphismKey({g1: on_cpu_key(auto_keys[g1])},
+                                  sk.key_tag)
     on_cpu = lambda ct: dataclasses.replace(
         ct, elements=tuple(e.cpu() for e in ct.elements))
-    ref = cpu.EvalMult(on_cpu(ct_a), on_cpu(ct_b))
+    same_mult = same_words(prod, cpu.EvalMult(on_cpu(ct_a), on_cpu(ct_b)))
+    same_rot = same_words(rot[1], cpu.EvalRotate(on_cpu(ct_a), 1))
     cpu_s = time.perf_counter() - t0
-    same = same_words(prod, ref)
-    print(f"EvalMult on the card == plain path on the CPU: {same} "
-          f"({cpu_s:.1f} s on the CPU)")
-    require(same, "EvalMult words on the card differ from the plain path")
+    print(f"on the card == plain path on the CPU: EvalMult {same_mult}, "
+          f"EvalRotate +1 {same_rot} ({cpu_s:.1f} s on the CPU)")
+    require(same_mult and same_rot,
+            "words on the card differ from the plain path")
 
     # 5. the kernels line, then the device line
     kernels = []
@@ -436,19 +678,23 @@ def main() -> int:
             replaces=WHERE[name][1], launches=launches[name],
             launches_per_evalmult=per_mult[name],
             launches_per_unfused_mult=per_unfused[name],
+            launches_per_relinearize=per_relin[name],
+            launches_per_rotate=per_rot[1][name],
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=None, shape=head["shape"], cases=rows))
-    print(json.dumps({"kernels": kernels, "card": card,
-                      "evalmult_ms": mult_ms,
-                      "evalmult_unfused_ms": unfused_ms,
-                      "rescale_ms": resc_ms,
+    print(json.dumps({"kernels": kernels, "card": card, **times,
                       "decrypt_max_abs_err": err,
                       "mult_vs_decrypted_inputs_err": mult_err,
                       "level1_decrypt_max_abs_err": err1,
-                      "level1_mult_err": mult_err1}))
+                      "level1_mult_err": mult_err1,
+                      "automorphism_2e52_err": {k: float(v)
+                                                for k, v in hi.items()},
+                      "automorphism_level0_err": raw,
+                      "automorphism_level0_resid": resid,
+                      f"evalsum{SUM_BATCH}_err": sum_err}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

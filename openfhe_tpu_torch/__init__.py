@@ -1,10 +1,12 @@
 """openfhe_tpu_torch — the PyTorch + CUDA port of openfhe_tpu.
 
 Runs the CKKS main path (KeyGen, EvalMultKeyGen, encode, Encrypt,
-EvalMult with HYBRID relinearization, Rescale, Decrypt) with hand-written
-Hopper kernels for the NTT and the RNS base conversion (`csrc/`). The JAX
-package `openfhe_tpu` is the reference it is held against; this package
-never imports it.
+EvalMult with HYBRID relinearization, Rescale, Decrypt), Relinearize,
+KeySwitch, rotations and conjugation (with hoisted rotations and the
+EvalSum family of rotation ladders) with hand-written Hopper kernels for
+the NTT, the RNS base conversion and the fused key switch (`csrc/`). The
+JAX package `openfhe_tpu` is the reference it is held against; this
+package never imports it.
 
     import openfhe_tpu_torch as fhe
     cc = fhe.GenCryptoContext(fhe.CCParams(...))            # on the GPU

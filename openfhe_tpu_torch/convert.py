@@ -50,6 +50,23 @@ def eval_key_from_numpy(bv, av, key_tag: str = "", device=None, bv_sh=None,
     return shoup_companions(ek, moduli_qp)
 
 
+def eval_key_map_from_numpy(key_map, key_tag: str | None = None,
+                            device=None, moduli_qp=None) -> dict:
+    """An automorphism key map {g: key} -> {g: EvalKey} on a device. Each
+    key has `bv`, `av` and, where present, `bv_sh`, `av_sh` as arrays numpy
+    can read (the fields of the JAX package's EvalKey); `key_tag` defaults
+    to each key's own."""
+    out = {}
+    for g, k in key_map.items():
+        sh = [getattr(k, name, None) for name in ("bv_sh", "av_sh")]
+        sh = [None if v is None else np.asarray(v) for v in sh]
+        out[int(g)] = eval_key_from_numpy(
+            np.asarray(k.bv), np.asarray(k.av),
+            key_tag=k.key_tag if key_tag is None else key_tag, device=device,
+            bv_sh=sh[0], av_sh=sh[1], moduli_qp=moduli_qp)
+    return out
+
+
 def ciphertext_from_numpy(elements, level: int = 0, noise_deg: int = 1,
                           scale: float = 1.0, slots: int = 0,
                           key_tag: str = "", device=None) -> Ciphertext:

@@ -1,19 +1,25 @@
-// The fused HYBRID mult + relinearize chain for Hopper (sm_90a): five
-// entry points, one per TPU kernel of openfhe_tpu/pke/keyswitch/ks_fused.py
-// (mult_relin_fused). Each is an NTT pass or a base conversion of
+// The fused HYBRID key switch for Hopper (sm_90a): seven entry points, one
+// per TPU kernel of openfhe_tpu/pke/keyswitch/ks_fused.py (mult_relin_fused
+// and keyswitch_core_fused). Each is an NTT pass or a base conversion of
 // ntt_core.cuh / rowmod_core.cuh with a prologue or an epilogue.
 //
 //   tensor_intt       replaces _tensor_intt (K1t, pallas_call :366) and
 //                     _tensor_intt_single (:301): c2 = a1*b1 and
 //                     y = INTT(c2) * (B_j/b_i)^-1
+//   intt_scale        replaces _intt_scale_pairs (K1, :422) and
+//                     _intt_scale (:476): out[e, tau] =
+//                     INTT(x[e, in_off + tau]) * scale[tau], K1 on the
+//                     Q_l rows of c2 or K4 on ext's P rows read in place
 //   conv_digits       replaces _conv_digits (K2, :513): every digit
 //                     extended to all Q_l*P towers, own rows zero
 //   ntt_keymul_acc    replaces _ntt_keymul_acc (K3, :690): NTT of each
 //                     extended digit (c2 on the digit's own towers) times
 //                     the key halves, summed over the digits
 //   intt_conv_p       replaces _intt_conv_p (K45, :618): INTT of ext's P
-//                     rows * (P/p_i)^-1, then the P -> Q_l conversion
-//                     (the function of _conv_p_to_q, K5, :549)
+//                     rows * (P/p_i)^-1 * t^-1, then the P -> Q_l
+//                     conversion (the function of _conv_p_to_q, K5, :549)
+//   ntt_subscale      replaces _ntt_subscale (K6, :747):
+//                     (ext - t * NTT(convq)) * P^-1, t = 1 for CKKS
 //   ntt_submul_final  replaces _ntt_submul_final (K6f, :802):
 //                     (ext - NTT(convq)) * P^-1 plus the tensor terms
 //
@@ -26,7 +32,7 @@
 //
 // What bounds them on an H100: device-memory bytes. At the main path's
 // shapes (kql 31, kp 16, 2 digits, N = 2^16) K3 reads the two key halves
-// and their companions (98 MB) and the others move 8-25 MB each, against
+// and their companions (98 MB) and the others move 8-65 MB each, against
 // about ten integer operations per word and butterfly stage.
 //
 // Design: one tower (256 KB) is larger than a block's shared memory, so
@@ -35,14 +41,21 @@
 // pass that touches the data first (inverse) or last (forward):
 //   * K1t's tile pass forms c2 from a1, b1 and writes it; the inverse
 //     stages follow, the last folding (N^-1 * (B_j/b_i)^-1) mod q.
+//   * intt_scale is inv_tile, which picks k rows out of every in_rows (so
+//     K4 reads ext's P rows in place), then the inverse stages with
+//     (N^-1 * scale) folded into the last pass. The tower count is a
+//     runtime argument: the TPU's tower pairs, and the garbage row they
+//     pad an odd kql with, have no counterpart.
 //   * K3 runs the forward stages over all nd * kqlp rows of the extended
 //     digits, then one tile pass per (tile, tower) that loops over the
 //     digits, takes c2 on own towers, and keeps both key-product sums in
 //     registers; the key is indexed in place (key_row), not copied.
-//   * K45's tile pass reads ext's P rows in place; the inverse stages fold
-//     (N^-1 * (P/p_i)^-1) into their last pass; the [2, kp, N]
-//     intermediate goes to device memory (it stays in L2), then the
-//     conversion kernel.
+//   * K45 is intt_scale's K4 form into a [2, kp, N] intermediate in
+//     device memory (it stays in L2), then the conversion kernel.
+//   * K6 runs the forward stages over both elements' 2 * kql rows, then
+//     one tile pass per (tile, element row) whose epilogue is the
+//     mod-down: an optional Shoup multiply by t, the subtraction from
+//     ext's Q row and the Shoup multiply by P^-1.
 //   * K6f's tile pass keeps c0 and c1 of its tile in registers and runs
 //     both elements' transforms, so the tensor terms are formed once.
 // There is no bucket padding: tower counts are runtime arguments.
@@ -214,6 +227,60 @@ __global__ void submul_tile(const uint32_t* __restrict__ src,
   }
 }
 
+// K6 tile pass, one (tile, element row e * kql + tau) per block: the last
+// forward stages of src[e, tau], then
+// out[e, tau] = (ext[e, tau] - t * NTT(convq[e, tau])) * P^-1.
+__global__ void subscale_tile(const uint32_t* __restrict__ src,
+                              const uint32_t* __restrict__ ext,
+                              uint32_t* __restrict__ out,
+                              const uint32_t* __restrict__ psi,
+                              const uint32_t* __restrict__ psi_sh,
+                              const uint32_t* __restrict__ qs,
+                              const uint32_t* __restrict__ t,
+                              const uint32_t* __restrict__ t_sh,
+                              const uint32_t* __restrict__ pinv,
+                              const uint32_t* __restrict__ pinv_sh, int kql,
+                              int kqlp, int t_mul, int log_n, int log_tile) {
+  __shared__ uint32_t s[1 << kMaxTileLog];
+  const int row = blockIdx.y;
+  const int e = row / kql;
+  const int tau = row % kql;
+  const uint32_t tile = blockIdx.x;
+  const uint32_t size = 1u << log_tile;
+  const size_t col0 = static_cast<size_t>(tile) << log_tile;
+  const size_t tw0 = static_cast<size_t>(tau) << log_n;
+  const size_t base = (static_cast<size_t>(row) << log_n) + col0;
+  const uint32_t q = qs[tau];
+  for (uint32_t x = threadIdx.x; x < size; x += blockDim.x)
+    s[x] = src[base + x];
+  __syncthreads();
+  fwd_tile_stages(s, psi + tw0, psi_sh + tw0, q, log_n, log_tile, tile);
+  const uint32_t* xe =
+      ext + ((static_cast<size_t>(e) * kqlp + tau) << log_n) + col0;
+  const uint32_t tv = t[tau], tv_sh = t_sh[tau];
+  const uint32_t pv = pinv[tau], pv_sh = pinv_sh[tau];
+  for (uint32_t x = threadIdx.x; x < size; x += blockDim.x) {
+    uint32_t v = s[x];
+    if (t_mul) v = mul_shoup(v, tv, tv_sh, q);        // block-uniform
+    out[base + x] = mul_shoup(sub_mod(xe[x], v, q), pv, pv_sh, q);
+  }
+}
+
+// out[e, tau] = INTT(x[e * in_rows + in_off + tau]) * c[tau] for tau < k
+// and e < rows / k (c = N^-1 * scale per tower): the tile pass reads the
+// rows in place, the device-memory stages run in place on out.
+void intt_scale_run(const uint32_t* x, int in_rows, int in_off,
+                    uint32_t* out, const uint32_t* ipsi,
+                    const uint32_t* ipsi_sh, const uint32_t* qs,
+                    const uint32_t* c, const uint32_t* c_sh, int rows, int k,
+                    int log_n, cudaStream_t st) {
+  const int log_tile = tile_log(log_n);
+  inv_tile<<<tile_grid(log_n, rows), tile_threads(log_tile), 0, st>>>(
+      x + (static_cast<size_t>(in_off) << log_n), in_rows, out, ipsi,
+      ipsi_sh, qs, c, c_sh, k, log_n, log_tile, log_tile == log_n);
+  inv_stages(out, ipsi, ipsi_sh, qs, c, c_sh, rows, k, log_n, st);
+}
+
 }  // namespace
 
 // a1, b1, c2, y: [kql, N] words; ipsi(_sh): [kql, N] of the Q_l towers;
@@ -237,6 +304,28 @@ extern "C" int tensor_intt(const void* a1, const void* b1, void* c2, void* y,
       static_cast<uint32_t*>(c2), yp, w, w_sh, qs, c, c_sh, log_n, log_tile,
       log_tile == log_n);
   inv_stages(yp, w, w_sh, qs, c, c_sh, kql, kql, log_n, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: [e, in_rows, N]; out: [e, k, N] COEFF with out[., tau] from row
+// in_off + tau of each element; ipsi(_sh): [k, N] and q, scale(_sh): [k]
+// of those k towers, with scale = N^-1 * (per-tower constant) mod q.
+extern "C" int intt_scale(const void* x, void* out, const void* ipsi,
+                          const void* ipsi_sh, const void* q,
+                          const void* scale, const void* scale_sh, int e,
+                          int k, int in_rows, int in_off, int log_n,
+                          void* stream) {
+  if (int bad = check_shape(e * k, k, log_n)) return bad;
+  if (in_off < 0 || in_rows < in_off + k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  intt_scale_run(static_cast<const uint32_t*>(x), in_rows, in_off,
+                 static_cast<uint32_t*>(out),
+                 static_cast<const uint32_t*>(ipsi),
+                 static_cast<const uint32_t*>(ipsi_sh),
+                 static_cast<const uint32_t*>(q),
+                 static_cast<const uint32_t*>(scale),
+                 static_cast<const uint32_t*>(scale_sh), e * k, k, log_n,
+                 static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -290,7 +379,7 @@ extern "C" int ntt_keymul_acc(const void* conv, const void* c2,
 
 // ext: [2, kql + kp, N] EVAL; pc: [2, kp, N] scratch; out: [2, kql, N]
 // COEFF. ipsi(_sh): [kp, N] and qp, scale(_sh): [kp] of the P towers, with
-// scale = N^-1 * (P/p_i)^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql].
+// scale = N^-1 * (P/p_i)^-1 * t^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql].
 extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
                            const void* ipsi, const void* ipsi_sh,
                            const void* qp, const void* scale,
@@ -300,24 +389,49 @@ extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
   if (int bad = check_shape(2 * kp, kp, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* pcp = static_cast<uint32_t*>(pc);
-  const auto* tw = static_cast<const uint32_t*>(ipsi);
-  const auto* tw_sh = static_cast<const uint32_t*>(ipsi_sh);
-  const auto* qs = static_cast<const uint32_t*>(qp);
-  const auto* c = static_cast<const uint32_t*>(scale);
-  const auto* c_sh = static_cast<const uint32_t*>(scale_sh);
-  const int log_tile = tile_log(log_n);
-  const auto* p_rows =
-      static_cast<const uint32_t*>(ext) + (static_cast<size_t>(kql) << log_n);
-  inv_tile<<<tile_grid(log_n, 2 * kp), tile_threads(log_tile), 0, st>>>(
-      p_rows, kql + kp, pcp, tw, tw_sh, qs, c, c_sh, kp, log_n, log_tile,
-      log_tile == log_n);
-  inv_stages(pcp, tw, tw_sh, qs, c, c_sh, 2 * kp, kp, log_n, st);
+  intt_scale_run(static_cast<const uint32_t*>(ext), kql + kp, kql, pcp,
+                 static_cast<const uint32_t*>(ipsi),
+                 static_cast<const uint32_t*>(ipsi_sh),
+                 static_cast<const uint32_t*>(qp),
+                 static_cast<const uint32_t*>(scale),
+                 static_cast<const uint32_t*>(scale_sh), 2 * kp, kp, log_n,
+                 st);
   if (int bad = rowmod_run(pcp, static_cast<const uint32_t*>(w),
                            static_cast<const uint32_t*>(w_sh),
                            static_cast<const uint32_t*>(qq),
                            static_cast<uint32_t*>(out), 2, kp, kql,
                            1 << log_n, 0, st))
     return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// convq: [2, kql, N] COEFF; ext: [2, kql + kp, N] EVAL; scratch, out:
+// [2, kql, N]; psi(_sh): [kql, N]; q, t(_sh), pinv(_sh): [kql] with
+// t = ns_int mod q_i (multiplied only when t_mul) and pinv = P^-1 mod q_i.
+extern "C" int ntt_subscale(const void* convq, const void* ext,
+                            void* scratch, void* out, const void* psi,
+                            const void* psi_sh, const void* q, const void* t,
+                            const void* t_sh, const void* pinv,
+                            const void* pinv_sh, int kql, int kp, int t_mul,
+                            int log_n, void* stream) {
+  if (int bad = check_shape(2 * kql, kql, log_n)) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const uint32_t*>(psi);
+  const auto* w_sh = static_cast<const uint32_t*>(psi_sh);
+  const auto* qs = static_cast<const uint32_t*>(q);
+  const uint32_t* src =
+      fwd_stages(static_cast<const uint32_t*>(convq),
+                 static_cast<uint32_t*>(scratch), w, w_sh, qs, 2 * kql, kql,
+                 log_n, st);
+  const int log_tile = tile_log(log_n);
+  subscale_tile<<<tile_grid(log_n, 2 * kql), tile_threads(log_tile), 0,
+                  st>>>(src, static_cast<const uint32_t*>(ext),
+                        static_cast<uint32_t*>(out), w, w_sh, qs,
+                        static_cast<const uint32_t*>(t),
+                        static_cast<const uint32_t*>(t_sh),
+                        static_cast<const uint32_t*>(pinv),
+                        static_cast<const uint32_t*>(pinv_sh), kql, kql + kp,
+                        t_mul, log_n, log_tile);
   return static_cast<int>(cudaGetLastError());
 }
 

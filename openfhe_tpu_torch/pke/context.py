@@ -6,14 +6,18 @@ the conversion tables (built lazily per level) and the key stores, all on
 one device. Method names mirror the reference.
 
 Ported: CKKS with HYBRID key switching and FIXEDMANUAL / FIXEDAUTO
-scaling. EvalMult of two 2-element ciphertexts is the tensor product plus
-relinearization as `_k_mult_relin_hybrid` runs it: on a CUDA context
-through the fused five-kernel chain (`ks_fused.mult_relin_fused`), on the
-CPU through the unfused key switch (`hybrid.keyswitch_core`), with the
-same words. Relinearize, and EvalMult of a 3-element input, run the
-unfused chain on every device: the fused `keyswitch_core_fused` (TPU
-kernels h, i, j) is not ported yet. BGV/BFV, BV key switching, rotations,
-FLEXIBLE and composite scaling raise NotImplementedError.
+scaling. Every key switch goes through `hybrid.keyswitch_core` and
+EvalMult of two 2-element ciphertexts through `mult_relin_hybrid`: on a
+CUDA context each is one five-kernel chain (`ks_fused.keyswitch_core_fused`
+for Relinearize, KeySwitch and every automorphism, `ks_fused.
+mult_relin_fused` for EvalMult), on the CPU the unfused chain, with the
+same words. Rotations: automorphism keys (`eval_automorphism_keys[key_tag]
+[g]`), EvalAutomorphism / EvalRotate / EvalAtIndex / EvalConjugate, the
+hoisted EvalFastRotation, and the rotation ladders of `advanced.py`
+(EvalSum, EvalSumRows, EvalSumCols, EvalInnerProduct). BGV/BFV, BV key
+switching, the extended-basis ops (KeySwitchExt, EvalFastRotationExt,
+KeySwitchDown), EvalSub / EvalNegate, plaintext and scalar ops, FLEXIBLE
+and composite scaling raise NotImplementedError or are absent.
 
 Devices are explicit: the context's tensors live on `device`, `cuda` when
 None (it raises if there is no GPU). Randomness comes from one
@@ -30,11 +34,15 @@ import torch
 
 from openfhe_tpu_torch._device import resolve_device
 from openfhe_tpu_torch.lattice import rns_tools as rt
+from openfhe_tpu_torch.lattice.automorph import (conjugation_index,
+                                                 eval_indices,
+                                                 rotation_automorphism_index)
 from openfhe_tpu_torch.lattice.basis import Basis, make_basis
 from openfhe_tpu_torch.lattice.dcrt import COEFF, EVAL, Poly
 from openfhe_tpu_torch.math import crt
 from openfhe_tpu_torch.math import modops as mo
 from openfhe_tpu_torch.ops.ntt import ntt_fwd
+from openfhe_tpu_torch.pke import advanced
 from openfhe_tpu_torch.pke import parameters as prm
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext, Plaintext
 from openfhe_tpu_torch.pke.constants import (DecryptionNoiseMode,
@@ -56,9 +64,7 @@ def mult_relin_hybrid(a0, a1, b0, b1, ek: EvalKey,
     `hybrid.keyswitch_core` and folded into (c0, c1). Both give the same
     words."""
     if tabs.fused is not None:
-        if ek.bv_sh is None or ek.av_sh is None:
-            raise ValueError("the fused key switch needs the key's Shoup "
-                             "companions (hybrid.shoup_companions)")
+        hybrid.require_companions(ek)
         return ks_fused.mult_relin_fused(a0, a1, b0, b1, ek.bv, ek.av,
                                          ek.bv_sh, ek.av_sh, tabs.fused)
     q = tabs.basis_ql.q
@@ -66,8 +72,26 @@ def mult_relin_hybrid(a0, a1, b0, b1, ek: EvalKey,
     c2 = mo.mul_mod(a1, b1, q)
     cross = mo.mul_mod(mo.add_mod(a0, a1, q), mo.add_mod(b0, b1, q), q)
     c1 = mo.sub_mod(mo.sub_mod(cross, c0, q), c2, q)
-    d0, d1 = hybrid.keyswitch_core(c2, ek, tabs)
-    return mo.add_mod(c0, d0, q), mo.add_mod(c1, d1, q)
+    return relin_hybrid(c0, c1, c2, ek, tabs)
+
+
+def relin_hybrid(e0, e1, e2, ek: EvalKey, tabs: hybrid.HybridTables):
+    """(e0, e1, e2) -> (e0 + d0, e1 + d1) with (d0, d1) the key switch of
+    e2, as the JAX package's `_k_relin_hybrid`."""
+    d0, d1 = hybrid.keyswitch_core(e2, ek, tabs)
+    q = tabs.basis_ql.q
+    return mo.add_mod(e0, d0, q), mo.add_mod(e1, d1, q)
+
+
+def automorph_hybrid(elems, idx: torch.Tensor, ek: EvalKey,
+                     tabs: hybrid.HybridTables):
+    """sigma_g of a 2-element ciphertext, as the JAX package's
+    `_k_automorph_hybrid`: both elements gathered with the EVAL table
+    `idx`, the second key-switched from s(X^g) back to s, its first half
+    added to the first."""
+    rot = [torch.index_select(c, -1, idx) for c in elems]
+    d0, d1 = hybrid.keyswitch_core(rot[1], ek, tabs)
+    return mo.add_mod(rot[0], d0, tabs.basis_ql.q), d1
 
 
 class CryptoContext:
@@ -96,6 +120,8 @@ class CryptoContext:
         self._hybrid_cache: dict = {}
         self._rescale_cache: dict = {}
         self.eval_mult_keys: dict = {}
+        self.eval_automorphism_keys: dict = {}   # key_tag -> {g: EvalKey}
+        self._auto_idx_cache: dict = {}
 
     # ------------------------------------------------------------------
     # parameter generation
@@ -183,6 +209,32 @@ class CryptoContext:
         s_sq = mo.mul_mod(sk.s_qp, sk.s_qp, self.basis_qp.q)
         sk2 = PrivateKey(s_qp=s_sq, key_tag=sk.key_tag)
         self.eval_mult_keys[sk.key_tag] = self.KeySwitchGen(sk2, sk)
+
+    def _automorphism_keygen(self, sk: PrivateKey, g: int) -> EvalKey:
+        """Key switching s(X^g) -> s."""
+        s_g = torch.index_select(sk.s_qp, -1, self._auto_idx(g))
+        return self.KeySwitchGen(PrivateKey(s_qp=s_g, key_tag=sk.key_tag),
+                                 sk)
+
+    def EvalAutomorphismKeyGen(self, sk: PrivateKey, g_list) -> None:
+        store = self.eval_automorphism_keys.setdefault(sk.key_tag, {})
+        for g in g_list:
+            if g not in store:
+                store[g] = self._automorphism_keygen(sk, g)
+
+    def EvalRotateKeyGen(self, sk: PrivateKey, index_list) -> None:
+        """(reference: EvalAtIndexKeyGen / EvalRotateKeyGen)"""
+        self.EvalAutomorphismKeyGen(
+            sk, [rotation_automorphism_index(r, self.ring_dim)
+                 for r in index_list])
+
+    EvalAtIndexKeyGen = EvalRotateKeyGen
+
+    def EvalConjugateKeyGen(self, sk: PrivateKey) -> None:
+        self.EvalAutomorphismKeyGen(sk, [conjugation_index(self.ring_dim)])
+
+    def InsertEvalAutomorphismKey(self, key_map: dict, key_tag: str) -> None:
+        self.eval_automorphism_keys.setdefault(key_tag, {}).update(key_map)
 
     # ------------------------------------------------------------------
     # encoding
@@ -298,11 +350,8 @@ class CryptoContext:
             raise NotImplementedError("relinearization beyond degree 2")
         ek = self.eval_mult_keys[ct.key_tag]
         tabs = self.hybrid_tables(self.size_ql(ct.level))
-        d0, d1 = hybrid.keyswitch_core(ct.elements[2], ek, tabs)
-        q = tabs.basis_ql.q
-        return dataclasses.replace(
-            ct, elements=(mo.add_mod(ct.elements[0], d0, q),
-                          mo.add_mod(ct.elements[1], d1, q)))
+        return dataclasses.replace(ct, elements=relin_hybrid(*ct.elements,
+                                                             ek, tabs))
 
     def EvalMult(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """Tensor product + relinearization of two ciphertexts."""
@@ -343,6 +392,118 @@ class CryptoContext:
             ct, elements=tuple(c[..., :size, :].contiguous()
                                for c in ct.elements),
             level=ct.level + levels)
+
+    # ------------------------------------------------------------------
+    # rotations (reference EvalRotate/EvalAtIndex, cryptocontext.h:2302)
+    # ------------------------------------------------------------------
+
+    def _auto_idx(self, g: int) -> torch.Tensor:
+        """The EVAL gather table of sigma_g on the context's device."""
+        idx = self._auto_idx_cache.get(g)
+        if idx is None:
+            idx = self._auto_idx_cache[g] = torch.from_numpy(
+                eval_indices(self.ring_dim, g).astype(np.int64)).to(
+                    self.device)
+        return idx
+
+    def _two_elements(self, ct: Ciphertext, op: str) -> None:
+        if len(ct.elements) != 2:
+            raise NotImplementedError(
+                f"{op} of a {len(ct.elements)}-element ciphertext "
+                "(relinearize first)")
+
+    def EvalAutomorphism(self, ct: Ciphertext, g: int) -> Ciphertext:
+        self._two_elements(ct, "EvalAutomorphism")
+        ek = self.eval_automorphism_keys[ct.key_tag][g]
+        tabs = self.hybrid_tables(self.size_ql(ct.level))
+        return dataclasses.replace(ct, elements=automorph_hybrid(
+            ct.elements, self._auto_idx(g), ek, tabs))
+
+    def EvalRotate(self, ct: Ciphertext, index: int) -> Ciphertext:
+        """Slot rotation: index 1 moves slot i + 1 to slot i."""
+        return self.EvalAutomorphism(
+            ct, rotation_automorphism_index(index, self.ring_dim))
+
+    EvalAtIndex = EvalRotate
+
+    def EvalConjugate(self, ct: Ciphertext) -> Ciphertext:
+        return self.EvalAutomorphism(ct, conjugation_index(self.ring_dim))
+
+    # ------------------------------------------------------------------
+    # hoisted rotations (reference EvalFastRotationPrecompute /
+    # EvalFastRotation, cryptocontext.h:2331-2410)
+    # ------------------------------------------------------------------
+
+    def EvalFastRotationPrecompute(self, ct: Ciphertext) -> list:
+        """Digit-decompose c1 once; every EvalFastRotation shares it."""
+        self._two_elements(ct, "EvalFastRotationPrecompute")
+        tabs = self.hybrid_tables(self.size_ql(ct.level))
+        return hybrid.eval_fast_rotation_precompute(ct.elements[1], tabs)
+
+    def EvalFastRotation(self, ct: Ciphertext, index: int, m: int = 0,
+                         digits=None) -> Ciphertext:
+        """Rotation on hoisted digits (EvalRotate when there are none).
+        The words may differ from EvalRotate's: see
+        `hybrid.eval_fast_rotation_core`."""
+        if digits is None:
+            return self.EvalRotate(ct, index)
+        self._two_elements(ct, "EvalFastRotation")
+        g = rotation_automorphism_index(index, self.ring_dim)
+        ek = self.eval_automorphism_keys[ct.key_tag][g]
+        tabs = self.hybrid_tables(self.size_ql(ct.level))
+        idx = self._auto_idx(g)
+        d0, d1 = hybrid.eval_fast_rotation_core(digits, idx, ek, tabs)
+        c0 = torch.index_select(ct.elements[0], -1, idx)
+        return dataclasses.replace(
+            ct, elements=(mo.add_mod(c0, d0, tabs.basis_ql.q), d1))
+
+    # ------------------------------------------------------------------
+    # generic key switching (reference KeySwitch, cryptocontext.h:1685)
+    # ------------------------------------------------------------------
+
+    def KeySwitch(self, ct: Ciphertext, ek: EvalKey) -> Ciphertext:
+        """Switch a 2-element ciphertext to the key `ek` targets."""
+        self._two_elements(ct, "KeySwitch")
+        tabs = self.hybrid_tables(self.size_ql(ct.level))
+        d0, d1 = hybrid.keyswitch_core(ct.elements[1], ek, tabs)
+        return dataclasses.replace(
+            ct, elements=(mo.add_mod(ct.elements[0], d0, tabs.basis_ql.q),
+                          d1),
+            key_tag=ek.key_tag)
+
+    # ------------------------------------------------------------------
+    # AdvancedSHE: many-operand trees and rotation ladders (advanced.py)
+    # ------------------------------------------------------------------
+
+    def EvalAddMany(self, cts) -> Ciphertext:
+        return advanced.eval_add_many(self, cts)
+
+    def EvalMultMany(self, cts) -> Ciphertext:
+        return advanced.eval_mult_many(self, cts)
+
+    def EvalSumKeyGen(self, sk: PrivateKey, batch_size=None) -> None:
+        advanced.eval_sum_keygen(self, sk, batch_size)
+
+    def EvalSum(self, ct: Ciphertext, batch_size=None) -> Ciphertext:
+        return advanced.eval_sum(self, ct, batch_size)
+
+    def EvalSumRowsKeyGen(self, sk: PrivateKey, row_size: int,
+                          batch: int) -> None:
+        advanced.eval_sum_rows_keygen(self, sk, row_size, batch)
+
+    def EvalSumRows(self, ct: Ciphertext, row_size: int,
+                    batch=None) -> Ciphertext:
+        return advanced.eval_sum_rows(self, ct, row_size, batch)
+
+    def EvalSumColsKeyGen(self, sk: PrivateKey, row_size: int) -> None:
+        advanced.eval_sum_cols_keygen(self, sk, row_size)
+
+    def EvalSumCols(self, ct: Ciphertext, row_size: int) -> Ciphertext:
+        return advanced.eval_sum_cols(self, ct, row_size)
+
+    def EvalInnerProduct(self, ct1: Ciphertext, ct2: Ciphertext,
+                         batch_size=None) -> Ciphertext:
+        return advanced.eval_inner_product(self, ct1, ct2, batch_size)
 
 
 def GenCryptoContext(params: prm.CCParams, seed: int = 0,

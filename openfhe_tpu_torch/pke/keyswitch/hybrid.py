@@ -10,11 +10,16 @@ EvalFastKeySwitchCoreExt, ApproxModDown).
     Q_l*P (ApproxModUp); inner product with the key digits; ApproxModDown
     divides by P.
 
-At the top level (two digits) `keyswitch_core` runs four forward NTTs,
+At the top level (two digits) the unfused chain runs four forward NTTs,
 four inverse NTTs and four base conversions: one of each per digit and
 per element of the mod-down. On a CUDA context the level's tables also
-carry the fused chain's tables (`HybridTables.fused`), which EvalMult
-takes instead (`ks_fused.py`).
+carry the fused chain's tables (`HybridTables.fused`): `keyswitch_core`
+then runs `ks_fused.keyswitch_core_fused` and EvalMult
+`ks_fused.mult_relin_fused`, with the same words.
+
+Hoisted rotations (`eval_fast_rotation_precompute` / `_core`) stay
+unfused, as in the JAX package: the digits are extended once and each
+rotation permutes them.
 """
 
 from __future__ import annotations
@@ -129,6 +134,13 @@ def shoup_companions(ek: EvalKey, moduli_qp) -> EvalKey:
     return dataclasses.replace(ek, bv_sh=sh(ek.bv), av_sh=sh(ek.av))
 
 
+def require_companions(ek: EvalKey) -> None:
+    """The fused chains' key products need the key's Shoup companions."""
+    if ek.bv_sh is None or ek.av_sh is None:
+        raise ValueError("the fused key switch needs the key's Shoup "
+                         "companions (hybrid.shoup_companions)")
+
+
 def _decompose_digits(c: torch.Tensor, tabs: HybridTables) -> list:
     """EvalKeySwitchPrecomputeCore: per digit, extend [c]_{Q_j} to Q_l*P.
 
@@ -166,12 +178,41 @@ def _fast_core_ext(digits: list, ek: EvalKey, tabs: HybridTables):
     return acc0, acc1
 
 
-def keyswitch_core(c: torch.Tensor, ek: EvalKey, tabs: HybridTables):
-    """KeySwitchCore on one polynomial (usually ct[last]): returns
-    (delta0, delta1) over Q_l in EVAL."""
-    ext0, ext1 = _fast_core_ext(_decompose_digits(c, tabs), ek, tabs)
+def _mod_down_pair(ext0, ext1, tabs: HybridTables):
     size_ql = tabs.size_ql
     return tuple(rt.approx_mod_down(ext[:size_ql], ext[size_ql:],
                                     tabs.basis_ql, tabs.basis_p,
                                     tabs.moddown)
                  for ext in (ext0, ext1))
+
+
+def keyswitch_core(c: torch.Tensor, ek: EvalKey, tabs: HybridTables):
+    """KeySwitchCore on one polynomial (usually ct[last]): returns
+    (delta0, delta1) over Q_l in EVAL. The fused chain when the tables
+    carry it (a CUDA context), which needs the key's Shoup companions;
+    else the unfused chain."""
+    if tabs.fused is not None:
+        require_companions(ek)
+        return ks_fused.keyswitch_core_fused(c, ek.bv, ek.av, ek.bv_sh,
+                                             ek.av_sh, tabs.fused)
+    return _mod_down_pair(*_fast_core_ext(_decompose_digits(c, tabs), ek,
+                                          tabs), tabs)
+
+
+def eval_fast_rotation_precompute(c1: torch.Tensor, tabs: HybridTables):
+    """Hoisted digit decomposition (reference EvalFastRotationPrecompute,
+    keyswitch-hybrid.cpp EvalKeySwitchPrecomputeCore): the ApproxModUp
+    runs once per ciphertext and every rotation of it shares the digits."""
+    return _decompose_digits(c1, tabs)
+
+
+def eval_fast_rotation_core(digits: list, idx: torch.Tensor, ek: EvalKey,
+                            tabs: HybridTables):
+    """Key switch of a rotation on hoisted digits (reference
+    EvalFastRotationExt + ApproxModDown): the automorphism with EVAL
+    gather table `idx` permutes the extended digits, then the key's inner
+    product and ApproxModDown. sigma_g commutes with the CRT lift only up
+    to multiples of Q_j, so the words may differ from `keyswitch_core` of
+    the rotated polynomial; both are valid key switches."""
+    rot = [torch.index_select(d, -1, idx) for d in digits]
+    return _mod_down_pair(*_fast_core_ext(rot, ek, tabs), tabs)

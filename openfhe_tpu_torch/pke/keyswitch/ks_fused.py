@@ -1,21 +1,31 @@
-"""Fused HYBRID mult + relinearize: the five-kernel chain of EvalMult on CUDA.
+"""Fused HYBRID key switching: the five-kernel chains on CUDA.
 
-Counterpart of `openfhe_tpu/pke/keyswitch/ks_fused.py` (`mult_relin_fused`
-and its tables; reference analogs: keyswitch-hybrid.cpp
-EvalKeySwitchPrecomputeCore / EvalFastKeySwitchCore, DCRTPolyImpl::
-ApproxModDown, rns-leveledshe.cpp EvalMult). One EvalMult of two
-2-element ciphertexts at a level with kql Q towers is five kernel calls
-of `csrc/ks_fused.cu`:
+Counterpart of `openfhe_tpu/pke/keyswitch/ks_fused.py` (`mult_relin_fused`,
+`keyswitch_core_fused` and their tables; reference analogs:
+keyswitch-hybrid.cpp EvalKeySwitchPrecomputeCore / EvalFastKeySwitchCore,
+DCRTPolyImpl::ApproxModDown, rns-leveledshe.cpp EvalMult). One EvalMult of
+two 2-element ciphertexts at a level with kql Q towers is five kernel
+calls of `csrc/ks_fused.cu`:
 
   tensor_intt       (K1t) c2 = a1*b1 and y = INTT(c2) * (B_j/b_i)^-1
   conv_digits       (K2)  every digit of y extended to all Q_l*P towers
   ntt_keymul_acc    (K3)  ext = sum_j s_j * (bv_j, av_j), s_j = c2 on the
                           digit's own towers, else NTT of the extension
-  intt_conv_p       (K45) INTT(ext's P rows) * (P/p_i)^-1, then P -> Q_l
+  intt_conv_p       (K45) INTT(ext's P rows) * (P/p_i)^-1 * t^-1, then
+                          P -> Q_l
   ntt_submul_final  (K6f) out = tensor terms + (ext - NTT(convq)) * P^-1
 
+Every other key switch (Relinearize, KeySwitch, every automorphism) is
+`keyswitch_core_fused` on one polynomial c2, also five calls: K1t and K6f
+give way to
+
+  intt_scale        (K1)  y = INTT(c2) * (B_j/b_i)^-1; the same kernel
+                          does K4's INTT of ext's P rows (`p_rows`)
+  ntt_subscale      (K6)  out = (ext - t * NTT(convq)) * P^-1
+
 Every step is exact modular arithmetic on canonical residues, so the
-words equal the unfused chain's (tensor product + `hybrid.keyswitch_core`).
+words equal the unfused chain's (`hybrid.keyswitch_core`, with the tensor
+product for EvalMult).
 
 Tables are canonical residues with Shoup companions, like
 `rns_tools.SwitchTables`; the JAX package's int8 Karatsuba limb stacks
@@ -23,7 +33,9 @@ and f32 ratios are the TPU's number scheme and have no counterpart here.
 There is no bucket padding (`bucket_size`, `pad_to`, `kql_real`): XLA
 compiles once per shape, but the CUDA kernels take the tower counts as
 runtime arguments, so tables are built for each level's real size_ql.
-BGV's noise scale t (`ns_int`) is not ported yet.
+BGV's noise scale t (`ns_int`) reaches only these tables and the two
+kernels that read it (`intt_conv_p` through t^-1 in its scale,
+`ntt_subscale`); no context of the port sets it yet.
 
 Each kernel has a wrapper and its plain twin (`_..._ref`) here. The
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
@@ -59,12 +71,14 @@ class FusedKSTables:
     k1_scale_sh: torch.Tensor
     conv_w: torch.Tensor         # [nd, alpha, kqlp] [B_j/b_i]_{q_tau}, zero
     conv_w_sh: torch.Tensor      #   on the digit's own rows and past its end
-    pscale: torch.Tensor         # [kp, 1] (P/p_i)^-1 mod p_i
+    pscale: torch.Tensor         # [kp, 1] (P/p_i)^-1 * t^-1 mod p_i
     pscale_sh: torch.Tensor
     k45_scale: torch.Tensor      # [kp, 1] N^-1 * pscale, K45's last pass
     k45_scale_sh: torch.Tensor
     pconv_w: torch.Tensor        # [kp, kql] [P/p_j]_{q_i}
     pconv_w_sh: torch.Tensor
+    t_modq: torch.Tensor         # [kql, 1] t mod q_i (K6)
+    t_modq_sh: torch.Tensor
     pinv_q: torch.Tensor         # [kql, 1] P^-1 mod q_i
     pinv_q_sh: torch.Tensor
     kql: int
@@ -72,6 +86,7 @@ class FusedKSTables:
     nd: int
     alpha: int
     k_q_full: int
+    t_is_one: bool = True        # ns_int == 1: K6 skips the t multiply
 
 
 def _pair(vals, mods, device):
@@ -83,10 +98,11 @@ def _pair(vals, mods, device):
 
 
 def make_fused_ks_tables(basis_qlp: Basis, size_ql: int, k_q_full: int,
-                         num_parts: int) -> FusedKSTables:
+                         num_parts: int, ns_int: int = 1) -> FusedKSTables:
     """Host precompute (Python ints) for the level with `size_ql` Q towers;
     `basis_qlp` is Q_l followed by P, `k_q_full` the full chain's Q tower
-    count and `num_parts` its digit count."""
+    count and `num_parts` its digit count. `ns_int` is BGV's noise scale
+    t (1 for CKKS): the mod-down then returns (x - t*[x*t^-1]_P) / P."""
     dev = basis_qlp.device
     n = basis_qlp.ring_dim
     kql = size_ql
@@ -112,12 +128,14 @@ def make_fused_ks_tables(basis_qlp: Basis, size_ql: int, k_q_full: int,
             for tau, qt in enumerate(mqlp):
                 if not start <= tau < end:
                     w[j, i, tau] = bhat[j] // b % qt
-    # K45: (P/p_i)^-1 (and with N^-1), and W5[j, i] = [P / p_j]_{q_i}
+    # K45: (P/p_i)^-1 * t^-1 (and with N^-1), W5[j, i] = [P / p_j]_{q_i}
     big_p = math.prod(mp)
-    pscale = [pow(big_p // p % p, -1, p) for p in mp]
+    pscale = [pow(big_p // p % p, -1, p) * pow(ns_int % p, -1, p) % p
+              for p in mp]
     k45 = [v * pow(n, -1, p) % p for v, p in zip(pscale, mp)]
     w5 = np.array([[big_p // p % q for q in mq] for p in mp], np.uint64)
-    # K6f: P^-1 mod q_i
+    # K6 / K6f: t mod q_i and P^-1 mod q_i
+    tq = [ns_int % q for q in mq]
     pinv = [pow(big_p % q, -1, q) for q in mq]
     return FusedKSTables(
         basis_qlp, basis_qlp.slice(0, kql), basis_qlp.slice(kql, kqlp),
@@ -125,8 +143,9 @@ def make_fused_ks_tables(basis_qlp: Basis, size_ql: int, k_q_full: int,
         *_pair(w, np.reshape(mqlp, (1, 1, -1)), dev),
         *col(pscale, mp), *col(k45, mp),
         *_pair(w5, np.reshape(mq, (1, -1)), dev),
-        *col(pinv, mq),
-        kql=kql, kp=kp, nd=nd, alpha=alpha, k_q_full=k_q_full)
+        *col(tq, mq), *col(pinv, mq),
+        kql=kql, kp=kp, nd=nd, alpha=alpha, k_q_full=k_q_full,
+        t_is_one=ns_int == 1)
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +204,48 @@ def _tensor_intt_ref(a1, b1, tabs: FusedKSTables):
     y = mo.mul_mod_shoup(_ntt_inv_ref(c2, bq), tabs.bhatinv_q,
                          tabs.bhatinv_q_sh, bq.q)
     return c2, y
+
+
+def intt_scale(x: torch.Tensor, tabs: FusedKSTables,
+               p_rows: bool = False) -> torch.Tensor:
+    """INTT times a per-tower constant, in one of the two forms of the
+    JAX package's `_intt_scale_pairs` / `_intt_scale`:
+
+      K1 (p_rows False): x [kql, N] EVAL over Q_l ->
+         y = INTT(x) * (B_j/b_i)^-1 [kql, N] COEFF;
+      K4 (p_rows True):  x [E, kql + kp, N] EVAL (ext) ->
+         INTT(x[:, kql:]) * (P/p_i)^-1 * t^-1 [E, kp, N] COEFF, the P rows
+         read in place.
+    """
+    if x.device.type == "cpu":
+        return _intt_scale_ref(x, tabs, p_rows)
+    kql, kp = tabs.kql, tabs.kp
+    if p_rows:
+        lead = tuple(x.shape[:-2])
+        _check("intt_scale", tabs, x=(x, lead + (kql + kp,)))
+        k, in_rows, in_off = kp, kql + kp, kql
+        basis, scale, scale_sh = (tabs.basis_p, tabs.k45_scale,
+                                  tabs.k45_scale_sh)
+    else:
+        lead = ()
+        _check("intt_scale", tabs, x=(x, (kql,)))
+        k, in_rows, in_off = kql, kql, 0
+        basis, scale, scale_sh = (tabs.basis_ql, tabs.k1_scale,
+                                  tabs.k1_scale_sh)
+    out = x.new_empty(lead + (k, x.shape[-1]))
+    _launch("intt_scale", x, out, basis.ipsi_br, basis.ipsi_br_sh, basis.q,
+            scale, scale_sh, math.prod(lead), k, in_rows, in_off,
+            _log_n(tabs))
+    return out
+
+
+def _intt_scale_ref(x, tabs: FusedKSTables, p_rows: bool = False):
+    if p_rows:
+        b, c, c_sh = tabs.basis_p, tabs.pscale, tabs.pscale_sh
+        x = x[..., tabs.kql:, :]
+    else:
+        b, c, c_sh = tabs.basis_ql, tabs.bhatinv_q, tabs.bhatinv_q_sh
+    return mo.mul_mod_shoup(_ntt_inv_ref(x, b), c, c_sh, b.q)
 
 
 def conv_digits(y_pad: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
@@ -266,10 +327,8 @@ def intt_conv_p(ext: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
 
 
 def _intt_conv_p_ref(ext, tabs: FusedKSTables):
-    bp = tabs.basis_p
-    pc = mo.mul_mod_shoup(_ntt_inv_ref(ext[:, tabs.kql:], bp), tabs.pscale,
-                          tabs.pscale_sh, bp.q)
-    return _mod_matmul_rowmod_ref(pc, tabs.pconv_w, tabs.basis_ql.q)
+    return _mod_matmul_rowmod_ref(_intt_scale_ref(ext, tabs, p_rows=True),
+                                  tabs.pconv_w, tabs.basis_ql.q)
 
 
 def ntt_submul_final(convq, ext, a0, a1, b0, b1,
@@ -304,6 +363,33 @@ def _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables):
     return torch.stack([mo.add_mod(c0, d[0], q), mo.add_mod(c1, d[1], q)])
 
 
+def ntt_subscale(convq: torch.Tensor, ext: torch.Tensor,
+                 tabs: FusedKSTables) -> torch.Tensor:
+    """K6: convq [2, kql, N] COEFF and ext [2, kqlp, N] EVAL ->
+    [2, kql, N] EVAL, out[e] = (ext[e, :kql] - t * NTT(convq[e])) * P^-1
+    (t = 1 unless the tables were made with ns_int)."""
+    if convq.device.type == "cpu":
+        return _ntt_subscale_ref(convq, ext, tabs)
+    kql, kp = tabs.kql, tabs.kp
+    _check("ntt_subscale", tabs, convq=(convq, (2, kql)),
+           ext=(ext, (2, kql + kp)))
+    scratch, out = torch.empty_like(convq), torch.empty_like(convq)
+    bq = tabs.basis_ql
+    _launch("ntt_subscale", convq, ext, scratch, out, bq.psi_br,
+            bq.psi_br_sh, bq.q, tabs.t_modq, tabs.t_modq_sh, tabs.pinv_q,
+            tabs.pinv_q_sh, kql, kp, int(not tabs.t_is_one), _log_n(tabs))
+    return out
+
+
+def _ntt_subscale_ref(convq, ext, tabs: FusedKSTables):
+    bq = tabs.basis_ql
+    s = _ntt_fwd_ref(convq, bq)
+    if not tabs.t_is_one:
+        s = mo.mul_mod_shoup(s, tabs.t_modq, tabs.t_modq_sh, bq.q)
+    return mo.mul_mod_shoup(mo.sub_mod(ext[:, :tabs.kql], s, bq.q),
+                            tabs.pinv_q, tabs.pinv_q_sh, bq.q)
+
+
 # ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
@@ -327,4 +413,18 @@ def mult_relin_fused(a0, a1, b0, b1, bv, av, bv_sh, av_sh,
     ext = ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh, tabs)
     convq = intt_conv_p(ext, tabs)
     out = ntt_submul_final(convq, ext, a0, a1, b0, b1, tabs)
+    return out[0], out[1]
+
+
+def keyswitch_core_fused(c2, bv, av, bv_sh, av_sh, tabs: FusedKSTables):
+    """KeySwitchCore on one polynomial as one five-kernel chain.
+
+    c2: [kql, N] EVAL; bv, av (+ companions): the key-switch key
+    [dnum, k_q_full + kp, N]. Returns (d0, d1) [kql, N] EVAL, the words of
+    `hybrid.keyswitch_core`'s unfused chain."""
+    y = intt_scale(c2, tabs)
+    conv = conv_digits(_pad_digits(y, tabs), tabs)
+    ext = ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh, tabs)
+    convq = intt_conv_p(ext, tabs)
+    out = ntt_subscale(convq, ext, tabs)
     return out[0], out[1]

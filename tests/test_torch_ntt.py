@@ -133,23 +133,27 @@ def test_kernel_wrappers_take_no_fallback():
         ntt.ntt_fwd(x, tb)
     with pytest.raises(ValueError, match="no kernel"):
         ntt.ntt_inv(x, tb)
-    # the fused chain's five wrappers, at 2 Q + 1 P towers and 2 digits
+    # the fused chains' seven wrappers, at 2 Q + 1 P towers and 2 digits
     mods = [nbtheory.first_prime(b, 2 * n) for b in (26, 27, 28)]
     tabs = ks_fused.make_fused_ks_tables(make_basis(mods, n), 2, 2, 2)
     meta = lambda *shape: torch.empty(shape + (n,), dtype=torch.int32,
                                       device="meta")
     y_pad, ext = meta(2, 1), meta(2, 3)
     q_in, key = meta(2), meta(2, 3)
-    calls = {
-        "tensor_intt": lambda: ks_fused.tensor_intt(q_in, q_in, tabs),
-        "conv_digits": lambda: ks_fused.conv_digits(y_pad, tabs),
-        "ntt_keymul_acc": lambda: ks_fused.ntt_keymul_acc(
-            meta(2, 3), q_in, key, key, key, key, tabs),
-        "intt_conv_p": lambda: ks_fused.intt_conv_p(ext, tabs),
-        "ntt_submul_final": lambda: ks_fused.ntt_submul_final(
-            meta(2, 2), ext, q_in, q_in, q_in, q_in, tabs),
-    }
-    for name, call in calls.items():
+    calls = [
+        ("tensor_intt", lambda: ks_fused.tensor_intt(q_in, q_in, tabs)),
+        ("intt_scale", lambda: ks_fused.intt_scale(q_in, tabs)),
+        ("intt_scale", lambda: ks_fused.intt_scale(ext, tabs, p_rows=True)),
+        ("conv_digits", lambda: ks_fused.conv_digits(y_pad, tabs)),
+        ("ntt_keymul_acc", lambda: ks_fused.ntt_keymul_acc(
+            meta(2, 3), q_in, key, key, key, key, tabs)),
+        ("intt_conv_p", lambda: ks_fused.intt_conv_p(ext, tabs)),
+        ("ntt_subscale", lambda: ks_fused.ntt_subscale(meta(2, 2), ext,
+                                                       tabs)),
+        ("ntt_submul_final", lambda: ks_fused.ntt_submul_final(
+            meta(2, 2), ext, q_in, q_in, q_in, q_in, tabs)),
+    ]
+    for name, call in calls:
         with pytest.raises(ValueError, match=f"{name}: no kernel"):
             call()
 
