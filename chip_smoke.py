@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's CKKS main path on one GPU and check its kernels.
+"""Drive the PyTorch port's main paths on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -30,7 +30,26 @@ is not beside it. Phases, none of which catches its own failure:
    equal the unfused ones at both levels and the port's plain path run on
    the CPU; the decryptions must be within the limits below; every kernel
    must have been launched;
-5. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+5. BinFHE (the JAX repo's binfhe benchmark, `bench.py`'s binfhe rows):
+   kernel m (`ntt_small_fwd` / `ntt_small_inv`) against its dense plain
+   version word for word at the blind rotation's shapes and at two more
+   (N=2048 with 2 towers, N=128 with 4), each beside `ntt.cu`'s transform
+   of the same input (equal words, timed); these small calls cost the
+   host more than the card, so their `ms` is device time with the host's
+   launch cost taken out (`device_ms`) and `call_ms` the time of one call
+   as the other kernels are timed; then, with the counters reset
+   just before and read just after, GINX at STD128 over a batch of 256
+   gates with a = i % 2, b = (i // 2) % 2: context, KeyGen, BTKeyGen,
+   Encrypt, EvalBinGate AND/OR/NAND/XOR/XNOR, EvalNOT, Bootstrap and
+   MAJORITY, every decryption against the truth table; one AND launches
+   each kernel m entry n + 1 times (n steps, each one inverse over both
+   accumulator halves and one forward over the digits, plus the test
+   vector's forward and the extraction's inverse) and nothing else; 4 of
+   its gates equal the port's plain path on the CPU with the same keys;
+   EvalFunc (x^2 mod 4, periodic) and EvalSign at batch 4; then
+   STD128_LMKCDEY at batch 1 and 64 and STD128_AP at batch 64 (AND, truth
+   table, launches printed; AP's derived as n * digitsR + 1);
+6. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 
 bound_ms is the least time the card could take for a call: the larger of
 its bytes (each input read once, each output written once) at 3.35 TB/s
@@ -60,6 +79,7 @@ ROWMOD_TERM_OPS = 7    # Shoup multiply 5 + add_mod 2
 MULMOD_OPS = 10        # a 64-bit product reduced mod q
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
+SMALL = ("ntt_small_fwd", "ntt_small_inv")
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
          "intt_conv_p", "ntt_subscale", "ntt_submul_final")
 # the kernels of one EvalMult, and of one Relinearize or automorphism
@@ -87,7 +107,23 @@ WHERE = {
                      "openfhe_tpu/pke/keyswitch/ks_fused.py:747"),
     "ntt_submul_final": ("csrc/ks_fused.cu",
                          "openfhe_tpu/pke/keyswitch/ks_fused.py:802"),
+    "ntt_small_fwd": ("csrc/ntt_small.cu", "openfhe_tpu/ops/ntt_small.py:157"),
+    "ntt_small_inv": ("csrc/ntt_small.cu", "openfhe_tpu/ops/ntt_small.py:157"),
 }
+# kernel m's cases: (N, towers, rows, what the shape is)
+SMALL_CASES = ((1024, 1, 1536, "GINX step digits: batch 256 x d2 6"),
+               (1024, 1, 512, "GINX step accumulator halves: batch 256 x 2"),
+               (2048, 2, 64, "the STD192 ring's shape"),
+               (128, 4, 8, "smallest ring, 4 towers"))
+GINX_SET = "STD128"       # bench.py's GINX configuration
+LMK_SET = "STD128_LMKCDEY"
+AP_SET = "STD128_AP"
+GATE_BATCH = 256          # bench.py's GINX batch
+LMK_BATCHES = (1, 64)     # bench.py's LMKCDEY batches
+AP_BATCH = 64
+FUNC_BATCH = 4
+GATE_REPS = 3             # a gate batch takes about half a second
+SIGN_MOD = 1 << 17
 # CKKS noise at 26-bit scales and N=2^16: a fresh encryption's slot error
 # e has a std of about 2.5e-3 (max over the 32768 slots about 1.5e-2), and
 # the product's error z*(e_a + e_b) grows with |z|; inputs |z| <= 1/4 keep
@@ -128,6 +164,7 @@ ROT_RESID_TOL = 6e-2
 SUM_BATCH = 64
 SUM_TOL = 2e-2
 REPS = 20
+SPIN_CYCLES = 2_000_000   # about 1 ms at the H100's clock
 
 
 def require(cond: bool, msg: str) -> None:
@@ -136,7 +173,8 @@ def require(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, CUDA events around each call."""
+    """Median time of fn() in ms, CUDA events around each call (the
+    host's launch cost included where the card waits for it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -144,6 +182,29 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Median device time of fn() in ms with the host's launch cost taken
+    out: the card first spins for about a millisecond (`torch.cuda._sleep`),
+    so fn's launches are queued before its first kernel starts and the
+    events time the kernels back to back. For calls whose device time is
+    below their host time (kernel m at a gate's shapes); a host
+    synchronisation inside fn puts its host time back in."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -318,6 +379,197 @@ def modown_mean_slots(cc, sk, scale: float) -> np.ndarray:
                                           scale)
 
 
+def count_launches(fn, names):
+    """fn() and the launches it made, per kernel name."""
+    from openfhe_tpu_torch import _build
+    before = dict(_build.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: _build.LAUNCHES[k] - before.get(k, 0) for k in names}
+
+
+def ntt_small_cases(gen) -> dict:
+    """Kernel m vs its dense plain version, and beside it ntt.cu's
+    transform of the same input (equal words), each timed."""
+    from openfhe_tpu_torch.lattice.basis import make_basis
+    from openfhe_tpu_torch.math import nbtheory
+    from openfhe_tpu_torch.ops import ntt, ntt_small
+    out = {name: [] for name in SMALL}
+    for n, k, rows, label in SMALL_CASES:
+        moduli, q = [], 1 << 27
+        while len(moduli) < k:
+            q = nbtheory.previous_prime(q, 2 * n)
+            moduli.append(q)
+        basis = make_basis(moduli, n, device="cuda")
+        x = rand_residues(gen, moduli, n, (rows // k,))
+        log_n = n.bit_length() - 1
+        for name, kern, ref, tile in (
+                ("ntt_small_fwd", ntt_small.ntt_small_fwd,
+                 ntt_small._ntt_small_fwd_ref, ntt._ntt_fwd_cu),
+                ("ntt_small_inv", ntt_small.ntt_small_inv,
+                 ntt_small._ntt_small_inv_ref, ntt._ntt_inv_cu)):
+            got, want, cu = kern(x, basis), ref(x, basis), tile(x, basis)
+            torch.cuda.synchronize()
+            err, err_cu = max_abs_err(got, want), max_abs_err(got, cu)
+            require(err == 0 and err_cu == 0,
+                    f"{name} N={n} k={k} rows={rows} differs from its plain "
+                    f"version (max abs err {err}) or from ntt.cu ({err_cu})")
+            # each row read and written once, the tower tables once
+            nbytes = WORD * 2 * x.numel() + 2 * WORD * k * n
+            ops = rows * (n // 2) * log_n * BUTTERFLY_OPS
+            if name == "ntt_small_inv":
+                ops += x.numel() * SHOUP_OPS
+            b_ms, b_by = bound(nbytes, ops)
+            out[name].append(dict(
+                shape=[rows, n], towers=k, moduli=label, max_abs_err=err,
+                ms=device_ms(lambda: kern(x, basis)),
+                call_ms=cuda_ms(lambda: kern(x, basis)),
+                plain_ms=device_ms(lambda: ref(x, basis)),
+                ntt_cu_ms=device_ms(lambda: tile(x, basis)),
+                ntt_cu_call_ms=cuda_ms(lambda: tile(x, basis)),
+                bound_ms=b_ms, bound_by=b_by))
+    return out
+
+
+def binfhe_phase(names) -> dict:
+    """The BinFHE paths (see the module docstring); raises on any fault."""
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD, BINGATE
+    from openfhe_tpu_torch.binfhe.context import BinFHEContext
+    res = {}
+    i = np.arange(GATE_BATCH)
+    bits = {"a": i % 2, "b": (i // 2) % 2, "c": (i // 4) % 2}
+    a, b, c = bits["a"], bits["b"], bits["c"]
+    truth = {"AND": a & b, "OR": a | b, "NAND": 1 - (a & b),
+             "XOR": a ^ b, "XNOR": 1 - (a ^ b)}
+
+    # GINX at STD128, counted from the context on
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    cc = BinFHEContext(seed=11).GenerateBinFHEContext(GINX_SET)
+    require(cc.device.type == "cuda", "BinFHEContext() is not on the card")
+    sk = cc.KeyGen()
+    cc.BTKeyGen(sk)
+    ct = {k: cc.Encrypt(sk, v) for k, v in bits.items()}
+    torch.cuda.synchronize()
+    res["ginx_keygen_encrypt_s"] = time.perf_counter() - t0
+    wrong, outs = {}, {}
+    for g, want in truth.items():
+        outs[g], per = count_launches(
+            lambda g=g: cc.EvalBinGate(BINGATE[g], ct["a"], ct["b"]), names)
+        if g == "AND":
+            per_gate = per
+        wrong[g] = int((cc.Decrypt(sk, outs[g]) != want).sum())
+    wrong["NOT"] = int((cc.Decrypt(sk, cc.EvalNOT(ct["a"])) != 1 - a).sum())
+    wrong["Bootstrap"] = int((cc.Decrypt(sk, cc.Bootstrap(ct["a"]))
+                              != a).sum())
+    maj = cc.EvalBinGate(BINGATE.MAJORITY, [ct["a"], ct["b"], ct["c"]])
+    wrong["MAJORITY"] = int((cc.Decrypt(sk, maj)
+                             != (a + b + c >= 2)).sum())
+    res["ginx_launches"] = {k: _build.LAUNCHES[k] for k in names}
+    res["ginx_launches_per_gate"] = per_gate
+    res["ginx_wrong"] = wrong
+    print(f"GINX {GINX_SET} (n={cc.n}, N={cc.N}, d2={cc.rgsw.digits_g2}), "
+          f"batch {GATE_BATCH}: wrong decryptions {wrong}; launches per "
+          f"EvalBinGate {per_gate}; whole phase {res['ginx_launches']}")
+    require(all(v == 0 for v in wrong.values()),
+            f"GINX decryptions differ from the truth table: {wrong}")
+    want_gate = {k: (cc.n + 1) * (k in SMALL) for k in names}
+    require(per_gate == want_gate,
+            f"EvalBinGate launches {per_gate}, expected {want_gate}")
+    require(all(res["ginx_launches"][k] == 0 for k in names
+                if k not in SMALL),
+            f"the BinFHE path launched another kernel: "
+            f"{res['ginx_launches']}")
+
+    # 4 gates on the port's plain path on the CPU, with the same keys
+    t0 = time.perf_counter()
+    cpu = BinFHEContext(seed=11, device="cpu").GenerateBinFHEContext(
+        GINX_SET)
+    cpu.ks_key = dataclasses.replace(cc.ks_key, a=cc.ks_key.a.cpu(),
+                                     b=cc.ks_key.b.cpu())
+    cpu.bt_key = cc.bt_key.cpu()
+    four = lambda x: x.replace(a=x.a[:4].cpu(), b=x.b[:4].cpu())
+    on_cpu = cpu.EvalBinGate(BINGATE.AND, four(ct["a"]), four(ct["b"]))
+    same = (torch.equal(on_cpu.a, outs["AND"].a[:4].cpu())
+            and torch.equal(on_cpu.b, outs["AND"].b[:4].cpu()))
+    print(f"4 AND gates on the card == plain path on the CPU: {same} "
+          f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    require(same, "GINX words on the card differ from the plain path")
+    del cpu
+
+    one = lambda x: x.replace(a=x.a[:1], b=x.b[:1])
+    res["ginx_batch_ms"] = cuda_ms(
+        lambda: cc.EvalBinGate(BINGATE.AND, ct["a"], ct["b"]), GATE_REPS, 1)
+    res["ginx_single_ms"] = cuda_ms(
+        lambda: cc.EvalBinGate(BINGATE.AND, one(ct["a"]), one(ct["b"])),
+        GATE_REPS, 1)
+    res["ginx_gates_per_s"] = GATE_BATCH / res["ginx_batch_ms"] * 1e3
+    res["ginx_single_gates_per_s"] = 1e3 / res["ginx_single_ms"]
+    print(f"GINX AND: {res['ginx_batch_ms']:.1f} ms per batch of "
+          f"{GATE_BATCH} ({res['ginx_gates_per_s']:.1f} gates/s), "
+          f"{res['ginx_single_ms']:.1f} ms for a batch of 1 "
+          f"({res['ginx_single_gates_per_s']:.2f} gates/s); median of "
+          f"{GATE_REPS}, CUDA events")
+
+    # functional bootstraps at batch 4 on the same context
+    p = 4
+    x4 = np.arange(FUNC_BATCH) % p
+    lut = cc.GenerateLUTviaFunction(lambda m, pp: (m * m) % pp, p)
+    f_out, per_func = count_launches(
+        lambda: cc.EvalFunc(cc.Encrypt(sk, x4, p=p), lut), names)
+    got_f = cc.Decrypt(sk, f_out, p=p)
+    # 2m at least 1/16 of the modulus from both sign boundaries (0, q/2)
+    m_sign = np.array([4096, 60000, 16384, 49152])[:FUNC_BATCH]
+    s_out, per_sign = count_launches(lambda: cc.EvalSign(cc.Encrypt(
+        sk, m_sign, p=SIGN_MOD // 2, q=SIGN_MOD)), names)
+    got_s = cc.Decrypt(sk, s_out, p=2)
+    want_s = (2 * m_sign >= SIGN_MOD // 2).astype(np.int64)
+    print(f"EvalFunc x^2 mod 4 on {x4.tolist()}: {got_f.tolist()} "
+          f"(launches {per_func}); EvalSign at q={SIGN_MOD} on "
+          f"{m_sign.tolist()}: {got_s.tolist()} (launches {per_sign})")
+    require(np.array_equal(got_f, x4 * x4 % p), "EvalFunc decrypts wrong")
+    require(np.array_equal(got_s, want_s), "EvalSign decrypts wrong")
+    del cc, ct, outs
+    torch.cuda.empty_cache()
+
+    # LMKCDEY at batch 1 and 64, then AP at batch 64: AND
+    for param_set, method, batches in (
+            (LMK_SET, BINFHE_METHOD.LMKCDEY, LMK_BATCHES),
+            (AP_SET, BINFHE_METHOD.AP, (AP_BATCH,))):
+        t0 = time.perf_counter()
+        cc = BinFHEContext(seed=12).GenerateBinFHEContext(param_set, method)
+        sk = cc.KeyGen()
+        cc.BTKeyGen(sk)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        for batch in batches:
+            ca, cb = (cc.Encrypt(sk, bits[k][:batch]) for k in ("a", "b"))
+            out, per = count_launches(
+                lambda: cc.EvalBinGate(BINGATE.AND, ca, cb), names)
+            bad = int((cc.Decrypt(sk, out) != truth["AND"][:batch]).sum())
+            ms = cuda_ms(lambda: cc.EvalBinGate(BINGATE.AND, ca, cb),
+                         GATE_REPS, 1)
+            key = f"{method.value.lower()}_batch{batch}"
+            res[key] = dict(ms=ms, gates_per_s=batch / ms * 1e3,
+                            wrong=bad, launches=per, keygen_s=keygen_s)
+            print(f"{param_set} AND, batch {batch}: wrong {bad}, {ms:.1f} "
+                  f"ms ({batch / ms * 1e3:.1f} gates/s), launches {per}, "
+                  f"keygen {keygen_s:.1f} s")
+            require(bad == 0, f"{param_set} decryptions differ from the "
+                    "truth table")
+            require(per["ntt_small_fwd"] == per["ntt_small_inv"] > cc.n
+                    and all(v == 0 for k, v in per.items() if k not in SMALL),
+                    f"{param_set} launches {per}")
+            if method == BINFHE_METHOD.AP:
+                steps = cc.n * cc.bt_key[1] + 1
+                require(per["ntt_small_fwd"] == steps,
+                        f"AP launches {per}, expected {steps} each")
+        del cc
+        torch.cuda.empty_cache()
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -430,6 +682,15 @@ def main() -> int:
         (rand_residues(gen, top.basis_ql.moduli, n, (2,)), ext), tabs_t,
         fused_work(tabs_t)["ntt_subscale"], "level 0, t = 65537"))
     del ext
+    small = ntt_small_cases(gen)
+    for name, rows in small.items():
+        for c in rows:
+            print(f"  {name:18s} {str(c['shape']):18s} k={c['towers']} "
+                  f"{c['moduli']:45s} kernel {c['ms']:.4f} ms (call "
+                  f"{c['call_ms']:.4f})  ntt.cu {c['ntt_cu_ms']:.4f} ms "
+                  f"(call {c['ntt_cu_call_ms']:.4f})  plain "
+                  f"{c['plain_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
+                  f"({c['bound_by']})  max_abs_err {c['max_abs_err']}")
     for name, rows in cases.items():
         for c in rows:
             print(f"  {name:18s} {str(c['shape']):18s} {c['moduli']:32s} "
@@ -668,23 +929,34 @@ def main() -> int:
     require(same_mult and same_rot,
             "words on the card differ from the plain path")
 
-    # 5. the kernels line, then the device line
+    # 5. BinFHE, counted from its context on
+    names = tuple(cases) + SMALL
+    binfhe = binfhe_phase(names)
+    per_gate = binfhe["ginx_launches_per_gate"]
+    launches.update({k: binfhe["ginx_launches"][k] for k in SMALL})
+
+    # 6. the kernels line, then the device line
     kernels = []
-    for name, rows in cases.items():
+    for name, rows in {**cases, **small}.items():
         head = rows[0]        # level 0 / Q (31 towers) / digit 0
         kernels.append(dict(
             name=name, route="cuda",
             source="openfhe_tpu_torch/" + WHERE[name][0],
             replaces=WHERE[name][1], launches=launches[name],
-            launches_per_evalmult=per_mult[name],
-            launches_per_unfused_mult=per_unfused[name],
-            launches_per_relinearize=per_relin[name],
-            launches_per_rotate=per_rot[1][name],
+            launches_per_evalmult=per_mult.get(name, 0),
+            launches_per_unfused_mult=per_unfused.get(name, 0),
+            launches_per_relinearize=per_relin.get(name, 0),
+            launches_per_rotate=per_rot[1].get(name, 0),
+            launches_per_ginx_gate=per_gate[name],
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=None, shape=head["shape"], cases=rows))
+            library_ms=None, shape=head["shape"],
+            **({k: head[k] for k in ("call_ms", "ntt_cu_ms",
+                                      "ntt_cu_call_ms")}
+               if name in SMALL else {}),
+            cases=rows))
     print(json.dumps({"kernels": kernels, "card": card, **times,
                       "decrypt_max_abs_err": err,
                       "mult_vs_decrypted_inputs_err": mult_err,
@@ -694,7 +966,8 @@ def main() -> int:
                                                 for k, v in hi.items()},
                       "automorphism_level0_err": raw,
                       "automorphism_level0_resid": resid,
-                      f"evalsum{SUM_BATCH}_err": sum_err}))
+                      f"evalsum{SUM_BATCH}_err": sum_err,
+                      "binfhe": binfhe}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

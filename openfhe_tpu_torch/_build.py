@@ -35,6 +35,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "ntt": {"ntt_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
             "ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "ntt_small": {"ntt_small_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+                  "ntt_small_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _P]},
     "rowmod": {"mod_matmul_rowmod": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _P]},
     "ks_fused": {"tensor_intt": [_P] * 9 + [_I] * 2 + [_P],

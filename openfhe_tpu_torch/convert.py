@@ -6,7 +6,8 @@ device, `cuda` unless another is named (they raise when there is no GPU,
 as the context does), and `to_numpy` turns the port's int32 tensors back
 into uint32 words. Keys and encryptions are random and the two packages'
 RNGs never agree, so word-exact comparisons feed JAX-made keys and
-ciphertexts into the port through this module.
+ciphertexts into the port through this module. The `lwe_*`,
+`switching_key_*` and `bt_key_*` functions carry BinFHE state.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 
 from openfhe_tpu_torch._device import resolve_device
+from openfhe_tpu_torch.binfhe import lwe
+from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD
 from openfhe_tpu_torch.math.modops import to_u32, u32_tensor
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext
 from openfhe_tpu_torch.pke.keys import EvalKey, PrivateKey, PublicKey
@@ -75,6 +78,53 @@ def ciphertext_from_numpy(elements, level: int = 0, noise_deg: int = 1,
     return Ciphertext(elements=tuple(u32_tensor(e, dev) for e in elements),
                       level=level, noise_deg=noise_deg, scale=scale,
                       slots=slots, key_tag=key_tag)
+
+
+def _i32(x, dev):
+    """Signed words (an LWE secret, a permutation table) as int32."""
+    return u32_tensor(np.asarray(x).astype(np.int64).astype(np.int32), dev)
+
+
+def lwe_secret_from_numpy(s, device=None) -> lwe.LWEPrivateKey:
+    """s: [n] (or [N]) signed LWE secret."""
+    return lwe.LWEPrivateKey(s=_i32(s, resolve_device(device)))
+
+
+def lwe_public_key_from_numpy(A, v, device=None) -> lwe.LWEPublicKey:
+    """A: [N, N], v: [N] uint32 words mod Q."""
+    dev = resolve_device(device)
+    return lwe.LWEPublicKey(A=u32_tensor(A, dev), v=u32_tensor(v, dev))
+
+
+def switching_key_from_numpy(a, b, mod_ks: int, base_ks: int,
+                             device=None) -> lwe.LWESwitchingKey:
+    """a: [N, baseKS, d, n], b: [N, baseKS, d] uint32 words mod qKS."""
+    dev = resolve_device(device)
+    return lwe.LWESwitchingKey(a=u32_tensor(a, dev), b=u32_tensor(b, dev),
+                               mod_ks=int(mod_ks), base_ks=int(base_ks))
+
+
+def lwe_ciphertext_from_numpy(a, b, modulus: int, pt_modulus: int = 4,
+                              device=None) -> lwe.LWECiphertext:
+    """a: [..., n], b: [...] uint32 words mod `modulus`."""
+    dev = resolve_device(device)
+    return lwe.LWECiphertext(a=u32_tensor(a, dev), b=u32_tensor(b, dev),
+                             modulus=int(modulus), pt_modulus=int(pt_modulus))
+
+
+def bt_key_from_numpy(method, bt_key, device=None):
+    """A blind-rotation key in the JAX package's form for `method`: GINX
+    the tensor [n, 2, d2, 2, N]; AP (ek [n, dR, BR, d2, 2, N], digits_r);
+    LMKCDEY (key_bank, perm_table, w)."""
+    dev = resolve_device(device)
+    method = BINFHE_METHOD(getattr(method, "value", method))
+    if method == BINFHE_METHOD.GINX:
+        return u32_tensor(bt_key, dev)
+    if method == BINFHE_METHOD.AP:
+        ek, digits_r = bt_key
+        return u32_tensor(ek, dev), int(digits_r)
+    key_bank, perm_table, w = bt_key
+    return u32_tensor(key_bank, dev), _i32(perm_table, dev), int(w)
 
 
 def to_numpy(x) -> np.ndarray:

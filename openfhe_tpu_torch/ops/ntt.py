@@ -7,9 +7,12 @@ inverse with twiddles in bit-reversed order; EVAL form is bit-reversed,
 with the JAX package's roots, so the words are the JAX package's.
 
 `ntt_fwd` / `ntt_inv` take `[..., k, N]` int32 residues and a `Basis`.
-On a CUDA tensor they launch the hand-written kernel of `csrc/ntt.cu`
-(or raise); on a CPU tensor they run the plain int64 stage loop
-`_ntt_fwd_ref` / `_ntt_inv_ref`, which the tests hold against JAX.
+On a CUDA tensor they launch a hand-written kernel (or raise), as the JAX
+package's `ops/ntt.py` dispatches: rings with 128 <= N <= 2048 and k <= 4
+towers (BinFHE's) go to `ops/ntt_small.py` (`csrc/ntt_small.cu`), every
+other ring to `csrc/ntt.cu`. On a CPU tensor they run the plain int64
+stage loop `_ntt_fwd_ref` / `_ntt_inv_ref`, which the tests hold against
+JAX at every N.
 """
 
 from __future__ import annotations
@@ -18,12 +21,29 @@ import torch
 
 from openfhe_tpu_torch import _build
 from openfhe_tpu_torch.lattice.basis import Basis
+from openfhe_tpu_torch.ops import ntt_small
 
 
 def ntt_fwd(x: torch.Tensor, b: Basis) -> torch.Tensor:
     """Negacyclic forward NTT: COEFF (natural order) -> EVAL (bit-reversed)."""
     if x.device.type == "cpu":
         return _ntt_fwd_ref(x, b)
+    if ntt_small.supported(b):
+        return ntt_small.ntt_small_fwd(x, b)
+    return _ntt_fwd_cu(x, b)
+
+
+def ntt_inv(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """Negacyclic inverse NTT: EVAL (bit-reversed) -> COEFF (natural)."""
+    if x.device.type == "cpu":
+        return _ntt_inv_ref(x, b)
+    if ntt_small.supported(b):
+        return ntt_small.ntt_small_inv(x, b)
+    return _ntt_inv_cu(x, b)
+
+
+def _ntt_fwd_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """The forward transform of `csrc/ntt.cu`, any N."""
     out, rows, log_n = _prepare(x, b, "ntt_fwd")
     rc = _build.entry("ntt", "ntt_fwd")(
         x.data_ptr(), out.data_ptr(), b.psi_br.data_ptr(),
@@ -33,10 +53,8 @@ def ntt_fwd(x: torch.Tensor, b: Basis) -> torch.Tensor:
     return out
 
 
-def ntt_inv(x: torch.Tensor, b: Basis) -> torch.Tensor:
-    """Negacyclic inverse NTT: EVAL (bit-reversed) -> COEFF (natural)."""
-    if x.device.type == "cpu":
-        return _ntt_inv_ref(x, b)
+def _ntt_inv_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """The inverse transform of `csrc/ntt.cu`, any N."""
     out, rows, log_n = _prepare(x, b, "ntt_inv")
     rc = _build.entry("ntt", "ntt_inv")(
         x.data_ptr(), out.data_ptr(), b.ipsi_br.data_ptr(),
