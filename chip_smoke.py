@@ -49,14 +49,33 @@ is not beside it. Phases, none of which catches its own failure:
    EvalFunc (x^2 mod 4, periodic) and EvalSign at batch 4; then
    STD128_LMKCDEY at batch 1 and 64 and STD128_AP at batch 64 (AND, truth
    table, launches printed; AP's derived as n * digitsR + 1);
-6. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+6. the limb-sharded path (`openfhe_tpu_torch/parallel/`), on the phase-4
+   context and eval key, on meshes built from the visible cards (a card
+   repeats when there are fewer cards than shards; the placement is
+   printed): kernel l (`mod_matmul`) against its plain version at the
+   sharded NTT's stage shapes (the Q basis at limb 2 and 4, the 31-bit
+   primes), kernels n, o and p against theirs on the shards of level 1 at
+   limb 2, level 3 at limb 4 and the 31-bit chain at limb 2; then, with
+   the counters reset just before and read just after, the sharded NTT at
+   limb 2 and 4 (word-equal to `ntt.cu`, 2L launches of `mod_matmul`),
+   the sharded EvalMult at level 1 / limb 2 and level 3 / limb 4 (word-
+   equal to the single-card fused EvalMult, each of its six kernels once
+   per shard and nothing else), the portable body at level 1 / limb 2,
+   the two-level chain (level 3, in-region rescale, level 4 padded to 28
+   rows: real rows equal to Rescale and EvalMult, the pad row zero), a dp 2
+   x limb 2 mesh with a batch of two pairs and, where two cards are
+   visible, shards on distinct cards; the decryption of the rescaled level-3
+   product within MULT_TOL; times beside the single-card ops;
+7. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 
 bound_ms is the least time the card could take for a call: the larger of
 its bytes (each input read once, each output written once) at 3.35 TB/s
 and its 32-bit integer operations at 67 T/s (the H100 SXM's published
 non-tensor 32-bit rate; the card's tensor cores do no 32-bit integer
 products). Operations count what the function needs: a conversion counts
-only its nonzero weights.
+only its nonzero weights, a key product skips the NTT of the digit's own
+rows. A term of kernel l's modular matmul counts MATMUL_TERM_OPS: the
+62-bit product (two 32-bit multiplies) and its 64-bit sum (two adds).
 """
 
 from __future__ import annotations
@@ -76,6 +95,7 @@ INT32_OPS_PER_S = 67e12
 BUTTERFLY_OPS = 10     # Shoup multiply 5, add_mod 2, sub_mod 3
 SHOUP_OPS = 5
 ROWMOD_TERM_OPS = 7    # Shoup multiply 5 + add_mod 2
+MATMUL_TERM_OPS = 4    # 62-bit product 2 + 64-bit sum 2
 MULMOD_OPS = 10        # a 64-bit product reduced mod q
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
@@ -87,6 +107,13 @@ MULT_CHAIN = ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
               "ntt_submul_final")
 KS_CHAIN = ("intt_scale", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
             "ntt_subscale")
+SHARDED = ("mod_matmul", "conv_digits_rows", "conv_p_to_q_rows",
+           "ntt_keymul_acc_rows")
+# the kernels of one sharded EvalMult, each once per shard
+SHARDED_CHAIN = ("tensor_intt", "conv_digits_rows", "ntt_keymul_acc_rows",
+                 "intt_scale", "conv_p_to_q_rows", "ntt_submul_final")
+LIMBS = (2, 4)
+ROWS = ("limb", None)
 WHERE = {
     "ntt_fwd": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
     "ntt_inv": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
@@ -109,6 +136,13 @@ WHERE = {
                          "openfhe_tpu/pke/keyswitch/ks_fused.py:802"),
     "ntt_small_fwd": ("csrc/ntt_small.cu", "openfhe_tpu/ops/ntt_small.py:157"),
     "ntt_small_inv": ("csrc/ntt_small.cu", "openfhe_tpu/ops/ntt_small.py:157"),
+    "mod_matmul": ("csrc/modmatmul.cu", "openfhe_tpu/ops/modmatmul.py:138"),
+    "conv_digits_rows": ("csrc/sharded.cu",
+                         "openfhe_tpu/parallel/sharded_fused.py:318"),
+    "conv_p_to_q_rows": ("csrc/sharded.cu",
+                         "openfhe_tpu/parallel/sharded_fused.py:348"),
+    "ntt_keymul_acc_rows": ("csrc/sharded.cu",
+                            "openfhe_tpu/parallel/sharded_fused.py:396"),
 }
 # kernel m's cases: (N, towers, rows, what the shape is)
 SMALL_CASES = ((1024, 1, 1536, "GINX step digits: batch 256 x d2 6"),
@@ -314,7 +348,8 @@ def fused_work(tabs) -> dict:
     }
 
 
-def kernel_case(name, kern, ref, args, tabs, work, label) -> dict:
+def kernel_case(name, kern, ref, args, tabs, work, label,
+                shape=None) -> dict:
     """kern(*args, tabs) vs ref(*args, tabs): word-equal or raise; both
     timed."""
     got, want = kern(*args, tabs), ref(*args, tabs)
@@ -325,8 +360,8 @@ def kernel_case(name, kern, ref, args, tabs, work, label) -> dict:
     require(err == 0, f"{name} {label} differs from its plain version "
             f"(max abs err {err})")
     b_ms, b_by = bound(*work)
-    return dict(shape=[tabs.kql, tabs.kp, tabs.nd, tabs.basis_qlp.ring_dim],
-                moduli=label, max_abs_err=err,
+    shape = shape or [tabs.kql, tabs.kp, tabs.nd, tabs.basis_qlp.ring_dim]
+    return dict(shape=shape, moduli=label, max_abs_err=err,
                 ms=cuda_ms(lambda: kern(*args, tabs)),
                 plain_ms=cuda_ms(lambda: ref(*args, tabs)),
                 bound_ms=b_ms, bound_by=b_by)
@@ -568,6 +603,264 @@ def binfhe_phase(names) -> dict:
         del cc
         torch.cuda.empty_cache()
     return res
+
+
+def matmul_case(mm, w, x, q, label) -> dict:
+    """Kernel l vs its plain version (float64 limb products) at one
+    stage's shapes, both timed."""
+    got, want = mm.mod_matmul(w, x, q), mm._mod_matmul_ref(w, x, q)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(err == 0, f"mod_matmul {label} differs from its plain version "
+            f"(max abs err {err})")
+    k, d_dim, a_dim = w.shape
+    b_dim = x.shape[2]
+    b_ms, b_by = bound(WORD * (w.numel() + x.numel() + k * d_dim * b_dim + k),
+                       k * d_dim * a_dim * b_dim * MATMUL_TERM_OPS)
+    return dict(shape=[k, d_dim, a_dim, b_dim], moduli=label,
+                max_abs_err=err, ms=cuda_ms(lambda: mm.mod_matmul(w, x, q)),
+                plain_ms=cuda_ms(lambda: mm._mod_matmul_ref(w, x, q)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def own_pairs(v) -> int:
+    """The (row, digit) pairs of a shard whose row is the digit's own."""
+    rows = v.basis_qlp.k
+    return sum(max(0, min((j + 1) * v.alpha, v.kql_real, v.tau0 + rows)
+                   - max(j * v.alpha, v.tau0)) for j in range(v.nd))
+
+
+def shard_work(v) -> dict:
+    """(bytes, operations) of kernels n, o, p on one shard's views: the
+    conversions count their nonzero weights, the key product the NTTs of
+    its non-own (row, digit) pairs and the own rows it reads from c2."""
+    n = v.basis_qlp.ring_dim
+    rows, nd, kp = v.basis_qlp.k, v.nd, v.pconv_w.shape[0]
+    own = own_pairs(v)
+    ntt = (nd * rows - own) * n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
+    return {
+        "conv_digits_rows": (WORD * n * nd * (v.alpha + rows),
+                             n * ROWMOD_TERM_OPS * int((v.conv_w != 0).sum())),
+        "conv_p_to_q_rows": (WORD * n * 2 * (kp + v.q.kql),
+                             2 * n * ROWMOD_TERM_OPS
+                             * int((v.pconv_w != 0).sum())),
+        "ntt_keymul_acc_rows": (WORD * n * (nd * rows + 4 * nd * rows
+                                            + 4 * rows),
+                                ntt + 2 * nd * rows * n * ROWMOD_TERM_OPS),
+    }
+
+
+def shard_cases(sf, st, limb, shards, gen, label) -> dict:
+    """Kernels n, o, p vs their plain twins on shards of one table set,
+    on random words (the key is the table set's)."""
+    out = {name: [] for name in SHARDED[1:]}
+    f = st.fused
+    n = f.basis_qlp.ring_dim
+    for idx in shards:
+        v = sf.shard_view(st, limb, idx, f.basis_qlp.device)
+        rows = v.basis_qlp.k
+        y_pad = rand_residues(gen, [2 ** 31 - 1] * f.alpha, n, (f.nd,))
+        pc = rand_residues(gen, f.basis_p.moduli, n, (2,))
+        conv = rand_residues(gen, v.basis_qlp.moduli, n, (f.nd,))
+        c2 = rand_residues(gen, f.basis_ql.moduli, n)
+        where = (f"{label}, shard {idx} of {limb} (Q_l*P rows {v.tau0}-"
+                 f"{v.tau0 + rows - 1}, {own_pairs(v)} own)")
+        work = shard_work(v)
+        for name, kern, ref, args in (
+                ("conv_digits_rows", sf.conv_digits_rows,
+                 sf._conv_digits_rows_ref, (y_pad,)),
+                ("conv_p_to_q_rows", sf.conv_p_to_q_rows,
+                 sf._conv_p_to_q_rows_ref, (pc,)),
+                ("ntt_keymul_acc_rows", sf.ntt_keymul_acc_rows,
+                 sf._ntt_keymul_acc_rows_ref, (conv, c2))):
+            out[name].append(kernel_case(
+                name, kern, ref, args, v, work[name], where,
+                shape=[v.q.kql, rows, f.nd, n]))
+    return out
+
+
+def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
+                  card) -> dict:
+    """The limb-sharded path (see the module docstring, phase 6); raises
+    on any fault. dec_ab is dec(ct_a) * dec(ct_b)."""
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch import parallel as par
+    from openfhe_tpu_torch.lattice.basis import make_basis
+    from openfhe_tpu_torch.ops import modmatmul, ntt, ntt4step
+    from openfhe_tpu_torch.parallel import ntt_sharded as ns
+    from openfhe_tpu_torch.parallel import sharded as shd
+    from openfhe_tpu_torch.parallel import sharded_fused as sf
+    from openfhe_tpu_torch.pke.keys import EvalKey
+    from openfhe_tpu_torch.pke.keyswitch import hybrid
+    t_phase = time.perf_counter()
+    n = cc.ring_dim
+    r, c = ntt4step.split(n)
+    cases = {name: [] for name in SHARDED}
+    # kernel l at the sharded NTT's stage-1 shapes [k, R, R] x [k, R, C/L]
+    for moduli, label, limbs in ((cc.moduli_q, "Q (31 towers)", LIMBS),
+                                 (top31, "largest 31-bit primes", (2,))):
+        t = ntt4step.dev_tables(tuple(moduli), n, str(cc.device))
+        for limb in limbs:
+            x = rand_residues(gen, moduli, c // limb, (r,)).transpose(0, 1)
+            cases["mod_matmul"].append(matmul_case(
+                modmatmul, t["wr"], x.contiguous(), t["q"],
+                f"{label}, stage 1 of a shard at limb {limb}"))
+    # kernels n, o, p on the shards of three table sets
+    key31 = hybrid.shoup_companions(EvalKey(
+        bv=rand_residues(gen, top31, n, (2,)),
+        av=rand_residues(gen, top31, n, (2,))), top31)
+    st = {lvl: sf.make_sharded_fused_tables(cc, cc.size_ql(lvl))
+          for lvl in (1, 3)}
+    st31 = sf.make_sharded_fused_tables_basis(
+        make_basis(top31[:4], n, device=cc.device),
+        make_basis(top31[4:], n, device=cc.device), 4, 2, key31)
+    for tabs, limb, shards, label in (
+            (st[1], 2, (0, 1), "level 1 (30 Q + 16 P)"),
+            (st[3], 4, (0, 3), "level 3 (28 Q + 16 P)"),
+            (st31, 2, (0, 1), "largest 31-bit primes (4 Q + 2 P)")):
+        for name, rows in shard_cases(sf, tabs, limb, shards, gen,
+                                      label).items():
+            cases[name] += rows
+    del key31, st31
+    kernel_s = time.perf_counter() - t_phase
+
+    # the path, counted
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    mesh = {limb: par.make_mesh(limb) for limb in LIMBS}
+    mesh["2x2"] = par.make_mesh(2, dp=2)
+    for name, m in mesh.items():
+        print(f"mesh {name}: {m}")
+    same = {}
+    # the sharded NTT on the Q basis
+    x = rand_residues(gen, cc.moduli_q, n)
+    y = ntt._ntt_fwd_cu(x, cc.basis_q)
+    per_ntt = {}
+    for limb in LIMBS:
+        fwd, per_ntt[limb] = count_launches(
+            lambda: ns.ntt_fwd_sharded(x, cc.basis_q, mesh[limb]), names)
+        inv = ns.ntt_inv_sharded(y, cc.basis_q, mesh[limb])
+        same[f"sharded NTT fwd, limb {limb}"] = torch.equal(fwd, y)
+        same[f"sharded NTT inv, limb {limb}"] = (
+            torch.equal(inv, ntt._ntt_inv_cu(y, cc.basis_q))
+            and torch.equal(inv, x))
+    # the sharded EvalMult, against the single-card fused one
+    lvl = {l: (cc.LevelReduce(ct_a, l), cc.LevelReduce(ct_b, l))
+           for l in (1, 3)}
+    want = {l: cc.EvalMult(*lvl[l]) for l in (1, 3)}
+    ins = {l: [e for ct in lvl[l] for e in par.shard_ciphertext(
+        ct, mesh[limb]).elements] for l, limb in ((1, 2), (3, 4))}
+    gather = lambda parts, m: [par.unshard(p, m, ROWS) for p in parts]
+    equal = lambda got, ref: all(torch.equal(g, w)
+                                 for g, w in zip(got, ref))
+    out1, per1 = count_launches(
+        lambda: sf.mult_relin_sharded(*ins[1], st[1], mesh[2]), names)
+    out3, per3 = count_launches(
+        lambda: sf.mult_relin_sharded(*ins[3], st[3], mesh[4]), names)
+    same["EvalMult level 1, limb 2"] = equal(gather(out1, mesh[2]),
+                                             want[1].elements)
+    g3 = gather(out3, mesh[4])
+    same["EvalMult level 3, limb 4"] = equal(g3, want[3].elements)
+    same["portable body, level 1, limb 2"] = equal(gather(
+        shd.mult_relin_sharded(*ins[1], st[1], mesh[2]), mesh[2]),
+        want[1].elements)
+    # the two-level chain: level 3, in-region rescale, level 4 padded
+    k3, k4 = cc.size_ql(3), cc.size_ql(4)
+    dt3 = shd.make_sharded_drop_tables(cc, k3)
+    resc = [shd.drop_last_and_scale_sharded(p, dt3, k3 - 1, mesh[4])
+            for p in out3]
+    st4 = sf.make_sharded_fused_tables(cc, k4, pad_to=k3)
+    out4 = sf.mult_relin_sharded(*resc, *resc, st4, mesh[4])
+    want_r = cc.Rescale(want[3])
+    want4 = cc.EvalMult(want_r, want_r)
+    padded = lambda got, ref: all(torch.equal(g[:k4], w) and not g[k4:].any()
+                                  for g, w in zip(got, ref))
+    same["in-region rescale, level 3 -> 4"] = padded(gather(resc, mesh[4]),
+                                                     want_r.elements)
+    same[f"EvalMult level 4 ({k4} rows padded to {k3}), limb 4"] = padded(
+        gather(out4, mesh[4]), want4.elements)
+    # dp 2 x limb 2: the pairs (a, b) and (c, b) at level 1
+    c1 = cc.LevelReduce(ct_c, 1)
+    spec = ("dp", "limb", None)
+    pairs = [par.shard(torch.stack([u, v]), mesh["2x2"], spec)
+             for u, v in zip(lvl[1][0].elements + lvl[1][1].elements,
+                             c1.elements + lvl[1][1].elements)]
+    outb = sf.mult_relin_sharded(*pairs, st[1], mesh["2x2"])
+    want_c = cc.EvalMult(c1, lvl[1][1])
+    gb = [par.unshard(p, mesh["2x2"], spec) for p in outb]
+    same["dp 2 x limb 2, two pairs"] = all(
+        torch.equal(g[0], w0) and torch.equal(g[1], w1)
+        for g, w0, w1 in zip(gb, want[1].elements, want_c.elements))
+    if torch.cuda.device_count() >= 2:
+        two = par.Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]])
+        ab = [e for ct in lvl[1] for e in par.shard_ciphertext(
+            ct, two).elements]
+        same["two cards, level 1, limb 2"] = equal(
+            gather(sf.mult_relin_sharded(*ab, st[1], two), two),
+            want[1].elements)
+    else:
+        print("multi-card check not run: 1 card visible")
+    launches = {k: _build.LAUNCHES[k] for k in names}
+    path_s = time.perf_counter() - t0
+    # decryption of the rescaled level-3 product
+    prod3 = dataclasses.replace(want[3], elements=tuple(g3))
+    dec3 = np.asarray(cc.Decrypt(sk, cc.Rescale(prod3)).values).real
+    mult_err = float(np.abs(dec3 - dec_ab).max())
+    print(f"sharded path: {path_s:.2f} s; launches {launches}")
+    print(f"per sharded EvalMult limb 2 {per1}; limb 4 {per3}; per sharded "
+          f"NTT {per_ntt}")
+    print(f"sharded == single card: {same}")
+    print(f"Rescale(sharded level-3 product): max |dec - dec(a)*dec(b)| = "
+          f"{mult_err:.3e} (limit {MULT_TOL})")
+    require(all(same.values()), f"the sharded path differs: {same}")
+    require(mult_err <= MULT_TOL, f"sharded EvalMult+Rescale error "
+            f"{mult_err} above {MULT_TOL}")
+    for limb, got in ((2, per1), (4, per3)):
+        want_l = {k: limb * (k in SHARDED_CHAIN) for k in names}
+        require(got == want_l, f"sharded EvalMult launches {got}, expected "
+                f"{want_l}")
+    for limb, got in per_ntt.items():
+        want_l = {k: 2 * limb * (k == "mod_matmul") for k in names}
+        require(got == want_l, f"sharded NTT launches {got}, expected "
+                f"{want_l}")
+    require(all(launches[k] > 0 for k in SHARDED),
+            f"a kernel was not launched on the sharded path: {launches}")
+
+    b = cc.basis_q
+    times = {
+        "sharded_evalmult_level1_limb2_ms": cuda_ms(
+            lambda: sf.mult_relin_sharded(*ins[1], st[1], mesh[2]), reps=10),
+        "evalmult_level1_ms": cuda_ms(lambda: cc.EvalMult(*lvl[1]), reps=10),
+        "sharded_evalmult_level3_limb4_ms": cuda_ms(
+            lambda: sf.mult_relin_sharded(*ins[3], st[3], mesh[4]), reps=10),
+        "evalmult_level3_ms": cuda_ms(lambda: cc.EvalMult(*lvl[3]), reps=10),
+        "portable_evalmult_level1_limb2_ms": cuda_ms(
+            lambda: shd.mult_relin_sharded(*ins[1], st[1], mesh[2]), reps=10),
+        "ntt_cu_fwd_ms": cuda_ms(lambda: ntt._ntt_fwd_cu(x, b), reps=10),
+        "ntt_cu_inv_ms": cuda_ms(lambda: ntt._ntt_inv_cu(y, b), reps=10),
+        "ntt_fwd_4step_ms": cuda_ms(lambda: ntt4step.ntt_fwd_4step(x, b),
+                                    reps=10),
+        "ntt_inv_4step_ms": cuda_ms(lambda: ntt4step.ntt_inv_4step(y, b),
+                                    reps=10),
+    }
+    for limb in LIMBS:
+        times[f"ntt_fwd_sharded_limb{limb}_ms"] = cuda_ms(
+            lambda: ns.ntt_fwd_sharded(x, b, mesh[limb]), reps=10)
+        times[f"ntt_inv_sharded_limb{limb}_ms"] = cuda_ms(
+            lambda: ns.ntt_inv_sharded(y, b, mesh[limb]), reps=10)
+    print(f"sharded op times (median of 10, CUDA events, {card}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    for name, rows in cases.items():
+        for case in rows:
+            print(f"  {name:20s} {str(case['shape']):22s} {case['moduli']} "
+                  f"kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f}"
+                  f" ms  bound {case['bound_ms']:.4f} ms "
+                  f"({case['bound_by']})  max_abs_err {case['max_abs_err']}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"sharded phase: {phase_s:.1f} s ({kernel_s:.1f} s kernel cases)")
+    return dict(cases=cases, launches=launches, per_mult=per3,
+                per_mult_limb2=per1, per_ntt=per_ntt[4], same=same,
+                mult_err=mult_err, times=times, seconds=phase_s)
 
 
 def same_words(x, y) -> bool:
@@ -930,14 +1223,20 @@ def main() -> int:
             "words on the card differ from the plain path")
 
     # 5. BinFHE, counted from its context on
-    names = tuple(cases) + SMALL
+    names = tuple(cases) + SMALL + SHARDED
     binfhe = binfhe_phase(names)
     per_gate = binfhe["ginx_launches_per_gate"]
     launches.update({k: binfhe["ginx_launches"][k] for k in SMALL})
 
-    # 6. the kernels line, then the device line
+    # 6. the limb-sharded path, counted from its first sharded op on
+    sharded = sharded_phase(cc, ct_a, ct_b, ct_c, sk,
+                            dec_a.real * dec_b.real, top31, gen, names,
+                            card)
+    launches.update({k: sharded["launches"][k] for k in SHARDED})
+
+    # 7. the kernels line, then the device line
     kernels = []
-    for name, rows in {**cases, **small}.items():
+    for name, rows in {**cases, **small, **sharded["cases"]}.items():
         head = rows[0]        # level 0 / Q (31 towers) / digit 0
         kernels.append(dict(
             name=name, route="cuda",
@@ -948,6 +1247,8 @@ def main() -> int:
             launches_per_relinearize=per_relin.get(name, 0),
             launches_per_rotate=per_rot[1].get(name, 0),
             launches_per_ginx_gate=per_gate[name],
+            launches_per_sharded_mult=sharded["per_mult"][name],
+            launches_per_sharded_ntt=sharded["per_ntt"][name],
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -967,7 +1268,10 @@ def main() -> int:
                       "automorphism_level0_err": raw,
                       "automorphism_level0_resid": resid,
                       f"evalsum{SUM_BATCH}_err": sum_err,
-                      "binfhe": binfhe}))
+                      "binfhe": binfhe,
+                      "sharded": {k: sharded[k] for k in (
+                          "times", "same", "mult_err", "per_mult_limb2",
+                          "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

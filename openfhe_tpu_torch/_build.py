@@ -8,6 +8,10 @@ name carries a hash of its source and of the shared headers
 libraries are loaded with `ctypes`; every entry point returns
 `cudaGetLastError()`, which `record_launch` turns into an exception.
 
+Every wrapper calls its entry point through `launch`, which runs it under
+the card of its tensor operands and on that card's current stream, so a
+tensor on a second card is never launched on the process's current one.
+
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
 card; the plain versions used for CPU tensors never count.
 """
@@ -25,6 +29,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "openfhe_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,6 +46,7 @@ SOURCES = {
                                     _P]},
     "rowmod": {"mod_matmul_rowmod": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _P]},
+    "modmatmul": {"mod_matmul": [_P] * 4 + [_I] * 4 + [_P]},
     "ks_fused": {"tensor_intt": [_P] * 9 + [_I] * 2 + [_P],
                  "intt_scale": [_P] * 7 + [_I] * 5 + [_P],
                  "conv_digits": [_P] * 5 + [_I] * 4 + [_P],
@@ -47,6 +54,9 @@ SOURCES = {
                  "intt_conv_p": [_P] * 11 + [_I] * 3 + [_P],
                  "ntt_subscale": [_P] * 11 + [_I] * 4 + [_P],
                  "ntt_submul_final": [_P] * 13 + [_I] * 3 + [_P]},
+    "sharded": {"conv_digits_rows": [_P] * 5 + [_I] * 4 + [_P],
+                "conv_p_to_q_rows": [_P] * 5 + [_I] * 4 + [_P],
+                "ntt_keymul_acc_rows": [_P] * 11 + [_I] * 6 + [_P]},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -110,6 +120,24 @@ def build() -> Built:
 def entry(source: str, fn: str):
     """The C entry point `fn` of library `source` (building on first use)."""
     return getattr(build().libs[source], fn)
+
+
+def launch(source: str, fn: str, *args) -> None:
+    """Launch entry point `fn` of library `source` and count it.
+
+    Tensors pass their data pointers and ints pass as they are; every
+    tensor must lie on the card of the first one, under which the entry
+    point runs, with that card's current stream as its last argument."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    card = tensors[0].get_device()
+    if any(t.get_device() != card for t in tensors):
+        where = sorted({str(t.device) for t in tensors})
+        raise ValueError(f"{fn}: operands on {where}, expected one card")
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(card):
+        rc = entry(source, fn)(*ptrs,
+                               torch.cuda.current_stream(card).cuda_stream)
+    record_launch(rc, fn)
 
 
 def record_launch(rc: int, kernel: str) -> None:

@@ -60,6 +60,7 @@
 //     both elements' transforms, so the tensor terms are formed once.
 // There is no bucket padding: tower counts are runtime arguments.
 
+#include "keymul_core.cuh"     // K3's tile pass, shared with sharded.cu
 #include "ntt_core.cuh"
 #include "rowmod_core.cuh"
 
@@ -99,69 +100,6 @@ __global__ void tensor_intt_tile(const uint32_t* __restrict__ a1,
   } else {
     for (uint32_t x = threadIdx.x; x < size; x += blockDim.x)
       y[base + x] = s[x];
-  }
-}
-
-// K3 tile pass, one (tile, tower tau of Q_l*P) per block: for each digit
-// j, the last forward stages of src[j, tau] (or c2[tau] itself on the
-// digit's own towers), times the key rows; both sums stay in registers.
-__global__ void keymul_tile(const uint32_t* __restrict__ src,
-                            const uint32_t* __restrict__ c2,
-                            const uint32_t* __restrict__ bv,
-                            const uint32_t* __restrict__ bv_sh,
-                            const uint32_t* __restrict__ av,
-                            const uint32_t* __restrict__ av_sh,
-                            uint32_t* __restrict__ ext,
-                            const uint32_t* __restrict__ psi,
-                            const uint32_t* __restrict__ psi_sh,
-                            const uint32_t* __restrict__ qs, int nd,
-                            int alpha, int kql, int kqlp, int key_rows,
-                            int key_shift, int log_n, int log_tile) {
-  __shared__ uint32_t s[1 << kMaxTileLog];
-  const int tau = blockIdx.y;
-  const uint32_t tile = blockIdx.x;
-  const uint32_t size = 1u << log_tile;
-  const size_t col0 = static_cast<size_t>(tile) << log_tile;
-  const size_t tw0 = static_cast<size_t>(tau) << log_n;
-  const uint32_t q = qs[tau];
-  const int krow = tau < kql ? tau : tau + key_shift;
-  uint32_t acc0[kTileWords], acc1[kTileWords];
-#pragma unroll
-  for (int w = 0; w < kTileWords; ++w) acc0[w] = acc1[w] = 0;
-  for (int j = 0; j < nd; ++j) {
-    const int end = (j + 1) * alpha < kql ? (j + 1) * alpha : kql;
-    const bool own = tau >= j * alpha && tau < end;      // block-uniform
-    const uint32_t* in =
-        own ? c2 + tw0 + col0
-            : src + ((static_cast<size_t>(j) * kqlp + tau) << log_n) + col0;
-    for (uint32_t x = threadIdx.x; x < size; x += blockDim.x) s[x] = in[x];
-    __syncthreads();
-    if (!own)
-      fwd_tile_stages(s, psi + tw0, psi_sh + tw0, q, log_n, log_tile, tile);
-    const size_t kb =
-        ((static_cast<size_t>(j) * key_rows + krow) << log_n) + col0;
-#pragma unroll
-    for (int w = 0; w < kTileWords; ++w) {
-      const uint32_t x = threadIdx.x + w * blockDim.x;
-      if (x < size) {
-        const uint32_t v = s[x];
-        acc0[w] = add_mod(acc0[w], mul_shoup(v, bv[kb + x], bv_sh[kb + x], q),
-                          q);
-        acc1[w] = add_mod(acc1[w], mul_shoup(v, av[kb + x], av_sh[kb + x], q),
-                          q);
-      }
-    }
-    __syncthreads();                 // s is reloaded for the next digit
-  }
-  uint32_t* o0 = ext + tw0 + col0;
-  uint32_t* o1 = ext + ((static_cast<size_t>(kqlp) + tau) << log_n) + col0;
-#pragma unroll
-  for (int w = 0; w < kTileWords; ++w) {
-    const uint32_t x = threadIdx.x + w * blockDim.x;
-    if (x < size) {
-      o0[x] = acc0[w];
-      o1[x] = acc1[w];
-    }
   }
 }
 
@@ -355,25 +293,16 @@ extern "C" int ntt_keymul_acc(const void* conv, const void* c2,
                               const void* psi_sh, const void* q, int nd,
                               int alpha, int kql, int kp, int k_q_full,
                               int log_n, void* stream) {
-  const int kqlp = kql + kp;
-  if (int bad = check_shape(nd * kqlp, kqlp, log_n)) return bad;
-  if (nd < 1 || alpha < 1 || kql > nd * alpha || k_q_full < kql)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* w = static_cast<const uint32_t*>(psi);
-  const auto* w_sh = static_cast<const uint32_t*>(psi_sh);
-  const auto* qs = static_cast<const uint32_t*>(q);
-  const uint32_t* src =
-      fwd_stages(static_cast<const uint32_t*>(conv),
-                 static_cast<uint32_t*>(scratch), w, w_sh, qs, nd * kqlp,
-                 kqlp, log_n, st);
-  const int log_tile = tile_log(log_n);
-  keymul_tile<<<tile_grid(log_n, kqlp), tile_threads(log_tile), 0, st>>>(
-      src, static_cast<const uint32_t*>(c2),
-      static_cast<const uint32_t*>(bv), static_cast<const uint32_t*>(bv_sh),
-      static_cast<const uint32_t*>(av), static_cast<const uint32_t*>(av_sh),
-      static_cast<uint32_t*>(ext), w, w_sh, qs, nd, alpha, kql, kqlp,
-      k_q_full + kp, k_q_full - kql, log_n, log_tile);
+  if (k_q_full < kql) return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  // all Q_l*P towers from row 0; the key skips the Q towers above the level
+  if (int bad = keymul_run(in(conv), in(c2), in(bv), in(bv_sh), in(av),
+                           in(av_sh), static_cast<uint32_t*>(scratch),
+                           static_cast<uint32_t*>(ext), in(psi), in(psi_sh),
+                           in(q), nd, alpha, kql, 0, kql + kp, k_q_full + kp,
+                           kql, k_q_full - kql, log_n,
+                           static_cast<cudaStream_t>(stream)))
+    return bad;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,6 +55,11 @@ class Basis:
         return self._map(lambda name: getattr(self, name)[start:stop],
                          self.moduli[start:stop])
 
+    def to(self, device) -> "Basis":
+        """The same basis with its tables on `device`."""
+        return self._map(lambda name: getattr(self, name).to(device),
+                         self.moduli)
+
     def concat(self, other: "Basis") -> "Basis":
         if self.ring_dim != other.ring_dim:
             raise ValueError("ring dimensions differ")

@@ -45,23 +45,16 @@ def ntt_inv(x: torch.Tensor, b: Basis) -> torch.Tensor:
 def _ntt_fwd_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
     """The forward transform of `csrc/ntt.cu`, any N."""
     out, rows, log_n = _prepare(x, b, "ntt_fwd")
-    rc = _build.entry("ntt", "ntt_fwd")(
-        x.data_ptr(), out.data_ptr(), b.psi_br.data_ptr(),
-        b.psi_br_sh.data_ptr(), b.q.data_ptr(), rows, b.k, log_n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.record_launch(rc, "ntt_fwd")
+    _build.launch("ntt", "ntt_fwd", x, out, b.psi_br, b.psi_br_sh, b.q, rows,
+                  b.k, log_n)
     return out
 
 
 def _ntt_inv_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
     """The inverse transform of `csrc/ntt.cu`, any N."""
     out, rows, log_n = _prepare(x, b, "ntt_inv")
-    rc = _build.entry("ntt", "ntt_inv")(
-        x.data_ptr(), out.data_ptr(), b.ipsi_br.data_ptr(),
-        b.ipsi_br_sh.data_ptr(), b.q.data_ptr(), b.ninv.data_ptr(),
-        b.ninv_sh.data_ptr(), rows, b.k, log_n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.record_launch(rc, "ntt_inv")
+    _build.launch("ntt", "ntt_inv", x, out, b.ipsi_br, b.ipsi_br_sh, b.q,
+                  b.ninv, b.ninv_sh, rows, b.k, log_n)
     return out
 
 

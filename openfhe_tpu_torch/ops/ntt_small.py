@@ -51,11 +51,8 @@ def ntt_small_fwd(x: torch.Tensor, b: Basis) -> torch.Tensor:
     if x.device.type == "cpu":
         return _ntt_small_fwd_ref(x, b)
     out, rows, log_n = _prepare(x, b, "ntt_small_fwd")
-    rc = _build.entry("ntt_small", "ntt_small_fwd")(
-        x.data_ptr(), out.data_ptr(), b.psi_br.data_ptr(),
-        b.psi_br_sh.data_ptr(), b.q.data_ptr(), rows, b.k, log_n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.record_launch(rc, "ntt_small_fwd")
+    _build.launch("ntt_small", "ntt_small_fwd", x, out, b.psi_br,
+                  b.psi_br_sh, b.q, rows, b.k, log_n)
     return out
 
 
@@ -64,12 +61,8 @@ def ntt_small_inv(x: torch.Tensor, b: Basis) -> torch.Tensor:
     if x.device.type == "cpu":
         return _ntt_small_inv_ref(x, b)
     out, rows, log_n = _prepare(x, b, "ntt_small_inv")
-    rc = _build.entry("ntt_small", "ntt_small_inv")(
-        x.data_ptr(), out.data_ptr(), b.ipsi_br.data_ptr(),
-        b.ipsi_br_sh.data_ptr(), b.q.data_ptr(), b.ninv.data_ptr(),
-        b.ninv_sh.data_ptr(), rows, b.k, log_n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.record_launch(rc, "ntt_small_inv")
+    _build.launch("ntt_small", "ntt_small_inv", x, out, b.ipsi_br,
+                  b.ipsi_br_sh, b.q, b.ninv, b.ninv_sh, rows, b.k, log_n)
     return out
 
 

@@ -170,16 +170,6 @@ def _check(name: str, tabs: FusedKSTables, **tensors) -> None:
                              f"expected {tuple(lead) + (n,)}")
 
 
-def _launch(kernel: str, *args) -> None:
-    """Call entry point `kernel` of ks_fused.cu: tensors pass their data
-    pointers, ints pass as they are, and the current stream of the first
-    operand's device comes last."""
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = _build.entry("ks_fused", kernel)(
-        *ptrs, torch.cuda.current_stream(args[0].device).cuda_stream)
-    _build.record_launch(rc, kernel)
-
-
 def _log_n(tabs: FusedKSTables) -> int:
     return tabs.basis_qlp.ring_dim.bit_length() - 1
 
@@ -193,8 +183,9 @@ def tensor_intt(a1: torch.Tensor, b1: torch.Tensor, tabs: FusedKSTables):
     _check("tensor_intt", tabs, a1=(a1, (kql,)), b1=(b1, (kql,)))
     c2, y = torch.empty_like(a1), torch.empty_like(a1)
     bq = tabs.basis_ql
-    _launch("tensor_intt", a1, b1, c2, y, bq.ipsi_br, bq.ipsi_br_sh, bq.q,
-            tabs.k1_scale, tabs.k1_scale_sh, kql, _log_n(tabs))
+    _build.launch("ks_fused", "tensor_intt", a1, b1, c2, y, bq.ipsi_br,
+                  bq.ipsi_br_sh, bq.q, tabs.k1_scale, tabs.k1_scale_sh, kql,
+                  _log_n(tabs))
     return c2, y
 
 
@@ -233,9 +224,9 @@ def intt_scale(x: torch.Tensor, tabs: FusedKSTables,
         basis, scale, scale_sh = (tabs.basis_ql, tabs.k1_scale,
                                   tabs.k1_scale_sh)
     out = x.new_empty(lead + (k, x.shape[-1]))
-    _launch("intt_scale", x, out, basis.ipsi_br, basis.ipsi_br_sh, basis.q,
-            scale, scale_sh, math.prod(lead), k, in_rows, in_off,
-            _log_n(tabs))
+    _build.launch("ks_fused", "intt_scale", x, out, basis.ipsi_br,
+                  basis.ipsi_br_sh, basis.q, scale, scale_sh, math.prod(lead),
+                  k, in_rows, in_off, _log_n(tabs))
     return out
 
 
@@ -257,8 +248,8 @@ def conv_digits(y_pad: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
     _check("conv_digits", tabs, y_pad=(y_pad, (nd, alpha)))
     n = y_pad.shape[-1]
     out = y_pad.new_empty((nd, kqlp, n))
-    _launch("conv_digits", y_pad, tabs.conv_w, tabs.conv_w_sh,
-            tabs.basis_qlp.q, out, nd, alpha, kqlp, n)
+    _build.launch("ks_fused", "conv_digits", y_pad, tabs.conv_w,
+                  tabs.conv_w_sh, tabs.basis_qlp.q, out, nd, alpha, kqlp, n)
     return out
 
 
@@ -287,9 +278,9 @@ def ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh,
     scratch = torch.empty_like(conv)
     ext = conv.new_empty((2, kqlp, conv.shape[-1]))
     b = tabs.basis_qlp
-    _launch("ntt_keymul_acc", conv, c2, bv, bv_sh, av, av_sh, scratch, ext,
-            b.psi_br, b.psi_br_sh, b.q, nd, tabs.alpha, kql, kp,
-            tabs.k_q_full, _log_n(tabs))
+    _build.launch("ks_fused", "ntt_keymul_acc", conv, c2, bv, bv_sh, av,
+                  av_sh, scratch, ext, b.psi_br, b.psi_br_sh, b.q, nd,
+                  tabs.alpha, kql, kp, tabs.k_q_full, _log_n(tabs))
     return ext
 
 
@@ -320,9 +311,10 @@ def intt_conv_p(ext: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
     pc = ext.new_empty((2, kp, n))
     out = ext.new_empty((2, kql, n))
     bp = tabs.basis_p
-    _launch("intt_conv_p", ext, pc, out, bp.ipsi_br, bp.ipsi_br_sh, bp.q,
-            tabs.k45_scale, tabs.k45_scale_sh, tabs.pconv_w, tabs.pconv_w_sh,
-            tabs.basis_ql.q, kql, kp, _log_n(tabs))
+    _build.launch("ks_fused", "intt_conv_p", ext, pc, out, bp.ipsi_br,
+                  bp.ipsi_br_sh, bp.q, tabs.k45_scale, tabs.k45_scale_sh,
+                  tabs.pconv_w, tabs.pconv_w_sh, tabs.basis_ql.q, kql, kp,
+                  _log_n(tabs))
     return out
 
 
@@ -345,9 +337,9 @@ def ntt_submul_final(convq, ext, a0, a1, b0, b1,
            b0=(b0, (kql,)), b1=(b1, (kql,)))
     scratch, out = torch.empty_like(convq), torch.empty_like(convq)
     bq = tabs.basis_ql
-    _launch("ntt_submul_final", convq, ext, a0, a1, b0, b1, scratch, out,
-            bq.psi_br, bq.psi_br_sh, bq.q, tabs.pinv_q, tabs.pinv_q_sh, kql,
-            kp, _log_n(tabs))
+    _build.launch("ks_fused", "ntt_submul_final", convq, ext, a0, a1, b0, b1,
+                  scratch, out, bq.psi_br, bq.psi_br_sh, bq.q, tabs.pinv_q,
+                  tabs.pinv_q_sh, kql, kp, _log_n(tabs))
     return out
 
 
@@ -375,9 +367,10 @@ def ntt_subscale(convq: torch.Tensor, ext: torch.Tensor,
            ext=(ext, (2, kql + kp)))
     scratch, out = torch.empty_like(convq), torch.empty_like(convq)
     bq = tabs.basis_ql
-    _launch("ntt_subscale", convq, ext, scratch, out, bq.psi_br,
-            bq.psi_br_sh, bq.q, tabs.t_modq, tabs.t_modq_sh, tabs.pinv_q,
-            tabs.pinv_q_sh, kql, kp, int(not tabs.t_is_one), _log_n(tabs))
+    _build.launch("ks_fused", "ntt_subscale", convq, ext, scratch, out,
+                  bq.psi_br, bq.psi_br_sh, bq.q, tabs.t_modq, tabs.t_modq_sh,
+                  tabs.pinv_q, tabs.pinv_q_sh, kql, kp,
+                  int(not tabs.t_is_one), _log_n(tabs))
     return out
 
 

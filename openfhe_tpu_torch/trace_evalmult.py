@@ -9,7 +9,10 @@ default; the fused mult chain of `pke/keyswitch/ks_fused.py`),
 1), both through the general fused chain, `keyswitch_core_fused`. `--op
 ginx` instead builds a BinFHE STD128 GINX context and traces 2 calls of
 EvalBinGate(AND) over a batch of 256 gates (a = i % 2, b = (i // 2) % 2),
-whose blind rotation runs kernel m (`csrc/ntt_small.cu`). Prints the
+whose blind rotation runs kernel m (`csrc/ntt_small.cu`). `--op sharded`
+traces the limb-sharded EvalMult of `parallel/sharded_fused.py` at level 3
+(28 Q towers) over a limb axis of 4 on the visible cards (all four shards
+on one card when there is one), inputs sharded beforehand. Prints the
 device time of every kernel name (summed over the calls, divided by
 their number) with its launches per call, the share taken by the port's
 own kernels (`csrc/`) against the plain torch ops around them, and the
@@ -27,13 +30,16 @@ import sys
 import numpy as np
 import torch
 
-CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "ginx": 2}
+CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "ginx": 2,
+         "sharded": 5}
+SHARDED_LEVEL = 3
+SHARDED_LIMB = 4
 GATE_BATCH = 256
 # kernel function names of csrc/ (ntt_core.cuh, rowmod_core.cuh,
-# ks_fused.cu, ntt_small.cu)
+# keymul_core.cuh, ks_fused.cu, ntt_small.cu, modmatmul.cu)
 OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "rowmod",
        "tensor_intt_tile", "keymul_tile", "subscale_tile", "submul_tile",
-       "ntt_small_kernel")
+       "ntt_small_kernel", "mod_matmul_kernel")
 
 
 def main(argv=None) -> int:
@@ -47,7 +53,8 @@ def main(argv=None) -> int:
 
     _build.build()
     calls = CALLS[args.op]
-    op = _ginx_op() if args.op == "ginx" else _ckks_op(args.op)
+    op = {"ginx": _ginx_op, "sharded": _sharded_op}.get(
+        args.op, lambda: _ckks_op(args.op))()
     for _ in range(3):
         op()
     torch.cuda.synchronize()
@@ -103,6 +110,27 @@ def _ginx_op():
     i = np.arange(GATE_BATCH)
     a, b = cc.Encrypt(sk, i % 2), cc.Encrypt(sk, (i // 2) % 2)
     return lambda: cc.EvalBinGate(BINGATE.AND, a, b)
+
+
+def _sharded_op():
+    """One limb-sharded EvalMult at level 3 of the main path's context."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch import parallel as par
+    from openfhe_tpu_torch.parallel import sharded_fused as sf
+    from openfhe_tpu_torch.pke.parameters import main_path_params
+
+    cc = fhe.GenCryptoContext(main_path_params(), seed=7)
+    kp = cc.KeyGen()
+    cc.EvalMultKeyGen(kp.secret_key)
+    z = np.random.default_rng(0).uniform(-0.5, 0.5, size=cc.slots)
+    ct = cc.LevelReduce(cc.Encrypt(kp.public_key,
+                                   cc.MakeCKKSPackedPlaintext(z)),
+                        SHARDED_LEVEL)
+    mesh = par.make_mesh(SHARDED_LIMB)
+    print(f"mesh: {mesh}")
+    st = sf.make_sharded_fused_tables(cc, cc.size_ql(SHARDED_LEVEL))
+    parts = par.shard_ciphertext(ct, mesh).elements
+    return lambda: sf.mult_relin_sharded(*parts, *parts, st, mesh)
 
 
 def _ckks_op(name: str):

@@ -24,8 +24,10 @@ from openfhe_tpu.math import nbtheory  # noqa: E402
 from openfhe_tpu.ops import ntt as jntt  # noqa: E402
 from openfhe_tpu_torch.lattice.basis import make_basis  # noqa: E402
 from openfhe_tpu_torch.math import modops as mo  # noqa: E402
-from openfhe_tpu_torch.ops import ntt  # noqa: E402
-from openfhe_tpu_torch.pke.keyswitch import ks_fused  # noqa: E402
+from openfhe_tpu_torch.ops import modmatmul, ntt  # noqa: E402
+from openfhe_tpu_torch.parallel import sharded_fused as sf  # noqa: E402
+from openfhe_tpu_torch.pke.keys import EvalKey  # noqa: E402
+from openfhe_tpu_torch.pke.keyswitch import hybrid, ks_fused  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VEC = os.path.join(ROOT, "tests", "vectors", "reference_vectors.json")
@@ -153,6 +155,21 @@ def test_kernel_wrappers_take_no_fallback():
         ("ntt_submul_final", lambda: ks_fused.ntt_submul_final(
             meta(2, 2), ext, q_in, q_in, q_in, q_in, tabs)),
     ]
+    # kernel l and the sharded chain's n, o, p, on shard 0 of 2 at 2 Q + 2 P
+    mods.append(nbtheory.first_prime(29, 2 * n))
+    ek = hybrid.shoup_companions(EvalKey(bv=torch.zeros(2, 4, n).int(),
+                                         av=torch.zeros(2, 4, n).int()), mods)
+    st = sf.make_sharded_fused_tables_basis(
+        make_basis(mods[:2], n), make_basis(mods[2:], n), 2, 2, ek)
+    view = sf.shard_view(st, 2, 0, "cpu")
+    calls += [
+        ("mod_matmul", lambda: modmatmul.mod_matmul(
+            meta(2, 4)[..., :4], meta(2, 4)[..., :8], meta(2)[:, :1])),
+        ("conv_digits_rows", lambda: sf.conv_digits_rows(y_pad, view)),
+        ("conv_p_to_q_rows", lambda: sf.conv_p_to_q_rows(meta(2, 2), view)),
+        ("ntt_keymul_acc_rows", lambda: sf.ntt_keymul_acc_rows(
+            meta(2, 2), q_in, view)),
+    ]
     for name, call in calls:
         with pytest.raises(ValueError, match=f"{name}: no kernel"):
             call()
@@ -175,6 +192,7 @@ def test_port_imports_no_jax():
     for d, _, names in os.walk(os.path.join(ROOT, "openfhe_tpu_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 20
+    assert any(os.sep + "parallel" + os.sep in f for f in files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
