@@ -32,23 +32,28 @@ is not beside it. Phases, none of which catches its own failure:
    must have been launched;
 5. BinFHE (the JAX repo's binfhe benchmark, `bench.py`'s binfhe rows):
    kernel m (`ntt_small_fwd` / `ntt_small_inv`) against its dense plain
-   version word for word at the blind rotation's shapes and at two more
+   version word for word at a gate batch's shapes and at two more
    (N=2048 with 2 towers, N=128 with 4), each beside `ntt.cu`'s transform
    of the same input (equal words, timed); these small calls cost the
    host more than the card, so their `ms` is device time with the host's
    launch cost taken out (`device_ms`) and `call_ms` the time of one call
-   as the other kernels are timed; then, with the counters reset
-   just before and read just after, GINX at STD128 over a batch of 256
-   gates with a = i % 2, b = (i // 2) % 2: context, KeyGen, BTKeyGen,
-   Encrypt, EvalBinGate AND/OR/NAND/XOR/XNOR, EvalNOT, Bootstrap and
-   MAJORITY, every decryption against the truth table; one AND launches
-   each kernel m entry n + 1 times (n steps, each one inverse over both
-   accumulator halves and one forward over the digits, plus the test
-   vector's forward and the extraction's inverse) and nothing else; 4 of
+   as the other kernels are timed; the blind-rotation kernel
+   (`blind_rotate_cggi` / `_dm` / `_lmkcdey`) against the per-step loop
+   on the card (`rgsw._eval_acc_*_steps`: kernel m twice a step and plain
+   torch around it) word for word, on random words as keys and
+   accumulators, at GINX STD128 batch 256 and 1, STD128_LMKCDEY batch 1
+   and 64 and STD128_AP batch 64, one launch per blind rotation, plus a
+   run split at step SPLIT_STEP that must equal the whole; then, with
+   the counters reset just before and read just after, GINX at STD128 over
+   a batch of 256 gates with a = i % 2, b = (i // 2) % 2: context, KeyGen,
+   BTKeyGen, Encrypt, EvalBinGate AND/OR/NAND/XOR/XNOR, EvalNOT, Bootstrap
+   and MAJORITY, every decryption against the truth table; one AND
+   launches `ntt_small_fwd` once (the test vector), `blind_rotate_cggi`
+   once and `ntt_small_inv` once (the extraction) and nothing else; 4 of
    its gates equal the port's plain path on the CPU with the same keys;
    EvalFunc (x^2 mod 4, periodic) and EvalSign at batch 4; then
    STD128_LMKCDEY at batch 1 and 64 and STD128_AP at batch 64 (AND, truth
-   table, launches printed; AP's derived as n * digitsR + 1);
+   table, the same three launches with their own blind rotation);
 6. the limb-sharded path (`openfhe_tpu_torch/parallel/`), on the phase-4
    context and eval key, on meshes built from the visible cards (a card
    repeats when there are fewer cards than shards; the placement is
@@ -97,9 +102,13 @@ SHOUP_OPS = 5
 ROWMOD_TERM_OPS = 7    # Shoup multiply 5 + add_mod 2
 MATMUL_TERM_OPS = 4    # 62-bit product 2 + 64-bit sum 2
 MULMOD_OPS = 10        # a 64-bit product reduced mod q
+CENTRE_OPS = 3         # compare, select, subtract
+DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
+                       # the sign fix (compare and add)
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
+BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
          "intt_conv_p", "ntt_subscale", "ntt_submul_final")
 # the kernels of one EvalMult, and of one Relinearize or automorphism
@@ -136,6 +145,15 @@ WHERE = {
                          "openfhe_tpu/pke/keyswitch/ks_fused.py:802"),
     "ntt_small_fwd": ("csrc/ntt_small.cu", "openfhe_tpu/ops/ntt_small.py:157"),
     "ntt_small_inv": ("csrc/ntt_small.cu", "openfhe_tpu/ops/ntt_small.py:157"),
+    "blind_rotate_cggi": ("csrc/blind_rotate.cu",
+                          "openfhe_tpu/ops/ntt_small.py:157, "
+                          "openfhe_tpu/binfhe/rgsw.py:198"),
+    "blind_rotate_dm": ("csrc/blind_rotate.cu",
+                        "openfhe_tpu/ops/ntt_small.py:157, "
+                        "openfhe_tpu/binfhe/rgsw.py:357"),
+    "blind_rotate_lmkcdey": ("csrc/blind_rotate.cu",
+                             "openfhe_tpu/ops/ntt_small.py:157, "
+                             "openfhe_tpu/binfhe/rgsw.py:571"),
     "mod_matmul": ("csrc/modmatmul.cu", "openfhe_tpu/ops/modmatmul.py:138"),
     "conv_digits_rows": ("csrc/sharded.cu",
                          "openfhe_tpu/parallel/sharded_fused.py:318"),
@@ -145,8 +163,8 @@ WHERE = {
                             "openfhe_tpu/parallel/sharded_fused.py:396"),
 }
 # kernel m's cases: (N, towers, rows, what the shape is)
-SMALL_CASES = ((1024, 1, 1536, "GINX step digits: batch 256 x d2 6"),
-               (1024, 1, 512, "GINX step accumulator halves: batch 256 x 2"),
+SMALL_CASES = ((1024, 1, 1536, "the per-step loop's digits: 256 x d2 6"),
+               (1024, 1, 512, "a gate batch's extraction: 256 x 2"),
                (2048, 2, 64, "the STD192 ring's shape"),
                (128, 4, 8, "smallest ring, 4 towers"))
 GINX_SET = "STD128"       # bench.py's GINX configuration
@@ -156,7 +174,10 @@ GATE_BATCH = 256          # bench.py's GINX batch
 LMK_BATCHES = (1, 64)     # bench.py's LMKCDEY batches
 AP_BATCH = 64
 FUNC_BATCH = 4
-GATE_REPS = 3             # a gate batch takes about half a second
+GATE_REPS = 3
+BLIND_REPS = 5
+LOOP_REPS = 2             # the per-step loop takes about half a second
+SPLIT_STEP = 100
 SIGN_MOD = 1 << 17
 # CKKS noise at 26-bit scales and N=2^16: a fresh encryption's slot error
 # e has a std of about 2.5e-3 (max over the 32768 slots about 1.5e-2), and
@@ -466,6 +487,134 @@ def ntt_small_cases(gen) -> dict:
     return out
 
 
+def blind_work(form, params, batch, keys, tables, lo, hi):
+    """(bytes, operations) of a blind rotation's steps [lo, hi): each key
+    row these inputs read once (AP and LMKCDEY: only the rows gathered),
+    the accumulators in and out, the step tables and the block's twiddle
+    tables once; per gate-step that transforms, the 2 + d2 transforms, N^-1,
+    the decomposition, the key product's 64-bit terms, its reductions and
+    GINX's monomial products (LMKCDEY's permute-only steps do none)."""
+    n, d2 = params.ring_dim, params.digits_g2
+    log_n = n.bit_length() - 1
+    row_bytes = WORD * d2 * 2 * n
+    if form == "cggi":
+        nbytes = WORD * keys[lo:hi].numel() + tables.numel() * WORD
+        gate_steps = batch * (hi - lo)
+    elif form == "dm":
+        nbytes = row_bytes * tables[lo:hi].unique().numel() \
+            + tables.numel() * WORD
+        gate_steps = batch * (hi - lo)
+    else:
+        run = tables[1][lo:hi]
+        moves = (run[..., 3] > 0) | (run[..., 2] == 0)   # not permute-only
+        nbytes = (row_bytes * run[..., 1][moves].unique().numel()
+                  + WORD * n * run[..., 0].unique().numel()
+                  + run.numel() * WORD)
+        gate_steps = int(moves.sum())
+    nbytes += WORD * (4 * batch * n + (6 if form == "cggi" else 4) * n)
+    step = ((2 + d2) * n // 2 * log_n * BUTTERFLY_OPS + 2 * n * SHOUP_OPS
+            + 2 * n * (CENTRE_OPS + params.digits_g * DIGIT_OPS))
+    if form == "cggi":
+        step += n * (4 * d2 * MATMUL_TERM_OPS + 6 * MULMOD_OPS
+                     + 4 * MATMUL_TERM_OPS)
+    else:
+        step += n * (2 * d2 * MATMUL_TERM_OPS + 2 * MULMOD_OPS)
+    return nbytes, gate_steps * step
+
+
+def blind_rotate_cases(gen) -> dict:
+    """The blind-rotation kernel of each form against the per-step loop on
+    the card (`rgsw._eval_acc_*_steps`), word for word, at the BinFHE
+    phase's parameter sets and batches, on random words as keys and
+    accumulators (any words are valid inputs to a blind rotation); one
+    launch per blind rotation; a run split at SPLIT_STEP equals the whole.
+    The kernel's `ms` is device time (`device_ms`), `call_ms` one call of
+    `rgsw.eval_acc_*` (the tables built on the way), `plain_ms` the loop."""
+    import math
+    from openfhe_tpu_torch.binfhe import blind_rotate as br
+    from openfhe_tpu_torch.binfhe import rgsw
+    from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD
+    from openfhe_tpu_torch.binfhe.context import BinFHEContext
+    out = {name: [] for name in BLIND}
+    for param_set, method, batches in (
+            (GINX_SET, BINFHE_METHOD.GINX, (GATE_BATCH, 1)),
+            (LMK_SET, BINFHE_METHOD.LMKCDEY, LMK_BATCHES),
+            (AP_SET, BINFHE_METHOD.AP, (AP_BATCH,))):
+        cc = BinFHEContext(seed=13).GenerateBinFHEContext(param_set, method)
+        p = cc.rgsw
+        n, big_n, d2 = cc.n, cc.N, p.digits_g2
+        words = lambda *shape: torch.randint(
+            0, cc.Q, shape, generator=gen, device="cuda", dtype=torch.int32)
+        if method == BINFHE_METHOD.GINX:
+            form, keys = "cggi", words(n, 2, d2, 2, big_n)
+        elif method == BINFHE_METHOD.AP:
+            digits_r = math.ceil(math.log(cc.q) / math.log(cc.base_r))
+            form = "dm"
+            keys = words(n, digits_r, cc.base_r, d2, 2, big_n)
+        else:
+            w = cc.num_auto_keys
+            form, keys = "lmkcdey", words(1 + n + w + 1, d2, 2, big_n)
+            perm = torch.from_numpy(rgsw.lmkcdey_perm_table(p, w)).cuda()
+        name = f"blind_rotate_{form}"
+        for batch in batches:
+            acc0, acc1 = words(batch, big_n), words(batch, big_n)
+            a = torch.randint(0, cc.q, (batch, n), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            if form == "cggi":
+                flat, tables = keys, br.cggi_idx(p, a)
+                fused = lambda: rgsw.eval_acc_cggi(p, keys, acc0, acc1, a)
+                loop = lambda: rgsw._eval_acc_cggi_steps(p, keys, acc0,
+                                                         acc1, a)
+            elif form == "dm":
+                flat = keys.reshape(-1, d2, 2, big_n)
+                tables = br.dm_rows(p, digits_r, cc.base_r, a)
+                fused = lambda: rgsw.eval_acc_dm(p, keys, digits_r,
+                                                 cc.base_r, acc0, acc1, a)
+                loop = lambda: rgsw._eval_acc_dm_steps(
+                    p, keys, digits_r, cc.base_r, acc0, acc1, a)
+            else:
+                flat = keys
+                tables = (perm, br.lmkcdey_sched(p, a, w))
+                fused = lambda: rgsw.eval_acc_lmkcdey_scan(
+                    p, keys, *tables, acc0, acc1)
+                loop = lambda: rgsw._eval_acc_lmkcdey_scan_steps(
+                    p, keys, *tables, acc0, acc1)
+            rotate = getattr(br, name)
+            kernel = lambda lo=0, hi=None: rotate(p, flat, tables, acc0,
+                                                  acc1, lo, hi)
+            got, per = count_launches(fused, BLIND + SMALL)
+            want = loop()
+            direct = kernel()
+            torch.cuda.synchronize()
+            err = max(max_abs_err(torch.stack(got), torch.stack(want)),
+                      max_abs_err(torch.stack(got), torch.stack(direct)))
+            require(err == 0, f"{name} {param_set} batch {batch} differs "
+                    f"from the per-step loop (max abs err {err})")
+            require(per == {k: int(k == name) for k in BLIND + SMALL},
+                    f"{name}: one blind rotation launched {per}")
+            steps = (tables[1] if form == "lmkcdey" else tables).shape[0]
+            split = None
+            if batch == GATE_BATCH:
+                part = kernel(0, SPLIT_STEP)
+                part = rotate(p, flat, tables, *part, SPLIT_STEP, None)
+                split = all(torch.equal(x, y) for x, y in zip(part, direct))
+                require(split, f"{name}: steps [0, {SPLIT_STEP}) then "
+                        f"[{SPLIT_STEP}, {steps}) differ from the whole")
+            b_ms, b_by = bound(*blind_work(form, p, batch, flat, tables, 0,
+                                           steps))
+            out[name].append(dict(
+                shape=[batch, steps, d2, big_n], moduli=param_set,
+                max_abs_err=err, split_equal=split,
+                launches_per_call=per[name],
+                ms=device_ms(kernel, BLIND_REPS, 1),
+                call_ms=cuda_ms(fused, BLIND_REPS, 1),
+                plain_ms=cuda_ms(loop, LOOP_REPS, 0),
+                bound_ms=b_ms, bound_by=b_by))
+        del cc, keys
+        torch.cuda.empty_cache()
+    return out
+
+
 def binfhe_phase(names) -> dict:
     """The BinFHE paths (see the module docstring); raises on any fault."""
     from openfhe_tpu_torch import _build
@@ -509,11 +658,12 @@ def binfhe_phase(names) -> dict:
           f"EvalBinGate {per_gate}; whole phase {res['ginx_launches']}")
     require(all(v == 0 for v in wrong.values()),
             f"GINX decryptions differ from the truth table: {wrong}")
-    want_gate = {k: (cc.n + 1) * (k in SMALL) for k in names}
+    gate_kernels = SMALL + ("blind_rotate_cggi",)
+    want_gate = {k: int(k in gate_kernels) for k in names}
     require(per_gate == want_gate,
             f"EvalBinGate launches {per_gate}, expected {want_gate}")
     require(all(res["ginx_launches"][k] == 0 for k in names
-                if k not in SMALL),
+                if k not in gate_kernels),
             f"the BinFHE path launched another kernel: "
             f"{res['ginx_launches']}")
 
@@ -593,15 +743,17 @@ def binfhe_phase(names) -> dict:
                   f"keygen {keygen_s:.1f} s")
             require(bad == 0, f"{param_set} decryptions differ from the "
                     "truth table")
-            require(per["ntt_small_fwd"] == per["ntt_small_inv"] > cc.n
-                    and all(v == 0 for k, v in per.items() if k not in SMALL),
-                    f"{param_set} launches {per}")
-            if method == BINFHE_METHOD.AP:
-                steps = cc.n * cc.bt_key[1] + 1
-                require(per["ntt_small_fwd"] == steps,
-                        f"AP launches {per}, expected {steps} each")
+            form = "dm" if method == BINFHE_METHOD.AP else "lmkcdey"
+            want = {k: int(k in SMALL + (f"blind_rotate_{form}",))
+                    for k in names}
+            require(per == want, f"{param_set} launches {per}, expected "
+                    f"{want}")
         del cc
         torch.cuda.empty_cache()
+    res["launches"] = {k: _build.LAUNCHES[k] for k in names}
+    print(f"BinFHE phase launches: {res['launches']}")
+    require(all(res["launches"][k] > 0 for k in SMALL + BLIND),
+            f"a BinFHE kernel was not launched: {res['launches']}")
     return res
 
 
@@ -976,6 +1128,17 @@ def main() -> int:
         fused_work(tabs_t)["ntt_subscale"], "level 0, t = 65537"))
     del ext
     small = ntt_small_cases(gen)
+    blind = blind_rotate_cases(gen)
+    for name, rows in blind.items():
+        for c in rows:
+            print(f"  {name:20s} {str(c['shape']):24s} {c['moduli']:15s} "
+                  f"kernel {c['ms']:.3f} ms (call {c['call_ms']:.3f})  "
+                  f"per-step loop {c['plain_ms']:.1f} ms  bound "
+                  f"{c['bound_ms']:.4f} ms ({c['bound_by']})  max_abs_err "
+                  f"{c['max_abs_err']}"
+                  + ("" if c["split_equal"] is None else
+                     f"  split at step {SPLIT_STEP} == whole: "
+                     f"{c['split_equal']}"))
     for name, rows in small.items():
         for c in rows:
             print(f"  {name:18s} {str(c['shape']):18s} k={c['towers']} "
@@ -1223,10 +1386,10 @@ def main() -> int:
             "words on the card differ from the plain path")
 
     # 5. BinFHE, counted from its context on
-    names = tuple(cases) + SMALL + SHARDED
+    names = tuple(cases) + SMALL + BLIND + SHARDED
     binfhe = binfhe_phase(names)
     per_gate = binfhe["ginx_launches_per_gate"]
-    launches.update({k: binfhe["ginx_launches"][k] for k in SMALL})
+    launches.update({k: binfhe["launches"][k] for k in SMALL + BLIND})
 
     # 6. the limb-sharded path, counted from its first sharded op on
     sharded = sharded_phase(cc, ct_a, ct_b, ct_c, sk,
@@ -1236,7 +1399,8 @@ def main() -> int:
 
     # 7. the kernels line, then the device line
     kernels = []
-    for name, rows in {**cases, **small, **sharded["cases"]}.items():
+    for name, rows in {**cases, **small, **blind,
+                       **sharded["cases"]}.items():
         head = rows[0]        # level 0 / Q (31 towers) / digit 0
         kernels.append(dict(
             name=name, route="cuda",
@@ -1257,6 +1421,7 @@ def main() -> int:
             **({k: head[k] for k in ("call_ms", "ntt_cu_ms",
                                       "ntt_cu_call_ms")}
                if name in SMALL else {}),
+            **({"call_ms": head["call_ms"]} if name in BLIND else {}),
             cases=rows))
     print(json.dumps({"kernels": kernels, "card": card, **times,
                       "decrypt_max_abs_err": err,

@@ -54,6 +54,9 @@ SOURCES = {
                  "intt_conv_p": [_P] * 11 + [_I] * 3 + [_P],
                  "ntt_subscale": [_P] * 11 + [_I] * 4 + [_P],
                  "ntt_submul_final": [_P] * 13 + [_I] * 3 + [_P]},
+    "blind_rotate": {"blind_rotate_cggi": [_P] * 14 + [_I] * 6 + [_P],
+                     "blind_rotate_dm": [_P] * 13 + [_I] * 6 + [_P],
+                     "blind_rotate_lmkcdey": [_P] * 14 + [_I] * 6 + [_P]},
     "sharded": {"conv_digits_rows": [_P] * 5 + [_I] * 4 + [_P],
                 "conv_p_to_q_rows": [_P] * 5 + [_I] * 4 + [_P],
                 "ntt_keymul_acc_rows": [_P] * 11 + [_I] * 6 + [_P]},

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from openfhe_tpu_torch._device import resolve_device
-from openfhe_tpu_torch.binfhe import lwe, rgsw
+from openfhe_tpu_torch.binfhe import blind_rotate, lwe, rgsw
 from openfhe_tpu_torch.binfhe.constants import (BINFHE_METHOD, BINGATE,
                                                 KEYGEN_MODE, PARAM_SETS,
                                                 PRIME, gate_constants)
@@ -179,25 +179,14 @@ class BinFHEContext:
                                     acc0, acc1, a)
         # LMKCDEY: per-gate schedules (a pure function of the public a
         # vector) built on the host, padded with no-op steps to the
-        # longest, and run as one batched loop
+        # longest, and run as one batched blind rotation
         key_bank, perm_table, w = self.bt_key
-        a_host = a.cpu().numpy().astype(np.int64)
-        lead = a_host.shape[:-1]
-        scheds = [rgsw.build_lmkcdey_schedule(params, row, w)
-                  for row in a_host.reshape(-1, a_host.shape[-1])]
-        lmax = max(s.shape[0] for s in scheds)
-        sched = np.stack([
-            np.concatenate([s, np.tile(rgsw.LMK_NOOP,
-                                       (lmax - s.shape[0], 1))])
-            for s in scheds])                                # [B, L, 5]
-        sched = torch.from_numpy(np.ascontiguousarray(
-            sched.transpose(1, 0, 2))).to(self.device)       # [L, B, 5]
-        big_n = self.N
-        c0 = acc0.expand(lead + (big_n,)).reshape(-1, big_n)
-        c1 = acc1.expand(lead + (big_n,)).reshape(-1, big_n)
-        o0, o1 = rgsw.eval_acc_lmkcdey_scan(params, key_bank, perm_table,
-                                            sched, c0, c1)
-        return o0.reshape(lead + (big_n,)), o1.reshape(lead + (big_n,))
+        lead = a.shape[:-1]
+        sched = blind_rotate.lmkcdey_sched(params, a.reshape(-1, a.shape[-1]),
+                                           w)
+        return rgsw.eval_acc_lmkcdey_scan(
+            params, key_bank, perm_table,
+            sched.reshape((sched.shape[0],) + lead + (5,)), acc0, acc1)
 
     # ------------------------------------------------------------------
     # encryption

@@ -7,12 +7,16 @@ rgsw-acc-lmkcdey.cpp).
 
 * The GINX bootstrapping key is one tensor [n, 2, digitsG2, 2, N] (per
   LWE coordinate, two ternary-CMUX keys, gadget rows, (a, b), EVAL).
-* A blind rotation is a Python loop over its steps (the JAX package's
-  `lax.scan`). Every step is batched over the gates and makes two NTT
-  calls, which on the card are kernel m (`ops/ntt_small.py`): one inverse
-  over both accumulator halves stacked, one forward over the [..., d2, N]
-  digits. The key products and the monomial X^idx - 1 (slot j of X^t is
-  psi^(t * e_j), e_j = 2 * brv(j) + 1) are plain int64 torch.
+* A blind rotation (the JAX package's `lax.scan`) is one launch of
+  `csrc/blind_rotate.cu` on the card (`blind_rotate.py`): every gate's
+  whole step loop in one thread block. On the CPU it is the per-step
+  loop, batched over the gates: two NTT calls a step (one inverse over
+  both accumulator halves stacked, one forward over the [..., d2, N]
+  digits) and plain int64 torch for the key products and the monomial
+  X^idx - 1 (slot j of X^t is psi^(t * e_j), e_j = 2 * brv(j) + 1). The
+  same loop on the card, with kernel m (`ops/ntt_small.py`) for the NTTs,
+  stays as `_eval_acc_*_steps`, the unfused chain the kernel is held
+  against.
 * Every modular sum is exact, so the words equal the JAX package's
   add_mod trees.
 """
@@ -25,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from openfhe_tpu_torch.binfhe import blind_rotate
 from openfhe_tpu_torch.lattice.automorph import eval_indices
 from openfhe_tpu_torch.lattice.basis import Basis, _bitrev_indices, make_basis
 from openfhe_tpu_torch.math import sampling
@@ -210,31 +215,59 @@ def _step_digits(params: RGSWParams, pair: torch.Tensor) -> torch.Tensor:
     return _fwd1(decompose_pair(params, _inv1(pair, b)), b)
 
 
+def _cggi_step(params: RGSWParams, key: torch.Tensor, ix: torch.Tensor,
+               acc: torch.Tensor) -> torch.Tensor:
+    """One GINX step (AddToAccCGGI) on the pair acc [..., 2, N] int64: key
+    [2, d2, 2, N] of the coordinate, ix [...] int64 its monomial
+    exponent."""
+    q = params.big_q
+    two_n = 2 * params.ring_dim
+    dct = _step_digits(params, acc)
+    # monomials X^ix - 1 and X^-ix - 1 of the two CMUX keys
+    mono = monomial_eval(params, torch.stack(
+        [ix, torch.remainder(two_n - ix, two_n)], dim=-1))  # [..., 2, N]
+    t = _key_sum(params, dct.unsqueeze(-3), key)              # [..., 2, 2, N]
+    return torch.remainder(acc + torch.remainder(
+        t * (mono - 1).unsqueeze(-2), q).sum(-3), q)
+
+
+def _batch_pair(acc0, acc1, lead: tuple):
+    """The accumulators broadcast to lead + [N] and flattened to [B, N]."""
+    n = acc0.shape[-1]
+    return tuple(a.expand(lead + (n,)).reshape(-1, n).contiguous()
+                 for a in (acc0, acc1))
+
+
+def _unbatch(pair, lead: tuple):
+    return tuple(a.reshape(lead + a.shape[-1:]) for a in pair)
+
+
+def _cggi(rotate, params: RGSWParams, bskey, acc0, acc1, a_lwe):
+    lead = torch.broadcast_shapes(acc0.shape[:-1], acc1.shape[:-1],
+                                  a_lwe.shape[:-1])
+    a = a_lwe.expand(lead + a_lwe.shape[-1:]).reshape(-1, a_lwe.shape[-1])
+    idx = blind_rotate.cggi_idx(params, a)
+    return _unbatch(rotate(params, bskey, idx,
+                           *_batch_pair(acc0, acc1, lead)), lead)
+
+
 def eval_acc_cggi(params: RGSWParams, bskey: torch.Tensor, acc0, acc1,
                   a_lwe: torch.Tensor):
     """GINX blind rotation (rgsw-acc-cggi.cpp EvalAcc :61 + AddToAccCGGI).
 
-    acc0/acc1: [..., N] EVAL mod Q. a_lwe: [..., n] mod q. A loop over
-    the n coordinates; each step is batched over the gates.
+    acc0/acc1: [..., N] EVAL mod Q. a_lwe: [..., n] mod q. The n steps of
+    every gate run as one `blind_rotate_cggi` launch on the card, the
+    per-step loop on the CPU (`blind_rotate.py`).
     """
-    q = params.big_q
-    two_n = 2 * params.ring_dim
-    m_by_mod = two_n // params.q_lwe
-    # idx_i = (q - a_i) * (2N/q) in [0, 2N)
-    idx = torch.remainder(params.q_lwe - a_lwe.long(), params.q_lwe) \
-        * m_by_mod
-    idx = torch.movedim(idx, -1, 0)                          # [n, ...]
-    acc = torch.stack([acc0, acc1], dim=-2).long()           # [..., 2, N]
-    for i in range(bskey.shape[0]):
-        dct = _step_digits(params, acc)
-        ix = idx[i]
-        # monomials X^ix - 1 and X^-ix - 1 of the two CMUX keys
-        mono = monomial_eval(params, torch.stack(
-            [ix, torch.remainder(two_n - ix, two_n)], dim=-1))  # [..., 2, N]
-        t = _key_sum(params, dct.unsqueeze(-3), bskey[i])    # [..., 2, 2, N]
-        acc = torch.remainder(acc + torch.remainder(
-            t * (mono - 1).unsqueeze(-2), q).sum(-3), q)
-    return acc[..., 0, :].int(), acc[..., 1, :].int()
+    return _cggi(blind_rotate.blind_rotate_cggi, params, bskey, acc0, acc1,
+                 a_lwe)
+
+
+def _eval_acc_cggi_steps(params: RGSWParams, bskey: torch.Tensor, acc0,
+                         acc1, a_lwe: torch.Tensor):
+    """eval_acc_cggi as the per-step loop on any device (the unfused chain:
+    on the card two kernel-m calls a step and plain torch around them)."""
+    return _cggi(blind_rotate._cggi_ref, params, bskey, acc0, acc1, a_lwe)
 
 
 def keygen_rgsw_monomial(gen: torch.Generator, params: RGSWParams,
@@ -313,22 +346,30 @@ def keygen_dm(gen: torch.Generator, params: RGSWParams,
                       params.ring_dim), digits_r
 
 
+def _dm(rotate, params: RGSWParams, bskey, digits_r: int, base_r: int,
+        acc0, acc1, a_lwe):
+    lead = torch.broadcast_shapes(acc0.shape[:-1], acc1.shape[:-1],
+                                  a_lwe.shape[:-1])
+    a = a_lwe.expand(lead + a_lwe.shape[-1:]).reshape(-1, a_lwe.shape[-1])
+    row = blind_rotate.dm_rows(params, digits_r, base_r, a)
+    keys = bskey.reshape((-1,) + bskey.shape[-3:])
+    return _unbatch(rotate(params, keys, row,
+                           *_batch_pair(acc0, acc1, lead)), lead)
+
+
 def eval_acc_dm(params: RGSWParams, bskey, digits_r: int, base_r: int,
                 acc0, acc1, a_lwe: torch.Tensor):
-    """AP blind rotation: a loop over (i, digit) with gathered keys."""
-    q_lwe = params.q_lwe
-    t = torch.remainder(q_lwe - a_lwe.long(), q_lwe)        # [..., n]
-    digs = []
-    for _ in range(digits_r):
-        digs.append(t % base_r)
-        t = t // base_r
-    digits = torch.stack(digs, dim=-1)                      # [..., n, dR]
-    flat = torch.movedim(digits.reshape(digits.shape[:-2] + (-1,)), -1, 0)
-    keys = bskey.reshape((params.n_lwe * digits_r,) + bskey.shape[2:])
-    for j in range(keys.shape[0]):
-        acc0, acc1 = external_product_replace(params, keys[j][flat[j]],
-                                              acc0, acc1)
-    return acc0, acc1
+    """AP blind rotation: n * digitsR steps with gathered keys, one
+    `blind_rotate_dm` launch on the card."""
+    return _dm(blind_rotate.blind_rotate_dm, params, bskey, digits_r, base_r,
+               acc0, acc1, a_lwe)
+
+
+def _eval_acc_dm_steps(params: RGSWParams, bskey, digits_r: int,
+                       base_r: int, acc0, acc1, a_lwe: torch.Tensor):
+    """eval_acc_dm as the per-step loop on any device (the unfused chain)."""
+    return _dm(blind_rotate._dm_ref, params, bskey, digits_r, base_r, acc0,
+               acc1, a_lwe)
 
 
 # ---------------------------------------------------------------------------
@@ -495,29 +536,53 @@ def lmkcdey_key_bank(params: RGSWParams, rgsw_keys: torch.Tensor,
     return bank
 
 
+def _lmkcdey_step(params: RGSWParams, key_bank, perm_table, step, acc0,
+                  acc1):
+    """One masked LMKCDEY step; step [..., 5] and perm_table int64 (see
+    build_lmkcdey_schedule)."""
+    q = params.big_q
+    perm = perm_table[step[..., 0]]                          # [..., N]
+    key = key_bank[step[..., 1]]                             # [..., d2,2,N]
+    a_g = torch.gather(acc0.expand(perm.shape), -1, perm)
+    b_g = torch.gather(acc1.expand(perm.shape), -1, perm)
+    s = _key_sum(params, _step_digits(
+        params, torch.stack([a_g, b_g], dim=-2)), key)
+    acc0 = torch.where(step[..., 2, None] > 0, a_g.long(), s[..., 0, :])
+    acc1 = torch.remainder(
+        torch.where(step[..., 3, None] > 0, s[..., 1, :], 0)
+        + torch.where(step[..., 4, None] > 0, b_g.long(), 0), q)
+    return acc0.int(), acc1.int()
+
+
+def _lmkcdey(rotate, params: RGSWParams, key_bank, perm_table, sched, acc0,
+             acc1):
+    lead = torch.broadcast_shapes(acc0.shape[:-1], acc1.shape[:-1],
+                                  sched.shape[1:-1])
+    steps = sched.expand((sched.shape[0],) + lead + (5,)).reshape(
+        sched.shape[0], -1, 5).to(torch.int32).contiguous()
+    return _unbatch(rotate(params, key_bank, (perm_table, steps),
+                           *_batch_pair(acc0, acc1, lead)), lead)
+
+
 def eval_acc_lmkcdey_scan(params: RGSWParams, key_bank, perm_table,
                           sched, acc0, acc1):
-    """LMKCDEY blind rotation as a loop over uniform masked steps.
+    """LMKCDEY blind rotation over uniform masked steps: one
+    `blind_rotate_lmkcdey` launch on the card.
 
     sched: [L, ..., 5] int tensor on the accumulator's device (leading
     batch dims of acc broadcast; each gate carries its own padded
     schedule). See build_lmkcdey_schedule.
     """
-    q = params.big_q
-    perm_table = perm_table.long()
-    for step in sched.long():
-        perm = perm_table[step[..., 0]]                      # [..., N]
-        key = key_bank[step[..., 1]]                         # [..., d2,2,N]
-        a_g = torch.gather(acc0.expand(perm.shape), -1, perm)
-        b_g = torch.gather(acc1.expand(perm.shape), -1, perm)
-        s = _key_sum(params, _step_digits(
-            params, torch.stack([a_g, b_g], dim=-2)), key)
-        acc0 = torch.where(step[..., 2, None] > 0, a_g.long(), s[..., 0, :])
-        acc1 = torch.remainder(
-            torch.where(step[..., 3, None] > 0, s[..., 1, :], 0)
-            + torch.where(step[..., 4, None] > 0, b_g.long(), 0), q)
-        acc0, acc1 = acc0.int(), acc1.int()
-    return acc0, acc1
+    return _lmkcdey(blind_rotate.blind_rotate_lmkcdey, params, key_bank,
+                    perm_table, sched, acc0, acc1)
+
+
+def _eval_acc_lmkcdey_scan_steps(params: RGSWParams, key_bank, perm_table,
+                                 sched, acc0, acc1):
+    """eval_acc_lmkcdey_scan as the per-step loop on any device (the
+    unfused chain)."""
+    return _lmkcdey(blind_rotate._lmkcdey_ref, params, key_bank, perm_table,
+                    sched, acc0, acc1)
 
 
 def eval_acc_lmkcdey(params: RGSWParams, rgsw_keys, auto_keys: dict,

@@ -1,5 +1,8 @@
 // Small-ring negacyclic NTT (128 <= N <= 2048, k <= 4 towers) for Hopper
-// (sm_90a): the transforms of BinFHE's blind rotation.
+// (sm_90a): BinFHE's transforms outside the blind rotation (the test
+// vector, the extraction, keygen, the host-scheduled LMKCDEY loop) and
+// those of the per-step loop that blind_rotate.cu, which runs a whole
+// blind rotation in one launch, is held against.
 //
 // Replaces the TPU kernel _mat_call of openfhe_tpu/ops/ntt_small.py (body
 // _ntt_mat_kernel), which runs each transform as one dense [B, N] x [N, N]

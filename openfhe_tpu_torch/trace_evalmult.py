@@ -9,7 +9,11 @@ default; the fused mult chain of `pke/keyswitch/ks_fused.py`),
 1), both through the general fused chain, `keyswitch_core_fused`. `--op
 ginx` instead builds a BinFHE STD128 GINX context and traces 2 calls of
 EvalBinGate(AND) over a batch of 256 gates (a = i % 2, b = (i // 2) % 2),
-whose blind rotation runs kernel m (`csrc/ntt_small.cu`). `--op sharded`
+whose blind rotation is one launch of `csrc/blind_rotate.cu` between
+kernel m's transforms of the test vector and the extraction
+(`csrc/ntt_small.cu`); `--op lmkcdey` does the same on a STD128_LMKCDEY
+context over a batch of 64 gates and also times the host's per-gate
+schedule (`binfhe/blind_rotate.lmkcdey_sched`). `--op sharded`
 traces the limb-sharded EvalMult of `parallel/sharded_fused.py` at level 3
 (28 Q towers) over a limb axis of 4 on the visible cards (all four shards
 on one card when there is one), inputs sharded beforehand. Prints the
@@ -26,20 +30,23 @@ import argparse
 import collections
 import json
 import sys
+import time
 
 import numpy as np
 import torch
 
 CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "ginx": 2,
-         "sharded": 5}
+         "lmkcdey": 2, "sharded": 5}
 SHARDED_LEVEL = 3
 SHARDED_LIMB = 4
 GATE_BATCH = 256
+LMK_BATCH = 64
 # kernel function names of csrc/ (ntt_core.cuh, rowmod_core.cuh,
-# keymul_core.cuh, ks_fused.cu, ntt_small.cu, modmatmul.cu)
+# keymul_core.cuh, ks_fused.cu, ntt_small.cu, modmatmul.cu,
+# blind_rotate.cu)
 OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "rowmod",
        "tensor_intt_tile", "keymul_tile", "subscale_tile", "submul_tile",
-       "ntt_small_kernel", "mod_matmul_kernel")
+       "ntt_small_kernel", "mod_matmul_kernel", "blind_rotate_kernel")
 
 
 def main(argv=None) -> int:
@@ -53,8 +60,8 @@ def main(argv=None) -> int:
 
     _build.build()
     calls = CALLS[args.op]
-    op = {"ginx": _ginx_op, "sharded": _sharded_op}.get(
-        args.op, lambda: _ckks_op(args.op))()
+    op = {"ginx": _ginx_op, "lmkcdey": _lmkcdey_op,
+          "sharded": _sharded_op}.get(args.op, lambda: _ckks_op(args.op))()
     for _ in range(3):
         op()
     torch.cuda.synchronize()
@@ -109,6 +116,30 @@ def _ginx_op():
     cc.BTKeyGen(sk)
     i = np.arange(GATE_BATCH)
     a, b = cc.Encrypt(sk, i % 2), cc.Encrypt(sk, (i // 2) % 2)
+    return lambda: cc.EvalBinGate(BINGATE.AND, a, b)
+
+
+def _lmkcdey_op():
+    """EvalBinGate(AND) over a batch of 64 on a STD128_LMKCDEY context;
+    prints the host time of the gates' schedules first."""
+    from openfhe_tpu_torch.binfhe import blind_rotate, lwe
+    from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD, BINGATE
+    from openfhe_tpu_torch.binfhe.context import BinFHEContext
+
+    cc = BinFHEContext(seed=12).GenerateBinFHEContext(
+        "STD128_LMKCDEY", BINFHE_METHOD.LMKCDEY)
+    sk = cc.KeyGen()
+    cc.BTKeyGen(sk)
+    i = np.arange(LMK_BATCH)
+    a, b = cc.Encrypt(sk, i % 2), cc.Encrypt(sk, (i // 2) % 2)
+    # the gate's blind rotation runs on the a vectors of a + b
+    a_lwe = lwe.eval_add(a, b).a
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sched = blind_rotate.lmkcdey_sched(cc.rgsw, a_lwe, cc.num_auto_keys)
+    torch.cuda.synchronize()
+    print(f"lmkcdey host schedule: {(time.perf_counter() - t0) / 5 * 1e3:.3f}"
+          f" ms per batch of {LMK_BATCH} ({sched.shape[0]} steps)")
     return lambda: cc.EvalBinGate(BINGATE.AND, a, b)
 
 
