@@ -11,7 +11,18 @@ is not beside it. Phases, none of which catches its own failure:
 3. kernel phase: each kernel is compared word for word with its plain
    PyTorch version on the same card inputs, and both are timed with CUDA
    events (median of 20 after warm-up). The NTT and the conversion run at
-   the main path's shapes; the seven kernels of the fused key switches at
+   the main path's shapes. The NTT's two transforms of `csrc/ntt.cu`, the
+   cluster one (`ntt_fwd` / `ntt_inv`, one launch a transform for
+   2^4 <= N <= 2^17) and the staged one (`ntt_fwd_staged` /
+   `ntt_inv_staged`), are each held against the plain version and so
+   against each other, at [31, 2^16], [47, 2^16], 4 of the largest 31-bit
+   primes, Rescale's [2, 30, 2^16] and [1, 2^16], a batch of 2 x 3 towers
+   at N=2^13 and 4 31-bit towers at N=2^12, 2^14, 2^15 and 2^17 (clusters
+   of 1, 1, 2, 4, 8, 8 blocks from 2^12 up); each call of `ntt_fwd` /
+   `ntt_inv` must launch the cluster entry once and the staged one never.
+   Their `ms` is device time with the host's launch cost taken out
+   (`device_ms`), `call_ms` one call; the seven kernels of the fused key
+   switches at
    level 0 (31 Q towers), level 1 (30) and on a chain of the largest
    31-bit primes (4 Q + 2 P towers, N=2^16), `intt_scale` also in its K4
    form (ext's P rows, 2 elements) and `ntt_subscale` also with BGV's
@@ -87,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -107,6 +119,9 @@ DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
                        # the sign fix (compare and add)
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
+# the staged transform of csrc/ntt.cu: rings above 2^17, and the yardstick
+# the cluster transform is held against here; no launch on the main path
+STAGED = ("ntt_fwd_staged", "ntt_inv_staged")
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
 BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
@@ -126,6 +141,8 @@ ROWS = ("limb", None)
 WHERE = {
     "ntt_fwd": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
     "ntt_inv": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
+    "ntt_fwd_staged": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
+    "ntt_inv_staged": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
     "mod_matmul_rowmod": ("csrc/rowmod.cu",
                           "openfhe_tpu/ops/modmatmul.py:232"),
     "tensor_intt": ("csrc/ks_fused.cu",
@@ -288,29 +305,52 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def ntt_cases(ntt, basis, gen, label, lead=()):
-    """fwd/inv kernel vs plain on one basis; returns two case dicts."""
+    """The cluster and the staged transform of csrc/ntt.cu against the
+    plain version on one basis, word for word, each timed; every call of
+    ntt_fwd / ntt_inv launches the cluster entry once where
+    `cluster_geometry` takes the ring (else the staged one). Returns a
+    case dict per entry point."""
     n, k = basis.ring_dim, basis.k
     x = rand_residues(gen, basis.moduli, n, lead)
     shape = list(x.shape)
+    geom = ntt.cluster_geometry(n)
     out = {}
-    for name, kern, ref in (("ntt_fwd", ntt.ntt_fwd, ntt._ntt_fwd_ref),
-                            ("ntt_inv", ntt.ntt_inv, ntt._ntt_inv_ref)):
-        got = kern(x, basis)
-        want = ref(x, basis)
+    for name, kern, staged, ref in (
+            ("ntt_fwd", ntt.ntt_fwd, ntt._ntt_fwd_staged_cu,
+             ntt._ntt_fwd_ref),
+            ("ntt_inv", ntt.ntt_inv, ntt._ntt_inv_staged_cu,
+             ntt._ntt_inv_ref)):
+        both = (name, name + "_staged")
+        got, per = count_launches(lambda: kern(x, basis), both)
+        want, by_stages = ref(x, basis), staged(x, basis)
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0, f"{name} {label} {shape} differs from its "
-                f"plain version (max abs err {err})")
+        err, err_staged = max_abs_err(got, want), max_abs_err(by_stages,
+                                                              want)
+        require(err == 0 and err_staged == 0,
+                f"{name} {label} {shape} differs from its plain version "
+                f"(max abs err: cluster {err}, staged {err_staged})")
+        want_per = dict(zip(both, (1, 0) if geom else (0, 1)))
+        require(per == want_per, f"{name} {label} {shape} launched {per}, "
+                f"expected {want_per}")
         # x and out once each, twiddles and their companions once each
         nbytes = 4 * (2 * x.numel() + 2 * k * n)
         ops = x.numel() // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
         if name == "ntt_inv":
             ops += x.numel() * SHOUP_OPS
         b_ms, b_by = bound(nbytes, ops)
-        out[name] = dict(shape=shape, moduli=label, max_abs_err=err,
-                         ms=cuda_ms(lambda: kern(x, basis)),
-                         plain_ms=cuda_ms(lambda: ref(x, basis)),
-                         bound_ms=b_ms, bound_by=b_by)
+        plain_ms = cuda_ms(lambda: ref(x, basis))
+        staged_ms = device_ms(lambda: staged(x, basis))
+        staged_call_ms = cuda_ms(lambda: staged(x, basis))
+        common = dict(shape=shape, moduli=label, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by)
+        out[name] = dict(common, max_abs_err=err,
+                         ms=device_ms(lambda: kern(x, basis)),
+                         call_ms=cuda_ms(lambda: kern(x, basis)),
+                         staged_ms=staged_ms, staged_call_ms=staged_call_ms,
+                         launches_per_call=per[name],
+                         cluster=list(geom) if geom else None)
+        out[name + "_staged"] = dict(common, max_abs_err=err_staged,
+                                     ms=staged_ms, call_ms=staged_call_ms)
     return out
 
 
@@ -1050,9 +1090,14 @@ def main() -> int:
     built = _build.build()
     print(f"build: {built.seconds:.1f} s for {len(built.libs)} libraries")
     for name, log in built.log.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
-                print(f"  nvcc[{name}] {line.strip()}")
+            found = re.search(r"entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1)
+            elif ("registers" in line or "spill" in line
+                  or "error" in line.lower()):
+                print(f"  nvcc[{name}] {entry}: {line.strip()}")
 
     params = main_path_params()
     t0 = time.perf_counter()
@@ -1074,17 +1119,34 @@ def main() -> int:
         q = nbtheory.previous_prime(q, 2 * n)
         top31.append(q)
     cases = {name: [] for name in SLICE1 + FUSED}
-    # the last case runs only the shared-memory pass (N <= 8192), with a
-    # batch axis in front of the towers
-    for basis, label, lead in (
-            (cc.basis_q, "Q (31 towers)", ()),
-            (cc.basis_qp, "QP (47 towers)", ()),
-            (make_basis(top31[:4], n, device="cuda"),
-             "largest 31-bit primes", ()),
-            (make_basis(cc.moduli_q[:3], 1 << 13, device="cuda"),
-             "N=2^13, batch of 2", (2,))):
+    staged = {name: [] for name in STAGED}
+    # Rescale's two shapes (the 30 kept towers of both elements, the
+    # dropped tower), a batch at N=2^13 (clusters of one block) and, where
+    # cluster_geometry takes it, N=2^17 (clusters of 8)
+    big = 1 << 17
+    top31_big = [nbtheory.previous_prime(1 << 31, 2 * big)]
+    while len(top31_big) < 4:
+        top31_big.append(nbtheory.previous_prime(top31_big[-1], 2 * big))
+    ntt_shapes = [
+        (cc.basis_q, "Q (31 towers)", ()),
+        (cc.basis_qp, "QP (47 towers)", ()),
+        (make_basis(top31[:4], n, device="cuda"), "largest 31-bit primes",
+         ()),
+        (cc.basis_q.slice(0, 30), "Rescale: 30 kept towers x 2", (2,)),
+        (cc.basis_q.slice(30, 31), "Rescale: the dropped tower", ()),
+        (make_basis(cc.moduli_q[:3], 1 << 13, device="cuda"),
+         "N=2^13, batch of 2", (2,))]
+    # every other ring the kernel is compiled for at N >= 2^12: one block a
+    # tower (2^12), clusters of 2 (2^14) and 4 (2^15)
+    for log_n in (12, 14, 15):
+        ntt_shapes.append((make_basis(top31[:4], 1 << log_n, device="cuda"),
+                           f"N=2^{log_n}, 31-bit primes", ()))
+    if ntt.cluster_geometry(big):
+        ntt_shapes.append((make_basis(top31_big, big, device="cuda"),
+                           "N=2^17, 31-bit primes", ()))
+    for basis, label, lead in ntt_shapes:
         for name, case in ntt_cases(ntt, basis, gen, label, lead).items():
-            cases[name].append(case)
+            (staged if name in STAGED else cases)[name].append(case)
     for part in top.parts:
         cases["mod_matmul_rowmod"].append(rowmod_case(
             modmatmul, part.switch, part.compl_basis, gen,
@@ -1147,12 +1209,15 @@ def main() -> int:
                   f"(call {c['ntt_cu_call_ms']:.4f})  plain "
                   f"{c['plain_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_by']})  max_abs_err {c['max_abs_err']}")
-    for name, rows in cases.items():
+    for name, rows in {**cases, **staged}.items():
         for c in rows:
+            extra = "" if "staged_ms" not in c else (
+                f"(call {c['call_ms']:.4f})  staged {c['staged_ms']:.4f} ms "
+                f"(call {c['staged_call_ms']:.4f})  ")
             print(f"  {name:18s} {str(c['shape']):18s} {c['moduli']:32s} "
-                  f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
-                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})  "
-                  f"max_abs_err {c['max_abs_err']}")
+                  f"kernel {c['ms']:.4f} ms  {extra}plain "
+                  f"{c['plain_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
+                  f"({c['bound_by']})  max_abs_err {c['max_abs_err']}")
 
     # 4. main path, counted
     _build.LAUNCHES.clear()
@@ -1237,6 +1302,7 @@ def main() -> int:
     dec_fast_p = {r: decv(fast_p[r]) for r in fast_p}
     dec_conj_p, dec_isum = decv(conj_p), decv(isum)
     launches = {k: _build.LAUNCHES[k] for k in cases}
+    staged_launches = {k: _build.LAUNCHES[k] for k in STAGED}
     path_s = time.perf_counter() - t0
     vals = np.asarray(dec.values)
     require(vals.shape == (cc.slots,) and bool(np.isfinite(vals).all())
@@ -1248,7 +1314,8 @@ def main() -> int:
     mult_err = float(np.abs(vals.real - dec_a.real * dec_b.real).max())
     err1 = float(np.abs(dec1 - z ** 4).max())
     mult_err1 = float(np.abs(dec1 - vals.real ** 2).max())
-    print(f"main path: {path_s:.2f} s; launches {launches}")
+    print(f"main path: {path_s:.2f} s; launches {launches}; staged NTT "
+          f"{staged_launches}")
     print(f"per EvalMult (fused) {per_mult}; level 1 {per_mult1}; per "
           f"EvalMultNoRelin + unfused relinearization {per_unfused}")
     print(f"per Relinearize(EvalMultNoRelin) {per_relin}; level 1 "
@@ -1322,6 +1389,9 @@ def main() -> int:
     # launches: each op through its own chain, nothing else
     require(all(v > 0 for v in launches.values()),
             f"a kernel was not launched on the main path: {launches}")
+    require(not any(staged_launches.values()),
+            f"the main path ran the staged NTT: {staged_launches}")
+    launches.update(staged_launches)
     want_mult = {k: int(k in MULT_CHAIN) for k in cases}
     want_ks = {k: int(k in KS_CHAIN) for k in cases}
     require(per_mult == want_mult and per_mult1 == want_mult,
@@ -1360,6 +1430,8 @@ def main() -> int:
         f"evalsum{SUM_BATCH}_ms": cuda_ms(
             lambda: cc.EvalSum(ct_a, SUM_BATCH), reps=10),
         "rescale_ms": cuda_ms(lambda: cc.Rescale(prod), reps=10),
+        "encrypt_ms": cuda_ms(lambda: cc.Encrypt(kp.public_key, pt),
+                              reps=10),
     }
     print(f"op times (median of 10, CUDA events, {card}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
@@ -1386,7 +1458,7 @@ def main() -> int:
             "words on the card differ from the plain path")
 
     # 5. BinFHE, counted from its context on
-    names = tuple(cases) + SMALL + BLIND + SHARDED
+    names = tuple(cases) + STAGED + SMALL + BLIND + SHARDED
     binfhe = binfhe_phase(names)
     per_gate = binfhe["ginx_launches_per_gate"]
     launches.update({k: binfhe["launches"][k] for k in SMALL + BLIND})
@@ -1399,7 +1471,7 @@ def main() -> int:
 
     # 7. the kernels line, then the device line
     kernels = []
-    for name, rows in {**cases, **small, **blind,
+    for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
         head = rows[0]        # level 0 / Q (31 towers) / digit 0
         kernels.append(dict(
@@ -1421,6 +1493,11 @@ def main() -> int:
             **({k: head[k] for k in ("call_ms", "ntt_cu_ms",
                                       "ntt_cu_call_ms")}
                if name in SMALL else {}),
+            **({k: head[k] for k in ("call_ms", "staged_ms",
+                                      "staged_call_ms", "launches_per_call",
+                                      "cluster")}
+               if name in ("ntt_fwd", "ntt_inv") else {}),
+            **({"call_ms": head["call_ms"]} if name in STAGED else {}),
             **({"call_ms": head["call_ms"]} if name in BLIND else {}),
             cases=rows))
     print(json.dumps({"kernels": kernels, "card": card, **times,

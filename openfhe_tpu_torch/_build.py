@@ -40,7 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> {C entry point: argtypes}
 SOURCES = {
     "ntt": {"ntt_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-            "ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+            "ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "ntt_fwd_staged": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+            "ntt_inv_staged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _P]},
     "ntt_small": {"ntt_small_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
                   "ntt_small_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _P]},

@@ -15,29 +15,66 @@
 // What bounds it on an H100: device-memory bytes. At N = 2^16 one tower is
 // 256 KB of words and its two twiddle tables another 512 KB, and the
 // butterflies cost about ten 32-bit integer operations each, so the
-// operation count sits well under the byte count at the card's rates.
+// operation count sits under the byte count at the card's rates.
 //
-// Design: one tower does not fit a block's shared memory (227 KB at most),
-// so the transform runs in two phases.
-//   * Stages whose butterfly span t is at least a tile (T = min(N, 8192)
-//     words, 32 KB) run one launch each over device memory, one thread
-//     per butterfly, grid over (butterfly blocks, rows).
-//   * The remaining log2(T) stages run in one launch: each block loads a
-//     contiguous tile into shared memory, runs every stage there, and
-//     writes the tile back once.
-// The inverse runs the phases in the mirrored order and folds the N^-1
-// multiply into its last pass. At N = 2^16 that is 4 passes over the data
-// instead of 16; the data of one call (31 towers, 8 MB) mostly stays in
-// the 50 MB L2 between passes. The stage and tile kernels live in
-// ntt_core.cuh, which the fused key switch (ks_fused.cu) shares.
+// Two transforms, chosen by the ring alone (ops/ntt.py):
+//   * ntt_fwd / ntt_inv, for 2^4 <= N <= 2^17: one launch, a tower per
+//     thread-block cluster of at most 8 blocks, the words read from and
+//     written to device memory once (ntt_cluster.cuh);
+//   * ntt_fwd_staged / ntt_inv_staged, any N: the stages whose butterfly
+//     span is at least a tile (8192 words) run one launch each over device
+//     memory, the rest in one shared-memory pass per tile (ntt_core.cuh,
+//     whose passes the fused key switch of ks_fused.cu shares): at
+//     N = 2^16 four launches and four passes over the data. They serve
+//     rings above 2^17 and are the yardstick the cluster transform is held
+//     against on the card.
 
+#include "ntt_cluster.cuh"
 #include "ntt_core.cuh"
 
 // x, out: [rows, N] words, row r in tower r % k; tables [k, N] and [k].
-// out may equal x. Returns cudaGetLastError() after the launches.
+// out may equal x. Each entry returns cudaGetLastError() after its
+// launches, or the error of a refused launch; ntt_fwd / ntt_inv refuse
+// rings outside 2^4 .. 2^17 and x or out off a 16-byte boundary.
+
+namespace {
+int fwd_placeable[kMaxClusterLogN + 1], inv_placeable[kMaxClusterLogN + 1];
+}
+
 extern "C" int ntt_fwd(const void* x, void* out, const void* psi,
                        const void* psi_sh, const void* q, int rows, int k,
                        int log_n, void* stream) {
+  if (int bad = check_cluster(x, out, rows, k, log_n)) return bad;
+  return launch_cluster(fwd_kernel(log_n, ClusterRings{}),
+                        &fwd_placeable[log_n], rows, log_n,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const uint32_t*>(x),
+                        static_cast<uint32_t*>(out),
+                        static_cast<const uint32_t*>(psi),
+                        static_cast<const uint32_t*>(psi_sh),
+                        static_cast<const uint32_t*>(q), k);
+}
+
+extern "C" int ntt_inv(const void* x, void* out, const void* ipsi,
+                       const void* ipsi_sh, const void* q, const void* ninv,
+                       const void* ninv_sh, int rows, int k, int log_n,
+                       void* stream) {
+  if (int bad = check_cluster(x, out, rows, k, log_n)) return bad;
+  return launch_cluster(inv_kernel(log_n, ClusterRings{}),
+                        &inv_placeable[log_n], rows, log_n,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const uint32_t*>(x),
+                        static_cast<uint32_t*>(out),
+                        static_cast<const uint32_t*>(ipsi),
+                        static_cast<const uint32_t*>(ipsi_sh),
+                        static_cast<const uint32_t*>(q),
+                        static_cast<const uint32_t*>(ninv),
+                        static_cast<const uint32_t*>(ninv_sh), k);
+}
+
+extern "C" int ntt_fwd_staged(const void* x, void* out, const void* psi,
+                              const void* psi_sh, const void* q, int rows,
+                              int k, int log_n, void* stream) {
   if (int bad = check_shape(rows, k, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* dst = static_cast<uint32_t*>(out);
@@ -52,10 +89,10 @@ extern "C" int ntt_fwd(const void* x, void* out, const void* psi,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ntt_inv(const void* x, void* out, const void* ipsi,
-                       const void* ipsi_sh, const void* q, const void* ninv,
-                       const void* ninv_sh, int rows, int k, int log_n,
-                       void* stream) {
+extern "C" int ntt_inv_staged(const void* x, void* out, const void* ipsi,
+                              const void* ipsi_sh, const void* q,
+                              const void* ninv, const void* ninv_sh, int rows,
+                              int k, int log_n, void* stream) {
   if (int bad = check_shape(rows, k, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* dst = static_cast<uint32_t*>(out);

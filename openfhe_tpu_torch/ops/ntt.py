@@ -10,9 +10,12 @@ with the JAX package's roots, so the words are the JAX package's.
 On a CUDA tensor they launch a hand-written kernel (or raise), as the JAX
 package's `ops/ntt.py` dispatches: rings with 128 <= N <= 2048 and k <= 4
 towers (BinFHE's) go to `ops/ntt_small.py` (`csrc/ntt_small.cu`), every
-other ring to `csrc/ntt.cu`. On a CPU tensor they run the plain int64
-stage loop `_ntt_fwd_ref` / `_ntt_inv_ref`, which the tests hold against
-JAX at every N.
+other ring to `csrc/ntt.cu`. There the ring alone picks the transform:
+for 2^4 <= N <= 2^17 one launch of the cluster transform (a tower per
+thread-block cluster of `cluster_geometry(N)`), otherwise the staged
+transform (one launch per device-memory stage, then a tile pass). On a
+CPU tensor they run the plain int64 stage loop `_ntt_fwd_ref` /
+`_ntt_inv_ref`, which the tests hold against JAX at every N.
 """
 
 from __future__ import annotations
@@ -42,18 +45,68 @@ def ntt_inv(x: torch.Tensor, b: Basis) -> torch.Tensor:
     return _ntt_inv_cu(x, b)
 
 
+# The cluster transform's geometry (`csrc/ntt_cluster.cuh`): a tower of N
+# words takes a cluster of N / W blocks of W = min(N, max(2^13, N / 8))
+# words (at most 8 blocks, the portable cluster size), each thread holding
+# 2^4 words; the kernel takes 2^4 <= N <= 2^17. The header's constants
+# (kClusterLogW, kLogR, kMaxLogC, kMaxClusterLogN) are these; the tests
+# hold the two to each other.
+CLUSTER_LOG_WORDS = 13
+CLUSTER_LOG_THREAD_WORDS = 4
+CLUSTER_MAX_LOG_CTAS = 3
+CLUSTER_MAX_LOG_N = 17
+
+
+def cluster_geometry(n: int):
+    """(ctas, words_per_cta, smem_bytes) of the cluster transform of a
+    ring of N words: each tower a cluster of `ctas` blocks of
+    `words_per_cta` words (and as many 4-byte words of shared memory,
+    `smem_bytes`). None for the rings it does not take, which the staged
+    transform serves."""
+    log_n = n.bit_length() - 1
+    if n != 1 << log_n or not (CLUSTER_LOG_THREAD_WORDS <= log_n
+                               <= CLUSTER_MAX_LOG_N):
+        return None
+    log_w = min(log_n, max(CLUSTER_LOG_WORDS, log_n - CLUSTER_MAX_LOG_CTAS))
+    return n >> log_w, 1 << log_w, 4 << log_w
+
+
 def _ntt_fwd_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
-    """The forward transform of `csrc/ntt.cu`, any N."""
-    out, rows, log_n = _prepare(x, b, "ntt_fwd")
-    _build.launch("ntt", "ntt_fwd", x, out, b.psi_br, b.psi_br_sh, b.q, rows,
+    """The forward transform of `csrc/ntt.cu`, any N: one launch of the
+    cluster transform where `cluster_geometry` takes the ring, else the
+    staged transform."""
+    if cluster_geometry(b.ring_dim) is None:
+        return _ntt_fwd_staged_cu(x, b)
+    return _ntt_fwd_launch(x, b, "ntt_fwd")
+
+
+def _ntt_inv_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """The inverse transform of `csrc/ntt.cu`, any N; as `_ntt_fwd_cu`."""
+    if cluster_geometry(b.ring_dim) is None:
+        return _ntt_inv_staged_cu(x, b)
+    return _ntt_inv_launch(x, b, "ntt_inv")
+
+
+def _ntt_fwd_staged_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """The staged forward transform of `csrc/ntt.cu`, any N."""
+    return _ntt_fwd_launch(x, b, "ntt_fwd_staged")
+
+
+def _ntt_inv_staged_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
+    """The staged inverse transform of `csrc/ntt.cu`, any N."""
+    return _ntt_inv_launch(x, b, "ntt_inv_staged")
+
+
+def _ntt_fwd_launch(x: torch.Tensor, b: Basis, entry: str) -> torch.Tensor:
+    out, rows, log_n = _prepare(x, b, entry)
+    _build.launch("ntt", entry, x, out, b.psi_br, b.psi_br_sh, b.q, rows,
                   b.k, log_n)
     return out
 
 
-def _ntt_inv_cu(x: torch.Tensor, b: Basis) -> torch.Tensor:
-    """The inverse transform of `csrc/ntt.cu`, any N."""
-    out, rows, log_n = _prepare(x, b, "ntt_inv")
-    _build.launch("ntt", "ntt_inv", x, out, b.ipsi_br, b.ipsi_br_sh, b.q,
+def _ntt_inv_launch(x: torch.Tensor, b: Basis, entry: str) -> torch.Tensor:
+    out, rows, log_n = _prepare(x, b, entry)
+    _build.launch("ntt", entry, x, out, b.ipsi_br, b.ipsi_br_sh, b.q,
                   b.ninv, b.ninv_sh, rows, b.k, log_n)
     return out
 

@@ -332,7 +332,11 @@ class CryptoContext:
                     scale=a.scale * b.scale)
 
     def EvalMultNoRelin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        """Tensor product (c0d0, c0d1+c1d0, c1d1), Karatsuba."""
+        """Tensor product (c0d0, c0d1+c1d0, c1d1), Karatsuba, of two
+        2-element ciphertexts (the JAX package drops a third element
+        without a word; here it raises NotImplementedError)."""
+        self._two_elements(a, "EvalMultNoRelin")
+        self._two_elements(b, "EvalMultNoRelin")
         a, b = self._prepare_mult(a, b)
         q = self.basis_at(a.level).q
         (a0, a1), (b0, b1) = a.elements, b.elements

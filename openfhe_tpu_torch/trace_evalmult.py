@@ -6,7 +6,13 @@ Builds the main path's context (N=2^16, 31 Q + 16 P towers, 2 digits),
 warms up, then traces 5 calls of one op at level 0: `--op evalmult` (the
 default; the fused mult chain of `pke/keyswitch/ks_fused.py`),
 `relinearize` (of an EvalMultNoRelin product) or `rotate` (EvalRotate by
-1), both through the general fused chain, `keyswitch_core_fused`. `--op
+1), both through the general fused chain, `keyswitch_core_fused`;
+`rescale` (ModReduce of a fresh EvalMult product: per element one inverse
+NTT of the dropped tower and one forward NTT of the other 30, plain int64
+torch around them, `lattice/rns_tools.drop_last_and_scale`), `encrypt`
+(public-key Encrypt of an encoded plaintext) or `decrypt` (Decrypt with
+the CKKS decode on the host). Several ops, comma-separated, share one
+context and are traced one after another. `--op
 ginx` instead builds a BinFHE STD128 GINX context and traces 2 calls of
 EvalBinGate(AND) over a batch of 256 gates (a = i % 2, b = (i // 2) % 2),
 whose blind rotation is one launch of `csrc/blind_rotate.cu` between
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import sys
 import time
@@ -35,33 +42,47 @@ import time
 import numpy as np
 import torch
 
-CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "ginx": 2,
-         "lmkcdey": 2, "sharded": 5}
+CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "rescale": 5,
+         "encrypt": 5, "decrypt": 5, "ginx": 2, "lmkcdey": 2, "sharded": 5}
 SHARDED_LEVEL = 3
 SHARDED_LIMB = 4
 GATE_BATCH = 256
 LMK_BATCH = 64
-# kernel function names of csrc/ (ntt_core.cuh, rowmod_core.cuh,
-# keymul_core.cuh, ks_fused.cu, ntt_small.cu, modmatmul.cu,
-# blind_rotate.cu)
-OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "rowmod",
+# kernel function names of csrc/ (ntt_core.cuh, ntt_cluster.cuh,
+# rowmod_core.cuh, keymul_core.cuh, ks_fused.cu, ntt_small.cu,
+# modmatmul.cu, blind_rotate.cu)
+OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "fwd_cluster",
+       "inv_cluster", "rowmod",
        "tensor_intt_tile", "keymul_tile", "subscale_tile", "submul_tile",
        "ntt_small_kernel", "mod_matmul_kernel", "blind_rotate_kernel")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--op", choices=tuple(CALLS), default="evalmult")
+    ap.add_argument("--op", default="evalmult",
+                    help="one of " + ", ".join(CALLS) + ", or several "
+                    "CKKS ops separated by commas")
     args = ap.parse_args(argv)
+    ops = args.op.split(",")
+    if any(op not in CALLS for op in ops):
+        ap.error(f"--op {args.op}: not among {', '.join(CALLS)}")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     from openfhe_tpu_torch import _build
 
     _build.build()
-    calls = CALLS[args.op]
-    op = {"ginx": _ginx_op, "lmkcdey": _lmkcdey_op,
-          "sharded": _sharded_op}.get(args.op, lambda: _ckks_op(args.op))()
+    worst = 0
+    for name in ops:
+        op = {"ginx": _ginx_op, "lmkcdey": _lmkcdey_op,
+              "sharded": _sharded_op}.get(name, lambda: _ckks_op(name))()
+        worst = max(worst, _trace(name, op, CALLS[name]))
+    return worst
+
+
+def _trace(name: str, op, calls: int) -> int:
+    """Time `calls` calls of op with CUDA events, then trace as many and
+    print the breakdown; 1 if the profiler saw no device time."""
     for _ in range(3):
         op()
     torch.cuda.synchronize()
@@ -88,19 +109,21 @@ def main(argv=None) -> int:
             per_name[ev.name] += ev.time_range.elapsed_us() / 1e3 / calls
             launches[ev.name] += 1
     busy_ms = sum(per_name.values())
-    own_ms = sum(t for name, t in per_name.items()
-                 if any(f"{o}(" in name or f"{o}<" in name for o in OWN))
-    print(f"{args.op} wall {wall_ms:.3f} ms (CUDA events, mean of {calls})")
+    own = [n for n in per_name
+           if any(f"{o}(" in n or f"{o}<" in n for o in OWN)]
+    own_ms = sum(per_name[n] for n in own)
+    print(f"{name} wall {wall_ms:.3f} ms (CUDA events, mean of {calls})")
     if not per_name:
         print("the profiler recorded no device time: busy share not measured")
         return 1
-    for name, t in per_name.most_common(20):
-        print(f"  {t:8.4f} ms  {launches[name] // calls:4d} launches  "
-              f"{name[:90]}")
+    for kname, t in per_name.most_common(20):
+        print(f"  {t:8.4f} ms  {launches[kname] // calls:4d} launches  "
+              f"{kname[:90]}")
     print(json.dumps({
-        "op": args.op, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "op": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "own_kernels_ms": own_ms,
+        "own_kernel_launches": sum(launches[n] for n in own) // calls,
         "kernel_launches": sum(launches.values()) // calls,
         "device": torch.cuda.get_device_name(0)}))
     return 0
@@ -164,8 +187,9 @@ def _sharded_op():
     return lambda: sf.mult_relin_sharded(*parts, *parts, st, mesh)
 
 
-def _ckks_op(name: str):
-    """One CKKS op at level 0 of the main path's context."""
+@functools.lru_cache(maxsize=None)
+def _ckks_context():
+    """The main path's context, keys and two fresh encryptions."""
     import openfhe_tpu_torch as fhe
     from openfhe_tpu_torch.pke.parameters import main_path_params
 
@@ -175,11 +199,24 @@ def _ckks_op(name: str):
     z = np.random.default_rng(0).uniform(-0.5, 0.5, size=cc.slots)
     pt = cc.MakeCKKSPackedPlaintext(z)
     a, b = cc.Encrypt(kp.public_key, pt), cc.Encrypt(kp.public_key, pt)
+    return cc, kp, pt, a, b
+
+
+def _ckks_op(name: str):
+    """One CKKS op at level 0 of the main path's context."""
+    cc, kp, pt, a, b = _ckks_context()
     if name == "evalmult":
         return lambda: cc.EvalMult(a, b)
     if name == "relinearize":
         prod3 = cc.EvalMultNoRelin(a, b)
         return lambda: cc.Relinearize(prod3)
+    if name == "rescale":
+        prod = cc.EvalMult(a, b)
+        return lambda: cc.ModReduce(prod)
+    if name == "encrypt":
+        return lambda: cc.Encrypt(kp.public_key, pt)
+    if name == "decrypt":
+        return lambda: cc.Decrypt(kp.secret_key, a)
     cc.EvalRotateKeyGen(kp.secret_key, [1])
     return lambda: cc.EvalRotate(a, 1)
 

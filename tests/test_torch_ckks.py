@@ -221,6 +221,23 @@ def test_port_round_trip():
     assert np.abs(dec.values.real - 2 * z).max() < 1e-2
 
 
+def test_eval_mult_no_relin_refuses_three_elements():
+    """A 3-element operand raises NotImplementedError (the JAX package's
+    EvalMultNoRelin reads two elements and drops c2 without a word)."""
+    cc = fhe.GenCryptoContext(_port_params(), seed=5, device="cpu")
+    kp = cc.KeyGen()
+    z = np.random.default_rng(4).normal(size=cc.slots)
+    ct = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(z))
+    prod3 = cc.EvalMultNoRelin(ct, ct)
+    assert len(prod3.elements) == 3
+    for call in (lambda: cc.EvalMultNoRelin(prod3, ct),
+                 lambda: cc.EvalMultNoRelin(ct, prod3),
+                 lambda: cc.EvalMult(prod3, ct)):
+        with pytest.raises(NotImplementedError,
+                           match="EvalMultNoRelin of a 3-element"):
+            call()
+
+
 def test_sampling_statistics():
     gen = torch.Generator().manual_seed(0)
     cc = fhe.GenCryptoContext(_port_params(), seed=1, device="cpu")

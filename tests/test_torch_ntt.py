@@ -135,6 +135,11 @@ def test_kernel_wrappers_take_no_fallback():
         ntt.ntt_fwd(x, tb)
     with pytest.raises(ValueError, match="no kernel"):
         ntt.ntt_inv(x, tb)
+    # both transforms of csrc/ntt.cu, the cluster and the staged one
+    for fn in (ntt._ntt_fwd_cu, ntt._ntt_inv_cu, ntt._ntt_fwd_staged_cu,
+               ntt._ntt_inv_staged_cu):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(x, tb)
     # the fused chains' seven wrappers, at 2 Q + 1 P towers and 2 digits
     mods = [nbtheory.first_prime(b, 2 * n) for b in (26, 27, 28)]
     tabs = ks_fused.make_fused_ks_tables(make_basis(mods, n), 2, 2, 2)
