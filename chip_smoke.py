@@ -6,8 +6,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc.
 It exits non-zero, printing no result, when there is no card or the port
 is not beside it. Phases, none of which catches its own failure:
 
-1. the card's name and power limit (nvidia-smi);
-2. build every kernel of `openfhe_tpu_torch/csrc` (nvcc, in parallel);
+1. the card's name and power limit (nvidia-smi), then its maximum SM
+   clock and SM count and the 32-bit integer rate they give (below);
+2. build every kernel of `openfhe_tpu_torch/csrc` (nvcc, in parallel),
+   printing each kernel's registers and spills from ptxas;
 3. kernel phase: each kernel is compared word for word with its plain
    PyTorch version on the same card inputs, and both are timed with CUDA
    events (median of 20 after warm-up). The NTT and the conversion run at
@@ -24,9 +26,17 @@ is not beside it. Phases, none of which catches its own failure:
    (`device_ms`), `call_ms` one call; the seven kernels of the fused key
    switches at
    level 0 (31 Q towers), level 1 (30) and on a chain of the largest
-   31-bit primes (4 Q + 2 P towers, N=2^16), `intt_scale` also in its K4
-   form (ext's P rows, 2 elements) and `ntt_subscale` also with BGV's
-   t = 65537 in the tables;
+   31-bit primes (4 Q + 2 P towers, N=2^16) in 2 digits and in 1,
+   `intt_scale` also in its K4 form (ext's P rows, 2 elements) and
+   `ntt_subscale` also with BGV's t = 65537 in the tables. K3 and K45
+   (`ntt_keymul_acc`, `intt_conv_p`, on the cluster NTT) are also held
+   against their staged forms (`ntt_keymul_acc_staged`,
+   `intt_conv_p_staged`), also at levels 3, 11, 15, 23 and 30 (44 down to
+   17 Q_l*P towers, two digits and one), on the 31-bit chain at N=2^12,
+   2^14, 2^15 and 2^17 in two digits and in one (clusters of 1, 2, 4, 8)
+   and in one digit over 20 and 40 P towers (each of `pconv`'s column
+   widths); each call must launch its entry once and the staged one never,
+   and both are timed as the NTT is (`ms` device time, `call_ms` a call);
 4. main path at N=2^16, L=30 (31 Q + 16 P towers, 2 digits), with the
    launch counters reset just before and read just after: context,
    KeyGen, EvalMultKeyGen, rotation keys (1, -1, the EvalSum ladder of
@@ -86,11 +96,23 @@ is not beside it. Phases, none of which catches its own failure:
 
 bound_ms is the least time the card could take for a call: the larger of
 its bytes (each input read once, each output written once) at 3.35 TB/s
-and its 32-bit integer operations at 67 T/s (the H100 SXM's published
-non-tensor 32-bit rate; the card's tensor cores do no 32-bit integer
-products). Operations count what the function needs: a conversion counts
-only its nonzero weights, a key product skips the NTT of the digit's own
-rows. A term of kernel l's modular matmul counts MATMUL_TERM_OPS: the
+and its 32-bit integer operations at the card's 32-bit integer issue
+ceiling: 128 thread-instructions a clock an SM (four schedulers, one warp
+instruction each a clock) x the card's SM count x the maximum SM clock
+nvidia-smi reports (`clocks.max.sm`), printed beside the card's name and
+power limit; about 33.5 T/s on an H100 SXM. The CUDA C++ Programming
+Guide's throughput table (compute capability 9.0) gives 64 results a
+clock an SM for each class of 32-bit integer instruction, but multiplies
+(IMAD, IMUL, mul.hi: the FMA-heavy pipe) and adds, logic, shifts,
+compares and selects (the ALU pipe) issue side by side, so a mix can
+reach 128. The counts here are mixes (a Shoup product is 3 multiplies of
+its 5 operations, a butterfly 3 of 10); where more than half of a count
+is multiplies, the multiply pipe holds it above this bound, so the bound
+is a floor, never above what the card can do. The card's tensor cores do
+no 32-bit integer products. Operations count what the function needs: a
+conversion counts only its nonzero weights, a key product skips the NTT
+of the digit's own rows (and reads only the extended digits' other
+rows). A term of kernel l's modular matmul counts MATMUL_TERM_OPS: the
 62-bit product (two 32-bit multiplies) and its 64-bit sum (two adds).
 """
 
@@ -108,7 +130,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
+INT32_OPS_PER_CLOCK_PER_SM = 128   # both integer pipes, 64 a clock each
+INT32_OPS_PER_S = None     # int32_rate(), from the card, before any bound
 BUTTERFLY_OPS = 10     # Shoup multiply 5, add_mod 2, sub_mod 3
 SHOUP_OPS = 5
 ROWMOD_TERM_OPS = 7    # Shoup multiply 5 + add_mod 2
@@ -119,9 +142,13 @@ DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
                        # the sign fix (compare and add)
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
-# the staged transform of csrc/ntt.cu: rings above 2^17, and the yardstick
-# the cluster transform is held against here; no launch on the main path
-STAGED = ("ntt_fwd_staged", "ntt_inv_staged")
+# the staged forms of the NTT (csrc/ntt.cu) and of K3 and K45
+# (csrc/ks_fused.cu): rings above 2^17, and the yardstick the cluster forms
+# are held against here; no launch on the main path
+STAGED = ("ntt_fwd_staged", "ntt_inv_staged", "ntt_keymul_acc_staged",
+          "intt_conv_p_staged")
+# the fused kernels on the cluster NTT, each beside its staged form
+FUSED_CLUSTER = ("ntt_keymul_acc", "intt_conv_p")
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
 BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
@@ -136,6 +163,8 @@ SHARDED = ("mod_matmul", "conv_digits_rows", "conv_p_to_q_rows",
 # the kernels of one sharded EvalMult, each once per shard
 SHARDED_CHAIN = ("tensor_intt", "conv_digits_rows", "ntt_keymul_acc_rows",
                  "intt_scale", "conv_p_to_q_rows", "ntt_submul_final")
+# P tower counts of the one-digit K45 cases: pconv's 2- and 1-column forms
+WIDE_P = (20, 40)
 LIMBS = (2, 4)
 ROWS = ("limb", None)
 WHERE = {
@@ -156,6 +185,10 @@ WHERE = {
                        "openfhe_tpu/pke/keyswitch/ks_fused.py:690"),
     "intt_conv_p": ("csrc/ks_fused.cu",
                     "openfhe_tpu/pke/keyswitch/ks_fused.py:618"),
+    "ntt_keymul_acc_staged": ("csrc/ks_fused.cu",
+                              "openfhe_tpu/pke/keyswitch/ks_fused.py:690"),
+    "intt_conv_p_staged": ("csrc/ks_fused.cu",
+                           "openfhe_tpu/pke/keyswitch/ks_fused.py:618"),
     "ntt_subscale": ("csrc/ks_fused.cu",
                      "openfhe_tpu/pke/keyswitch/ks_fused.py:747"),
     "ntt_submul_final": ("csrc/ks_fused.cu",
@@ -285,7 +318,23 @@ def device_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def int32_rate() -> tuple:
+    """(32-bit integer op/s, max SM clock in MHz, SMs) of card 0: 128 a
+    clock an SM (the issue ceiling over both integer pipes) x the SMs x the
+    maximum SM clock nvidia-smi reports. Raises if nvidia-smi cannot tell
+    the clock."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    require(mhz > 0 and sms > 0, f"no SM clock or count: {mhz} MHz, {sms}")
+    return INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6, mhz, sms
+
+
 def bound(nbytes: float, ops: float):
+    require(INT32_OPS_PER_S is not None, "the integer rate is not set")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -393,8 +442,12 @@ def fused_work(tabs) -> dict:
         "conv_digits": (WORD * n * nd * (tabs.alpha + kqlp),
                         n * ROWMOD_TERM_OPS * sum(a * (kqlp - a)
                                                   for a in digits)),
-        "ntt_keymul_acc": (WORD * n * (nd * kqlp + kql + 4 * nd * kqlp
-                                       + 2 * kqlp + 2 * kqlp),
+        # the extended digits' rows other than their own, c2, the key rows,
+        # ext, the twiddles of the towers that transform at least once
+        "ntt_keymul_acc": (WORD * n * (sum(kqlp - a for a in digits) + kql
+                                       + 4 * nd * kqlp + 2 * kqlp
+                                       + 2 * (kqlp if nd > 1
+                                              else kqlp - digits[0])),
                            ntt(sum(kqlp - a for a in digits))
                            + 2 * nd * kqlp * n * ROWMOD_TERM_OPS),
         "intt_conv_p": (WORD * n * (2 * kp + 2 * kp + 2 * kql),
@@ -428,9 +481,45 @@ def kernel_case(name, kern, ref, args, tabs, work, label,
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def fused_cases(ksf, tabs, key, gen, label) -> dict:
-    """Each kernel of the fused key switches vs its plain twin on one
-    table set, on random residues (and a random key with companions)."""
+def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
+    """A fused kernel on the cluster NTT against its plain twin and its
+    staged form, word for word; each call of kern must launch its entry
+    once and the staged one never. `ms` is device time (`device_ms`) and
+    `call_ms` a call, each beside the staged form's in this run. Returns
+    the case of each entry."""
+    from openfhe_tpu_torch.ops.ntt import cluster_geometry
+    both = (name, name + "_staged")
+    got, per = count_launches(lambda: kern(*args, tabs), both)
+    want, by_stages = ref(*args, tabs), staged(*args, tabs)
+    torch.cuda.synchronize()
+    err, err_staged = max_abs_err(got, want), max_abs_err(by_stages, want)
+    require(err == 0 and err_staged == 0,
+            f"{name} {label} differs from its plain version (max abs err: "
+            f"cluster {err}, staged {err_staged})")
+    require(per == {name: 1, name + "_staged": 0},
+            f"{name} {label} launched {per}, expected one launch of {name}")
+    b_ms, b_by = bound(*work)
+    staged_ms = device_ms(lambda: staged(*args, tabs))
+    staged_call_ms = cuda_ms(lambda: staged(*args, tabs))
+    common = dict(shape=[tabs.kql, tabs.kp, tabs.nd,
+                         tabs.basis_qlp.ring_dim],
+                  moduli=label, plain_ms=cuda_ms(lambda: ref(*args, tabs)),
+                  bound_ms=b_ms, bound_by=b_by)
+    return {name: dict(common, max_abs_err=err,
+                       ms=device_ms(lambda: kern(*args, tabs)),
+                       call_ms=cuda_ms(lambda: kern(*args, tabs)),
+                       staged_ms=staged_ms, staged_call_ms=staged_call_ms,
+                       launches_per_call=per[name],
+                       cluster=list(cluster_geometry(
+                           tabs.basis_qlp.ring_dim))),
+            name + "_staged": dict(common, max_abs_err=err_staged,
+                                   ms=staged_ms, call_ms=staged_call_ms)}
+
+
+def fused_cases(ksf, tabs, key, gen, label, names=FUSED) -> dict:
+    """Each kernel of the fused key switches (of `names`) vs its plain
+    twin on one table set, on random residues (and a random key with
+    companions); K3 and K45 also vs their staged forms (`cluster_case`)."""
     n, nd = tabs.basis_qlp.ring_dim, tabs.nd
     mq, mqlp = tabs.basis_ql.moduli, tabs.basis_qlp.moduli
     a = [rand_residues(gen, mq, n) for _ in range(4)]
@@ -453,9 +542,55 @@ def fused_cases(ksf, tabs, key, gen, label) -> dict:
                              ksf._ntt_submul_final_ref, (convq, ext, *a)),
     }
     work = fused_work(tabs)
-    return {name: kernel_case(name, kern, ref, args, tabs, work[name],
-                              label)
-            for name, (kern, ref, args) in calls.items()}
+    out = {}
+    for name, (kern, ref, args) in calls.items():
+        if name not in names:
+            continue
+        if name in FUSED_CLUSTER:
+            staged = getattr(ksf, name + "_staged")
+            out.update(cluster_case(name, kern, staged, ref, args, tabs,
+                                    work[name], label))
+        else:
+            out[name] = kernel_case(name, kern, ref, args, tabs, work[name],
+                                    label)
+    return out
+
+
+def rand_key(gen, moduli, n):
+    """A random eval key over `moduli` (two digits) with its companions."""
+    from openfhe_tpu_torch.pke.keys import EvalKey
+    from openfhe_tpu_torch.pke.keyswitch import hybrid
+    return hybrid.shoup_companions(EvalKey(
+        bv=rand_residues(gen, moduli, n, (2,)),
+        av=rand_residues(gen, moduli, n, (2,))), moduli)
+
+
+def cluster_shape_cases(ksf, gen, rings, wide, n):
+    """K3 and K45 (`cluster_case`) on 4 Q + 2 P towers of each (ring,
+    moduli) of `rings`, in two digits and in one (clusters of 1 to 8
+    blocks; a cluster of one syncs its block between digit transforms);
+    then at ring n in one digit over 4 Q + kp P towers of `wide` for each
+    kp of WIDE_P, which `pconv` takes with 2 columns a thread (up to 32
+    rows) and 1 (up to 64). Yields (entry, case)."""
+    from openfhe_tpu_torch.lattice.basis import make_basis
+    shapes = []
+    for ring, moduli in rings:
+        basis, key = (make_basis(moduli[:6], ring, device="cuda"),
+                      rand_key(gen, moduli[:6], ring))
+        for nd in (2, 1):
+            shapes.append((ksf.make_fused_ks_tables(basis, 4, 4, nd), key,
+                           f"N=2^{ring.bit_length() - 1}, largest 31-bit "
+                           f"primes (4 Q + 2 P), {('one', 'two')[nd - 1]} "
+                           "digit" + "s" * (nd - 1)))
+    for kp in WIDE_P:
+        moduli = wide[:4 + kp]
+        shapes.append((ksf.make_fused_ks_tables(
+            make_basis(moduli, n, device="cuda"), 4, 4, 1),
+            rand_key(gen, moduli, n),
+            f"largest 31-bit primes (4 Q + {kp} P), one digit"))
+    for tabs, key, label in shapes:
+        yield from fused_cases(ksf, tabs, key, gen, label,
+                               FUSED_CLUSTER).items()
 
 
 def modown_mean_slots(cc, sk, scale: float) -> np.ndarray:
@@ -882,8 +1017,6 @@ def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
     from openfhe_tpu_torch.parallel import ntt_sharded as ns
     from openfhe_tpu_torch.parallel import sharded as shd
     from openfhe_tpu_torch.parallel import sharded_fused as sf
-    from openfhe_tpu_torch.pke.keys import EvalKey
-    from openfhe_tpu_torch.pke.keyswitch import hybrid
     t_phase = time.perf_counter()
     n = cc.ring_dim
     r, c = ntt4step.split(n)
@@ -898,9 +1031,7 @@ def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
                 modmatmul, t["wr"], x.contiguous(), t["q"],
                 f"{label}, stage 1 of a shard at limb {limb}"))
     # kernels n, o, p on the shards of three table sets
-    key31 = hybrid.shoup_companions(EvalKey(
-        bv=rand_residues(gen, top31, n, (2,)),
-        av=rand_residues(gen, top31, n, (2,))), top31)
+    key31 = rand_key(gen, top31, n)
     st = {lvl: sf.make_sharded_fused_tables(cc, cc.size_ql(lvl))
           for lvl in (1, 3)}
     st31 = sf.make_sharded_fused_tables_basis(
@@ -1061,6 +1192,7 @@ def same_words(x, y) -> bool:
 
 
 def main() -> int:
+    global INT32_OPS_PER_S
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -1073,7 +1205,6 @@ def main() -> int:
     from openfhe_tpu_torch.ops import modmatmul, ntt
     from openfhe_tpu_torch.pke import context
     from openfhe_tpu_torch.pke.keys import EvalKey
-    from openfhe_tpu_torch.pke.keyswitch import hybrid
     from openfhe_tpu_torch.pke.keyswitch import ks_fused
     from openfhe_tpu_torch.pke.parameters import main_path_params
 
@@ -1083,6 +1214,10 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    INT32_OPS_PER_S, mhz, sms = int32_rate()
+    print(f"{card}: max SM clock {mhz:g} MHz x {sms} SMs x "
+          f"{INT32_OPS_PER_CLOCK_PER_SM} a clock = {INT32_OPS_PER_S:.4g} "
+          "32-bit integer op/s (the operations bound's rate)")
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
@@ -1125,7 +1260,7 @@ def main() -> int:
     # cluster_geometry takes it, N=2^17 (clusters of 8)
     big = 1 << 17
     top31_big = [nbtheory.previous_prime(1 << 31, 2 * big)]
-    while len(top31_big) < 4:
+    while len(top31_big) < 6:
         top31_big.append(nbtheory.previous_prime(top31_big[-1], 2 * big))
     ntt_shapes = [
         (cc.basis_q, "Q (31 towers)", ()),
@@ -1142,7 +1277,7 @@ def main() -> int:
         ntt_shapes.append((make_basis(top31[:4], 1 << log_n, device="cuda"),
                            f"N=2^{log_n}, 31-bit primes", ()))
     if ntt.cluster_geometry(big):
-        ntt_shapes.append((make_basis(top31_big, big, device="cuda"),
+        ntt_shapes.append((make_basis(top31_big[:4], big, device="cuda"),
                            "N=2^17, 31-bit primes", ()))
     for basis, label, lead in ntt_shapes:
         for name, case in ntt_cases(ntt, basis, gen, label, lead).items():
@@ -1154,24 +1289,39 @@ def main() -> int:
     cases["mod_matmul_rowmod"].append(rowmod_case(
         modmatmul, top.moddown.switch, top.basis_ql, gen, "P -> Q mod-down"))
     # the fused kernels: level 0, level 1 (digit 1 has 14 towers) and a
-    # 31-bit chain, each with a random key over its own QP moduli
-    qp = list(cc.moduli_q) + list(cc.moduli_p)
-    key_main = hybrid.shoup_companions(EvalKey(
-        bv=rand_residues(gen, qp, n, (2,)),
-        av=rand_residues(gen, qp, n, (2,))), qp)
+    # 31-bit chain in two digits and in one, each with a random key over
+    # its own QP moduli
+    key_main = rand_key(gen, list(cc.moduli_q) + list(cc.moduli_p), n)
     basis31 = make_basis(top31, n, device="cuda")
-    key31 = hybrid.shoup_companions(EvalKey(
-        bv=rand_residues(gen, top31, n, (2,)),
-        av=rand_residues(gen, top31, n, (2,))), top31)
+    key31 = rand_key(gen, top31, n)
     for tabs, key, label in (
             (top.fused, key_main, "level 0 (31 Q + 16 P)"),
             (cc.hybrid_tables(cc.size_ql(1)).fused, key_main,
              "level 1 (30 Q + 16 P)"),
             (ks_fused.make_fused_ks_tables(basis31, 4, 4, 2), key31,
-             "largest 31-bit primes (4 Q + 2 P)")):
+             "largest 31-bit primes (4 Q + 2 P)"),
+            (ks_fused.make_fused_ks_tables(basis31, 4, 4, 1), key31,
+             "largest 31-bit primes (4 Q + 2 P), one digit")):
         for name, case in fused_cases(ks_fused, tabs, key, gen,
                                       label).items():
-            cases[name].append(case)
+            (staged if name in STAGED else cases)[name].append(case)
+    # K3 and K45 by level, 44 down to 17 Q_l*P towers in two digits and in
+    # one: their time against the clusters a wave places
+    for lvl in (3, 11, 15, 23, 30):
+        tabs = cc.hybrid_tables(cc.size_ql(lvl)).fused
+        for name, case in fused_cases(
+                ks_fused, tabs, key_main, gen,
+                f"level {lvl} ({tabs.kql} Q + {tabs.kp} P)",
+                FUSED_CLUSTER).items():
+            (staged if name in STAGED else cases)[name].append(case)
+    rings = [(1 << log_n, top31) for log_n in (12, 14, 15)]
+    if ntt.cluster_geometry(big):
+        rings.append((big, top31_big))
+    wide31 = list(top31)
+    while len(wide31) < 4 + max(WIDE_P):
+        wide31.append(nbtheory.previous_prime(wide31[-1], 2 * n))
+    for name, case in cluster_shape_cases(ks_fused, gen, rings, wide31, n):
+        (staged if name in STAGED else cases)[name].append(case)
     del key_main, key31
     # intt_scale's K4 form (both elements' P rows of ext, read in place)
     # and ntt_subscale with BGV's t = 65537 (K6's t multiply), at level 0
@@ -1314,7 +1464,7 @@ def main() -> int:
     mult_err = float(np.abs(vals.real - dec_a.real * dec_b.real).max())
     err1 = float(np.abs(dec1 - z ** 4).max())
     mult_err1 = float(np.abs(dec1 - vals.real ** 2).max())
-    print(f"main path: {path_s:.2f} s; launches {launches}; staged NTT "
+    print(f"main path: {path_s:.2f} s; launches {launches}; staged forms "
           f"{staged_launches}")
     print(f"per EvalMult (fused) {per_mult}; level 1 {per_mult1}; per "
           f"EvalMultNoRelin + unfused relinearization {per_unfused}")
@@ -1390,7 +1540,7 @@ def main() -> int:
     require(all(v > 0 for v in launches.values()),
             f"a kernel was not launched on the main path: {launches}")
     require(not any(staged_launches.values()),
-            f"the main path ran the staged NTT: {staged_launches}")
+            f"the main path ran a staged form: {staged_launches}")
     launches.update(staged_launches)
     want_mult = {k: int(k in MULT_CHAIN) for k in cases}
     want_ks = {k: int(k in KS_CHAIN) for k in cases}
@@ -1496,7 +1646,7 @@ def main() -> int:
             **({k: head[k] for k in ("call_ms", "staged_ms",
                                       "staged_call_ms", "launches_per_call",
                                       "cluster")}
-               if name in ("ntt_fwd", "ntt_inv") else {}),
+               if name in ("ntt_fwd", "ntt_inv") + FUSED_CLUSTER else {}),
             **({"call_ms": head["call_ms"]} if name in STAGED else {}),
             **({"call_ms": head["call_ms"]} if name in BLIND else {}),
             cases=rows))

@@ -1,7 +1,6 @@
 // The fused HYBRID key switch for Hopper (sm_90a): seven entry points, one
 // per TPU kernel of openfhe_tpu/pke/keyswitch/ks_fused.py (mult_relin_fused
-// and keyswitch_core_fused). Each is an NTT pass or a base conversion of
-// ntt_core.cuh / rowmod_core.cuh with a prologue or an epilogue.
+// and keyswitch_core_fused), plus the former forms of two of them.
 //
 //   tensor_intt       replaces _tensor_intt (K1t, pallas_call :366) and
 //                     _tensor_intt_single (:301): c2 = a1*b1 and
@@ -22,6 +21,9 @@
 //                     (ext - t * NTT(convq)) * P^-1, t = 1 for CKKS
 //   ntt_submul_final  replaces _ntt_submul_final (K6f, :802):
 //                     (ext - NTT(convq)) * P^-1 plus the tensor terms
+//   ntt_keymul_acc_staged, intt_conv_p_staged: K3 and K45 on the staged
+//                     NTT passes, for rings outside the cluster NTT's
+//                     2^4 .. 2^17 and as the yardstick on the card
 //
 // The TPU kernels multiply through int8 Karatsuba limbs and float
 // quotients on the MXU; here every product is exact 32-bit modular
@@ -30,15 +32,32 @@
 // reduced with % for the variable x variable tensor terms. Every output is
 // canonical (< q).
 //
-// What bounds them on an H100: device-memory bytes. At the main path's
-// shapes (kql 31, kp 16, 2 digits, N = 2^16) K3 reads the two key halves
-// and their companions (98 MB) and the others move 8-65 MB each, against
-// about ten integer operations per word and butterfly stage.
+// What bounds them on an H100: device-memory bytes, except the P -> Q_l
+// conversion, whose Shoup products bound it by 32-bit integer operations.
+// At the main path's shapes (kql 31, kp 16, 2 digits, N = 2^16) K3 reads
+// the two key halves and their companions (98 MB) and the others move
+// 8-65 MB each, against about ten integer operations per word and
+// butterfly stage.
 //
-// Design: one tower (256 KB) is larger than a block's shared memory, so
-// each transform is the device-memory stage launches of ntt_core.cuh plus
-// one shared-memory tile pass, and each prologue or epilogue rides the
-// pass that touches the data first (inverse) or last (forward):
+// Design: K3 and K45 run on the cluster NTT of ntt_cluster.cuh (a tower
+// per thread-block cluster, the words through device memory once):
+//   * K3 (keymul_cluster) is one launch, a cluster per tower of Q_l*P:
+//     the digit loop runs inside the cluster, a digit's own towers read
+//     c2's row in place of the transform, and the key product is the
+//     epilogue of the forward transform's last round, on the 16 words
+//     each thread holds. The two sums stay in registers until the last
+//     digit writes ext; nothing else reaches device memory.
+//   * K45 is the inverse cluster transform of ext's 2 * kp P rows, read
+//     in place, with N^-1 (P/p_i)^-1 t^-1 folded into its last multiply,
+//     into a [2, kp, N] intermediate that stays in L2 (no block can wait
+//     on another's output, so the conversion is a second launch), then
+//     the conversion kernel pconv: weights in shared memory, 4 columns a
+//     thread with 16-byte loads, lazy Shoup products in [0, 2q) summed in
+//     64 bits and reduced once.
+// The other kernels are the device-memory stage launches of ntt_core.cuh
+// plus one shared-memory tile pass (one tower, 256 KB, is larger than a
+// block's shared memory), each prologue or epilogue riding the pass that
+// touches the data first (inverse) or last (forward):
 //   * K1t's tile pass forms c2 from a1, b1 and writes it; the inverse
 //     stages follow, the last folding (N^-1 * (B_j/b_i)^-1) mod q.
 //   * intt_scale is inv_tile, which picks k rows out of every in_rows (so
@@ -46,21 +65,22 @@
 //     (N^-1 * scale) folded into the last pass. The tower count is a
 //     runtime argument: the TPU's tower pairs, and the garbage row they
 //     pad an odd kql with, have no counterpart.
-//   * K3 runs the forward stages over all nd * kqlp rows of the extended
-//     digits, then one tile pass per (tile, tower) that loops over the
-//     digits, takes c2 on own towers, and keeps both key-product sums in
-//     registers; the key is indexed in place (key_row), not copied.
-//   * K45 is intt_scale's K4 form into a [2, kp, N] intermediate in
-//     device memory (it stays in L2), then the conversion kernel.
+//   * K3's staged form runs the forward stages over all nd * kqlp rows of
+//     the extended digits, then one tile pass per (tile, tower) that loops
+//     over the digits, takes c2 on own towers, and keeps both key-product
+//     sums in registers (keymul_core.cuh); K45's is intt_scale's K4 form
+//     into the intermediate, then rowmod_core.cuh's conversion.
 //   * K6 runs the forward stages over both elements' 2 * kql rows, then
 //     one tile pass per (tile, element row) whose epilogue is the
 //     mod-down: an optional Shoup multiply by t, the subtraction from
 //     ext's Q row and the Shoup multiply by P^-1.
 //   * K6f's tile pass keeps c0 and c1 of its tile in registers and runs
 //     both elements' transforms, so the tensor terms are formed once.
-// There is no bucket padding: tower counts are runtime arguments.
+// The key is indexed in place (key_row), not copied. There is no bucket
+// padding: tower counts are runtime arguments.
 
 #include "keymul_core.cuh"     // K3's tile pass, shared with sharded.cu
+#include "ntt_cluster.cuh"
 #include "ntt_core.cuh"
 #include "rowmod_core.cuh"
 
@@ -219,6 +239,258 @@ void intt_scale_run(const uint32_t* x, int in_rows, int in_off,
   inv_stages(out, ipsi, ipsi_sh, qs, c, c_sh, rows, k, log_n, st);
 }
 
+// K3 on the cluster NTT: cluster c takes tower tau = rows - 1 - c of
+// Q_l*P (the P towers, which transform every digit, start first). For
+// each digit j, s_j is c2's row on the digit's own towers (tau < kql and
+// j = tau / alpha), read at the words the transform would leave in each
+// thread, else the forward transform of conv[j, tau]; the epilogue
+// multiplies the thread's 16 words by the key rows' words at the same
+// indices and adds them into the two sums, which stay in registers (128 a
+// thread, so one block an SM) until the last digit writes ext. The own
+// digit comes last. `own` depends on tau alone, so every block of a
+// cluster takes the same branches and meets the same cluster barriers.
+// conv: [nd, rows, N] COEFF; c2: [kql, N] EVAL; bv, bv_sh, av, av_sh:
+// [>= nd, key_rows, N]; ext: [2, rows, N]; psi(_sh): [rows, N]; qs: [rows].
+template <int LOG_N>
+__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads, 1)
+    keymul_cluster(const uint32_t* conv, const uint32_t* c2,
+                   const uint32_t* __restrict__ bv,
+                   const uint32_t* __restrict__ bv_sh,
+                   const uint32_t* __restrict__ av,
+                   const uint32_t* __restrict__ av_sh, uint32_t* ext,
+                   const uint32_t* __restrict__ psi,
+                   const uint32_t* __restrict__ psi_sh,
+                   const uint32_t* __restrict__ qs, int nd, int alpha,
+                   int kql, int rows, int key_rows, int key_shift) {
+  using G = Geometry<LOG_N>;
+  extern __shared__ __align__(16) uint32_t tile[];
+  const uint32_t rank = blockIdx.x & ((1u << G::kLogC) - 1);
+  const int tau = rows - 1 - static_cast<int>(blockIdx.x >> G::kLogC);
+  const uint32_t q = qs[tau];
+  const size_t tw0 = static_cast<size_t>(tau) << LOG_N;
+  const int krow = tau < kql ? tau : tau + key_shift;
+  const uint32_t x0 = fwd_out_word<LOG_N>(rank, threadIdx.x);
+  const uint32_t* key[4] = {bv, bv_sh, av, av_sh};
+  const int own_digit = tau < kql ? tau / alpha : nd;     // nd: none
+  uint32_t acc[2][kR];
+  for (int i = 0; i < nd; ++i) {
+    const int j = own_digit < nd ? (own_digit + 1 + i) % nd : i;
+    const bool own = j == own_digit;
+    const bool first = i == 0, last = i == nd - 1;
+    const size_t kb = ((static_cast<size_t>(j) * key_rows + krow) << LOG_N) +
+                      x0;
+    // the key product on the thread's words a, row words x .. x + kR - 1
+    auto keymul = [&](const uint32_t (&a)[kR], uint32_t x) {
+#pragma unroll
+      for (int v = 0; v < kR / 4; ++v) {
+        uint4 kw[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          kw[k] = __ldg(reinterpret_cast<const uint4*>(key[k] + kb) + v);
+        const uint32_t w[2][4] = {{kw[0].x, kw[0].y, kw[0].z, kw[0].w},
+                                  {kw[2].x, kw[2].y, kw[2].z, kw[2].w}};
+        const uint32_t w_sh[2][4] = {{kw[1].x, kw[1].y, kw[1].z, kw[1].w},
+                                     {kw[3].x, kw[3].y, kw[3].z, kw[3].w}};
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int l = 0; l < 4; ++l) {
+            const int s = 4 * v + l;
+            const uint32_t r = mul_shoup_q(a[s], w[e][l], w_sh[e][l], q);
+            acc[e][s] = first ? r : add_q(acc[e][s], r, q);
+          }
+      }
+      if (last) {
+        store_words(ext + tw0 + x, acc[0]);
+        store_words(ext + (static_cast<size_t>(rows + tau) << LOG_N) + x,
+                    acc[1]);
+      }
+    };
+    if (own) {
+      const uint4* s4 = reinterpret_cast<const uint4*>(c2 + tw0 + x0);
+      uint32_t a[kR];
+#pragma unroll
+      for (int v = 0; v < kR / 4; ++v) {
+        const uint4 w = s4[v];
+        a[4 * v] = w.x;
+        a[4 * v + 1] = w.y;
+        a[4 * v + 2] = w.z;
+        a[4 * v + 3] = w.w;
+      }
+      keymul(a, x0);
+    } else {
+      fwd_cluster_row<LOG_N>(
+          conv + ((static_cast<size_t>(j) * rows + tau) << LOG_N),
+          psi + tw0, psi_sh + tw0, q, tile, keymul);
+      if constexpr (G::kLogC == 0)
+        __syncthreads();     // the next digit's transform rewrites the tile
+    }
+  }
+}
+
+using KeymulKernel = void (*)(const uint32_t*, const uint32_t*,
+                              const uint32_t*, const uint32_t*,
+                              const uint32_t*, const uint32_t*, uint32_t*,
+                              const uint32_t*, const uint32_t*,
+                              const uint32_t*, int, int, int, int, int, int);
+
+template <int... I>
+KeymulKernel keymul_kernel(int log_n, std::integer_sequence<int, I...>) {
+  static const KeymulKernel kernels[] = {
+      keymul_cluster<kMinClusterLogN + I>...};
+  return kernels[log_n - kMinClusterLogN];
+}
+
+// K45's P -> Q_l conversion: out[b, j, n] = sum_i y[b, i, n] * w[i, j]
+// mod d_j, y: [batch, a_dim, N], w(_sh): [a_dim, d_dim], d: [d_dim], out:
+// [batch, d_dim, N]. What bounds it is integer issue: a_dim * d_dim Shoup
+// products a column. So each thread holds COLS consecutive columns of
+// all a_dim rows in registers (16-byte loads) and, for each output row,
+// forms the lazy Shoup products x * w - floor(x * w_sh / 2^32) * d_j in
+// [0, 2 d_j) (exact in 32 bits for d_j < 2^31) and sums them in 64 bits
+// (a_dim < 2^32 of them cannot overflow), then reduces the sum hi * 2^32
+// + lo once: hi * (2^32 mod d_j) and lo each by a Shoup multiply, and
+// their sum. The weights (w, w_sh) and the per-row constants sit in shared
+// memory; a block takes the output rows [z * per_block, (z + 1) *
+// per_block) so that enough blocks fill the card.
+constexpr int kConvThreads = 128;
+
+template <int MAXA, int COLS>
+__global__ void __launch_bounds__(kConvThreads)
+    pconv(const uint32_t* __restrict__ y, const uint32_t* __restrict__ w,
+          const uint32_t* __restrict__ w_sh,
+          const uint32_t* __restrict__ d, uint32_t* __restrict__ out,
+          int a_dim, int d_dim, int n, int per_block) {
+  extern __shared__ uint4 conv_sm[];
+  uint4* consts = conv_sm;               // [d_dim]: d, 2^32 mod d, its
+                                         // companion, floor(2^32 / d)
+  uint2* sw = reinterpret_cast<uint2*>(conv_sm + d_dim);  // [a_dim, d_dim]
+  for (int x = threadIdx.x; x < a_dim * d_dim; x += blockDim.x)
+    sw[x] = make_uint2(w[x], w_sh[x]);
+  for (int x = threadIdx.x; x < d_dim; x += blockDim.x) {
+    const uint64_t dj = d[x];
+    const uint64_t c = (uint64_t{1} << 32) % dj;
+    consts[x] = make_uint4(static_cast<uint32_t>(dj),
+                           static_cast<uint32_t>(c),
+                           static_cast<uint32_t>((c << 32) / dj),
+                           static_cast<uint32_t>((uint64_t{1} << 32) / dj));
+  }
+  __syncthreads();
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * COLS;
+  if (col >= n) return;
+  const uint32_t* yb = y + static_cast<size_t>(blockIdx.y) * a_dim * n + col;
+  uint32_t* ob = out + static_cast<size_t>(blockIdx.y) * d_dim * n + col;
+  uint32_t x[MAXA][COLS];
+#pragma unroll
+  for (int i = 0; i < MAXA; ++i) {
+    if (i < a_dim) {
+      const uint32_t* yi = yb + static_cast<size_t>(i) * n;
+      if constexpr (COLS == 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(yi);
+        x[i][0] = v.x;
+        x[i][1] = v.y;
+        x[i][2] = v.z;
+        x[i][3] = v.w;
+      } else if constexpr (COLS == 2) {
+        const uint2 v = *reinterpret_cast<const uint2*>(yi);
+        x[i][0] = v.x;
+        x[i][1] = v.y;
+      } else {
+        x[i][0] = *yi;
+      }
+    }
+  }
+  const int j0 = blockIdx.z * per_block;
+  const int j1 = j0 + per_block < d_dim ? j0 + per_block : d_dim;
+  for (int j = j0; j < j1; ++j) {
+    const uint4 cj = consts[j];
+    const uint32_t q = cj.x;
+    uint64_t sum[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) sum[c] = 0;
+#pragma unroll
+    for (int i = 0; i < MAXA; ++i) {
+      if (i < a_dim) {
+        const uint2 wi = sw[i * d_dim + j];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c)
+          sum[c] += x[i][c] * wi.x - __umulhi(x[i][c], wi.y) * q;
+      }
+    }
+    uint32_t r[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      const uint32_t hi = static_cast<uint32_t>(sum[c] >> 32);
+      const uint32_t lo = static_cast<uint32_t>(sum[c]);
+      r[c] = add_q(mul_shoup_q(hi, cj.y, cj.z, q),
+                   csub(lo - __umulhi(lo, cj.w) * q, q), q);
+    }
+    uint32_t* oj = ob + static_cast<size_t>(j) * n;
+    if constexpr (COLS == 4)
+      *reinterpret_cast<uint4*>(oj) = make_uint4(r[0], r[1], r[2], r[3]);
+    else if constexpr (COLS == 2)
+      *reinterpret_cast<uint2*>(oj) = make_uint2(r[0], r[1]);
+    else
+      *oj = r[0];
+  }
+}
+
+template <int MAXA, int COLS>
+int pconv_launch(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
+                 const uint32_t* d, uint32_t* out, int batch, int a_dim,
+                 int d_dim, int n, cudaStream_t st) {
+  const size_t smem = 16 * static_cast<size_t>(d_dim) +
+                      8 * static_cast<size_t>(a_dim) * d_dim;
+  // as many blocks as fit on the card at once: split the output rows
+  static int resident = 0;
+  static size_t resident_smem = 0;
+  if (!resident || smem != resident_smem) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pconv<MAXA, COLS>, kConvThreads, smem);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    resident_smem = smem;
+  }
+  const int cols = kConvThreads * COLS;
+  const int blocks = (n + cols - 1) / cols * batch;
+  int splits = resident / blocks;
+  splits = splits < 1 ? 1 : splits > d_dim ? d_dim : splits;
+  const int per_block = (d_dim + splits - 1) / splits;
+  const dim3 grid((n + cols - 1) / cols, batch,
+                  (d_dim + per_block - 1) / per_block);
+  pconv<MAXA, COLS><<<grid, kConvThreads, smem, st>>>(y, w, w_sh, d, out,
+                                                      a_dim, d_dim, n,
+                                                      per_block);
+  return 0;
+}
+
+// Checks the shape (the tables must fit 48 KB of shared memory, rows of N
+// a multiple of 4 words on 16-byte boundaries) and launches; returns a
+// CUDA error code, 0 when launched.
+int pconv_run(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
+              const uint32_t* d, uint32_t* out, int batch, int a_dim,
+              int d_dim, int n, cudaStream_t st) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(y) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (batch < 1 || batch > 65535 || a_dim < 1 || a_dim > 64 || d_dim < 1 ||
+      n < 4 || n % 4 != 0 || align % 16 != 0 ||
+      16 * d_dim + 8 * a_dim * d_dim > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a_dim <= 8)
+    return pconv_launch<8, 4>(y, w, w_sh, d, out, batch, a_dim, d_dim, n, st);
+  if (a_dim <= 16)
+    return pconv_launch<16, 4>(y, w, w_sh, d, out, batch, a_dim, d_dim, n,
+                               st);
+  if (a_dim <= 32)
+    return pconv_launch<32, 2>(y, w, w_sh, d, out, batch, a_dim, d_dim, n,
+                               st);
+  return pconv_launch<64, 1>(y, w, w_sh, d, out, batch, a_dim, d_dim, n, st);
+}
+
+int keymul_placeable[kMaxClusterLogN + 1], intt_p_placeable[kMaxClusterLogN + 1];
+
 }  // namespace
 
 // a1, b1, c2, y: [kql, N] words; ipsi(_sh): [kql, N] of the Q_l towers;
@@ -284,15 +556,49 @@ extern "C" int conv_digits(const void* y, const void* w, const void* w_sh,
 }
 
 // conv: [nd, kqlp, N] COEFF; c2: [kql, N] EVAL; bv, bv_sh, av, av_sh:
-// [>= nd, key_rows, N] with key_rows = k_q_full + kp; scratch: [nd, kqlp,
-// N]; ext: [2, kqlp, N]; psi(_sh): [kqlp, N]; q: [kqlp].
+// [>= nd, key_rows, N] with key_rows = k_q_full + kp; ext: [2, kqlp, N];
+// psi(_sh): [kqlp, N]; q: [kqlp]. One launch of keymul_cluster; refuses
+// rings outside 2^4 .. 2^17 (ntt_keymul_acc_staged serves them) and
+// operands off a 16-byte boundary.
 extern "C" int ntt_keymul_acc(const void* conv, const void* c2,
                               const void* bv, const void* bv_sh,
-                              const void* av, const void* av_sh,
-                              void* scratch, void* ext, const void* psi,
-                              const void* psi_sh, const void* q, int nd,
-                              int alpha, int kql, int kp, int k_q_full,
-                              int log_n, void* stream) {
+                              const void* av, const void* av_sh, void* ext,
+                              const void* psi, const void* psi_sh,
+                              const void* q, int nd, int alpha, int kql,
+                              int kp, int k_q_full, int log_n,
+                              void* stream) {
+  const int rows = kql + kp;
+  if (int bad = check_cluster(conv, ext, rows, rows, log_n)) return bad;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(c2) | reinterpret_cast<uintptr_t>(bv) |
+      reinterpret_cast<uintptr_t>(bv_sh) | reinterpret_cast<uintptr_t>(av) |
+      reinterpret_cast<uintptr_t>(av_sh);
+  if (k_q_full < kql || kp < 0 || nd < 1 || alpha < 1 ||
+      nd * alpha < kql || align % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  return launch_cluster(keymul_kernel(log_n, ClusterRings{}),
+                        &keymul_placeable[log_n], rows, log_n,
+                        static_cast<cudaStream_t>(stream), in(conv), in(c2),
+                        in(bv), in(bv_sh), in(av), in(av_sh),
+                        static_cast<uint32_t*>(ext), in(psi), in(psi_sh),
+                        in(q), nd, alpha, kql, rows, k_q_full + kp,
+                        k_q_full - kql);
+}
+
+// conv: [nd, kqlp, N] COEFF; c2: [kql, N] EVAL; bv, bv_sh, av, av_sh:
+// [>= nd, key_rows, N] with key_rows = k_q_full + kp; scratch: [nd, kqlp,
+// N]; ext: [2, kqlp, N]; psi(_sh): [kqlp, N]; q: [kqlp]. The forward
+// stages of ntt_core.cuh over all nd * kqlp rows, then keymul_tile.
+extern "C" int ntt_keymul_acc_staged(const void* conv,
+                                     const void* c2,
+                                     const void* bv, const void* bv_sh,
+                                     const void* av, const void* av_sh,
+                                     void* scratch, void* ext,
+                                     const void* psi, const void* psi_sh,
+                                     const void* q, int nd, int alpha,
+                                     int kql, int kp, int k_q_full,
+                                     int log_n, void* stream) {
   if (k_q_full < kql) return static_cast<int>(cudaErrorInvalidValue);
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
   // all Q_l*P towers from row 0; the key skips the Q towers above the level
@@ -309,12 +615,42 @@ extern "C" int ntt_keymul_acc(const void* conv, const void* c2,
 // ext: [2, kql + kp, N] EVAL; pc: [2, kp, N] scratch; out: [2, kql, N]
 // COEFF. ipsi(_sh): [kp, N] and qp, scale(_sh): [kp] of the P towers, with
 // scale = N^-1 * (P/p_i)^-1 * t^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql].
+// The inverse cluster transform of ext's P rows, read in place, with the
+// scale as its last multiply, then pconv; refuses rings outside
+// 2^4 .. 2^17 (intt_conv_p_staged serves them).
 extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
                            const void* ipsi, const void* ipsi_sh,
                            const void* qp, const void* scale,
                            const void* scale_sh, const void* w,
                            const void* w_sh, const void* qq, int kql, int kp,
                            int log_n, void* stream) {
+  if (int bad = check_cluster(ext, pc, 2 * kp, kp, log_n)) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  auto* pcp = static_cast<uint32_t*>(pc);
+  if (int bad = launch_cluster(inv_kernel(log_n, ClusterRings{}),
+                               &intt_p_placeable[log_n], 2 * kp, log_n,
+                               st, in(ext), pcp, in(ipsi), in(ipsi_sh),
+                               in(qp), in(scale), in(scale_sh), kp, kql + kp,
+                               kql))
+    return bad;
+  if (int bad = pconv_run(pcp, in(w), in(w_sh), in(qq),
+                          static_cast<uint32_t*>(out), 2, kp, kql,
+                          1 << log_n, st))
+    return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ext: [2, kql + kp, N] EVAL; pc: [2, kp, N] scratch; out: [2, kql, N]
+// COEFF. ipsi(_sh): [kp, N] and qp, scale(_sh): [kp] of the P towers, with
+// scale = N^-1 * (P/p_i)^-1 * t^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql].
+// intt_scale's K4 form, then rowmod_core.cuh's conversion.
+extern "C" int intt_conv_p_staged(const void* ext, void* pc, void* out,
+                                  const void* ipsi, const void* ipsi_sh,
+                                  const void* qp, const void* scale,
+                                  const void* scale_sh, const void* w,
+                                  const void* w_sh, const void* qq, int kql,
+                                  int kp, int log_n, void* stream) {
   if (int bad = check_shape(2 * kp, kp, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* pcp = static_cast<uint32_t*>(pc);

@@ -69,7 +69,7 @@ extern "C" int ntt_inv(const void* x, void* out, const void* ipsi,
                         static_cast<const uint32_t*>(ipsi_sh),
                         static_cast<const uint32_t*>(q),
                         static_cast<const uint32_t*>(ninv),
-                        static_cast<const uint32_t*>(ninv_sh), k);
+                        static_cast<const uint32_t*>(ninv_sh), k, k, 0);
 }
 
 extern "C" int ntt_fwd_staged(const void* x, void* out, const void* psi,

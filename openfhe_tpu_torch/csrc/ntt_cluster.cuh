@@ -31,7 +31,10 @@
 //      N = 2^16); each round's twiddles are loaded into registers before
 //      the barrier that precedes it, so their latency hides behind it;
 //   3. the last round's slots are the low index bits, so each thread
-//      writes its 16 consecutive words straight to device memory.
+//      holds 16 consecutive output words; an epilogue hook takes them
+//      (fwd_cluster_row): ntt_fwd writes them straight to device memory,
+//      ks_fused.cu's key product multiplies them by the key's words at the
+//      same indices and runs the transform once per digit in one launch.
 // The inverse is the mirror image: the first round reads 16 consecutive
 // words a thread, the tile's stages run from span 1 up, a cluster barrier,
 // then block r gathers slot (i, p) from block i's shared memory, runs the
@@ -240,11 +243,12 @@ struct Geometry {
 
 // The forward rounds from tile index bit HI down to 0, in shared memory;
 // `tw` holds this round's twiddles on entry. The last round (slots on
-// bits 0 .. kLogR - 1) writes its kR consecutive words to dst + base.
-template <int LOG_N, int HI>
+// bits 0 .. kLogR - 1) hands its kR consecutive words, row words
+// x_tile + base .. + kR - 1, to epi(a, x_tile + base).
+template <int LOG_N, int HI, typename Epi>
 __device__ __forceinline__ void fwd_rounds(uint32_t (&a)[kR], Twiddles& tw,
                                            uint32_t* tile, uint32_t tid,
-                                           uint32_t x_tile, uint32_t* dst,
+                                           uint32_t x_tile, Epi& epi,
                                            const uint32_t* __restrict__ psi,
                                            const uint32_t* __restrict__ psi_sh,
                                            uint32_t q) {
@@ -257,10 +261,7 @@ __device__ __forceinline__ void fwd_rounds(uint32_t (&a)[kR], Twiddles& tw,
     a[s] = tile[pb ^ phys<kLogW>(static_cast<uint32_t>(s) << kLo)];
   fwd_butterflies<0, HI - kLo>(a, tw, q);
   if constexpr (kLo == 0) {
-    uint4* d = reinterpret_cast<uint4*>(dst + base);
-#pragma unroll
-    for (int v = 0; v < kR / 4; ++v)
-      d[v] = make_uint4(a[4 * v], a[4 * v + 1], a[4 * v + 2], a[4 * v + 3]);
+    epi(a, x_tile + base);
   } else {
 #pragma unroll
     for (int s = 0; s < kR; ++s)
@@ -271,7 +272,7 @@ __device__ __forceinline__ void fwd_rounds(uint32_t (&a)[kR], Twiddles& tw,
     load_twiddles<LOG_N, kLo2, 0, kHi2 - kLo2>(
         tw, x_tile + round_base<kLogW, kLo2>(tid), psi, psi_sh);
     __syncthreads();
-    fwd_rounds<LOG_N, kHi2>(a, tw, tile, tid, x_tile, dst, psi, psi_sh, q);
+    fwd_rounds<LOG_N, kHi2>(a, tw, tile, tid, x_tile, epi, psi, psi_sh, q);
   }
 }
 
@@ -331,26 +332,48 @@ __device__ __forceinline__ void inv_rounds(uint32_t (&a)[kR], Twiddles& tw,
   }
 }
 
-// x, out: [rows, N] words, N = 2^LOG_N, row r in tower r % k; a grid of
-// rows x C blocks in clusters of C, block rank r holding words
-// [r W, (r + 1) W) of its row after step 1; out may equal x.
+// Store a thread's kR consecutive output words a at dst (16-byte aligned).
+__device__ __forceinline__ void store_words(uint32_t* dst,
+                                            const uint32_t (&a)[kR]) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int v = 0; v < kR / 4; ++v)
+    d[v] = make_uint4(a[4 * v], a[4 * v + 1], a[4 * v + 2], a[4 * v + 3]);
+}
+
+// The row word of the first of the kR consecutive output words that thread
+// tid of block `rank` holds at the end of the forward transform: what
+// fwd_cluster_row hands its epilogue.
 template <int LOG_N>
-__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
-                                  Geometry<LOG_N>::kMinBlocks)
-    fwd_cluster(const uint32_t* x, uint32_t* out,
-                const uint32_t* __restrict__ psi,
-                const uint32_t* __restrict__ psi_sh,
-                const uint32_t* __restrict__ qs, int k) {
+__device__ __forceinline__ uint32_t fwd_out_word(uint32_t rank,
+                                                 uint32_t tid) {
+  using G = Geometry<LOG_N>;
+  if constexpr (G::kLo1 == 0)
+    return rank * G::kThreads + tid;
+  else
+    return (rank << G::kLogW) + round_base<G::kLogW, 0>(tid);
+}
+
+// The forward transform of one row (src, N = 2^LOG_N words, COEFF) in the
+// cluster of this block, with the tower's twiddles psi / psi_sh and
+// modulus q and the block's tile of 2^kLogW words of shared memory. Each
+// thread ends holding kR consecutive output words (EVAL, bit-reversed
+// positions) in registers and calls epi(a, x), x = fwd_out_word(rank,
+// tid) their first row word: the epilogue hook (a store for ntt_fwd, the
+// key product for ks_fused.cu's ntt_keymul_acc). Every block of the
+// cluster must call it together: it holds two cluster barriers (one block
+// barrier with a cluster of one), the first before any block writes into
+// another's tile, so a cluster may call it again for another row once all
+// its blocks are past their epilogues (with a cluster of one, after a
+// block barrier).
+template <int LOG_N, typename Epi>
+__device__ __forceinline__ void fwd_cluster_row(
+    const uint32_t* src, const uint32_t* __restrict__ psi,
+    const uint32_t* __restrict__ psi_sh, uint32_t q, uint32_t* tile,
+    Epi& epi) {
   using G = Geometry<LOG_N>;
   constexpr int kP = kLogR - G::kLogC;   // tile index bits in step 1
-  extern __shared__ __align__(16) uint32_t tile[];
   const uint32_t rank = blockIdx.x & ((1u << G::kLogC) - 1);
-  const uint32_t row = blockIdx.x >> G::kLogC;
-  const int tower = row % k;
-  const uint32_t q = qs[tower];
-  const size_t tw0 = static_cast<size_t>(tower) << LOG_N;
-  psi += tw0;
-  psi_sh += tw0;
   const uint32_t tid = threadIdx.x;
   const uint32_t j = rank * G::kThreads + tid;
   const uint32_t x_tile = rank << G::kLogW;
@@ -359,19 +382,13 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
 
   // 1. the first kLogR stages on words j + (s << kLo1): the cross-block
   // ones and the tile's top kP, in registers
-  const uint32_t* src = x + (static_cast<size_t>(row) << LOG_N);
 #pragma unroll
   for (int s = 0; s < kR; ++s) a[s] = src[j + (s << G::kLo1)];
   load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, psi, psi_sh);
   fwd_butterflies<0, kLogR - 1>(a, tw, q);
-  uint32_t* dst = out + (static_cast<size_t>(row) << LOG_N) + x_tile;
   if constexpr (G::kLo1 == 0) {
     // the whole tile was one round (N = 2^kLogR): its words are done
-    uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-    for (int v = 0; v < kR / 4; ++v)
-      d[v] = make_uint4(a[4 * v], a[4 * v + 1], a[4 * v + 2], a[4 * v + 3]);
-    return;
+    epi(a, j);
   } else {
     constexpr int kHi = G::kLo1 - 1;
     constexpr int kLo = kHi >= kLogR ? kHi - kLogR + 1 : 0;
@@ -401,12 +418,38 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
       __syncthreads();
     }
     // 2. and 3. the tile's other stages, kLogR a round from the top
-    fwd_rounds<LOG_N, kHi>(a, tw, tile, tid, x_tile, dst, psi, psi_sh, q);
+    fwd_rounds<LOG_N, kHi>(a, tw, tile, tid, x_tile, epi, psi, psi_sh, q);
   }
 }
 
-// The inverse, times N^-1 (ninv, ninv_sh per tower); the layout and launch
-// of fwd_cluster.
+// x, out: [rows, N] words, N = 2^LOG_N, row r in tower r % k; a grid of
+// rows x C blocks in clusters of C, block rank r holding words
+// [r W, (r + 1) W) of its row after step 1; out may equal x.
+template <int LOG_N>
+__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
+                                  Geometry<LOG_N>::kMinBlocks)
+    fwd_cluster(const uint32_t* x, uint32_t* out,
+                const uint32_t* __restrict__ psi,
+                const uint32_t* __restrict__ psi_sh,
+                const uint32_t* __restrict__ qs, int k) {
+  using G = Geometry<LOG_N>;
+  extern __shared__ __align__(16) uint32_t tile[];
+  const uint32_t row = blockIdx.x >> G::kLogC;
+  const int tower = row % k;
+  const size_t tw0 = static_cast<size_t>(tower) << LOG_N;
+  uint32_t* dst = out + (static_cast<size_t>(row) << LOG_N);
+  auto store = [dst](const uint32_t (&a)[kR], uint32_t x0) {
+    store_words(dst + x0, a);
+  };
+  fwd_cluster_row<LOG_N>(x + (static_cast<size_t>(row) << LOG_N), psi + tw0,
+                         psi_sh + tw0, qs[tower], tile, store);
+}
+
+// The inverse, times a per-tower constant (ninv, ninv_sh: N^-1, or N^-1
+// times a scale folded in); the layout and launch of fwd_cluster, except
+// that output row r reads input row (r / k) * in_rows + in_off + r % k, so
+// that k rows of every in_rows are read in place (in_rows = k, in_off = 0
+// for a plain transform).
 template <int LOG_N>
 __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
                                   Geometry<LOG_N>::kMinBlocks)
@@ -415,7 +458,8 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
                 const uint32_t* __restrict__ ipsi_sh,
                 const uint32_t* __restrict__ qs,
                 const uint32_t* __restrict__ ninv,
-                const uint32_t* __restrict__ ninv_sh, int k) {
+                const uint32_t* __restrict__ ninv_sh, int k, int in_rows,
+                int in_off) {
   using G = Geometry<LOG_N>;
   constexpr int kP = kLogR - G::kLogC;
   extern __shared__ __align__(16) uint32_t tile[];
@@ -429,7 +473,8 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
   const uint32_t tid = threadIdx.x;
   const uint32_t j = rank * G::kThreads + tid;
   const uint32_t x_tile = rank << G::kLogW;
-  const uint32_t* src = x + (static_cast<size_t>(row) << LOG_N);
+  const uint32_t* src =
+      x + (static_cast<size_t>(row / k * in_rows + in_off + tower) << LOG_N);
   uint32_t a[kR];
   Twiddles tw;
 
@@ -493,7 +538,7 @@ using FwdKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                            const uint32_t*, const uint32_t*, int);
 using InvKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                            const uint32_t*, const uint32_t*, const uint32_t*,
-                           const uint32_t*, int);
+                           const uint32_t*, int, int, int);
 
 // The kernel of each ring the cluster transform takes, by log2 N.
 template <int... I>
@@ -512,8 +557,8 @@ using ClusterRings =
     std::make_integer_sequence<int, kMaxClusterLogN - kMinClusterLogN + 1>;
 
 // Launch kernel on `rows` rows of a ring of 2^log_n words, in clusters of
-// N / W blocks; the first launch of each (direction, ring) with a cluster
-// of more than one block asks cudaOccupancyMaxActiveClusters whether a
+// N / W blocks; the first launch of each (kernel, ring) with a cluster of
+// more than one block asks cudaOccupancyMaxActiveClusters whether a
 // cluster can be placed at all (*placeable caches the answer) and refuses
 // the launch if not.
 template <typename... Params, typename... Args>

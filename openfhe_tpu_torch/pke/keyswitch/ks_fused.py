@@ -39,7 +39,12 @@ kernels that read it (`intt_conv_p` through t^-1 in its scale,
 
 Each kernel has a wrapper and its plain twin (`_..._ref`) here. The
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. K3 and K45 run on the cluster NTT
+(`csrc/ntt_cluster.cuh`) where `ops.ntt.cluster_geometry` takes the ring
+(2^4 <= N <= 2^17): K3 in one launch, K45 in two. Their former forms on
+the staged NTT passes, `ntt_keymul_acc_staged` and `intt_conv_p_staged`,
+serve every other ring (the choice reads the ring alone) and are the
+yardstick the cluster forms are held against on the card.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ from openfhe_tpu_torch import _build
 from openfhe_tpu_torch.lattice.basis import Basis
 from openfhe_tpu_torch.math import modops as mo
 from openfhe_tpu_torch.ops.modmatmul import _mod_matmul_rowmod_ref
-from openfhe_tpu_torch.ops.ntt import _ntt_fwd_ref, _ntt_inv_ref
+from openfhe_tpu_torch.ops.ntt import (_ntt_fwd_ref, _ntt_inv_ref,
+                                      cluster_geometry)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,24 +269,40 @@ def ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh,
                    tabs: FusedKSTables) -> torch.Tensor:
     """K3: conv [nd, kqlp, N] COEFF, c2 [kql, N] EVAL and the key halves
     [>= nd, k_q_full + kp, N] (with companions) -> ext [2, kqlp, N] EVAL,
-    (sum_j s_j * bv_j, sum_j s_j * av_j) over Q_l*P."""
+    (sum_j s_j * bv_j, sum_j s_j * av_j) over Q_l*P. On the card one
+    launch of the cluster kernel, or the staged one for rings it does not
+    take."""
     if conv.device.type == "cpu":
         return _ntt_keymul_acc_ref(conv, c2, bv, bv_sh, av, av_sh, tabs)
+    entry = ("ntt_keymul_acc" if cluster_geometry(tabs.basis_qlp.ring_dim)
+             else "ntt_keymul_acc_staged")
+    return _ntt_keymul_acc_cu(conv, c2, bv, bv_sh, av, av_sh, tabs, entry)
+
+
+def ntt_keymul_acc_staged(conv, c2, bv, bv_sh, av, av_sh,
+                          tabs: FusedKSTables) -> torch.Tensor:
+    """K3 on the staged NTT passes, any ring; CUDA tensors only."""
+    return _ntt_keymul_acc_cu(conv, c2, bv, bv_sh, av, av_sh, tabs,
+                              "ntt_keymul_acc_staged")
+
+
+def _ntt_keymul_acc_cu(conv, c2, bv, bv_sh, av, av_sh, tabs: FusedKSTables,
+                       entry: str) -> torch.Tensor:
     kql, kp, nd = tabs.kql, tabs.kp, tabs.nd
     kqlp = kql + kp
     key = (bv.shape[0], tabs.k_q_full + kp)
     if bv.dim() != 3 or key[0] < nd:
-        raise ValueError(f"ntt_keymul_acc: key shape {tuple(bv.shape)} has "
-                         f"fewer than {nd} digits")
-    _check("ntt_keymul_acc", tabs, conv=(conv, (nd, kqlp)), c2=(c2, (kql,)),
+        raise ValueError(f"{entry}: key shape {tuple(bv.shape)} has fewer "
+                         f"than {nd} digits")
+    _check(entry, tabs, conv=(conv, (nd, kqlp)), c2=(c2, (kql,)),
            bv=(bv, key), bv_sh=(bv_sh, key), av=(av, key),
            av_sh=(av_sh, key))
-    scratch = torch.empty_like(conv)
     ext = conv.new_empty((2, kqlp, conv.shape[-1]))
+    scratch = (torch.empty_like(conv),) if entry.endswith("_staged") else ()
     b = tabs.basis_qlp
-    _build.launch("ks_fused", "ntt_keymul_acc", conv, c2, bv, bv_sh, av,
-                  av_sh, scratch, ext, b.psi_br, b.psi_br_sh, b.q, nd,
-                  tabs.alpha, kql, kp, tabs.k_q_full, _log_n(tabs))
+    _build.launch("ks_fused", entry, conv, c2, bv, bv_sh, av, av_sh,
+                  *scratch, ext, b.psi_br, b.psi_br_sh, b.q, nd, tabs.alpha,
+                  kql, kp, tabs.k_q_full, _log_n(tabs))
     return ext
 
 
@@ -302,16 +324,31 @@ def _ntt_keymul_acc_ref(conv, c2, bv, bv_sh, av, av_sh, tabs: FusedKSTables):
 
 def intt_conv_p(ext: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
     """K45: ext [2, kqlp, N] EVAL -> [2, kql, N] COEFF, the P -> Q_l
-    conversion of INTT(ext[:, kql:]) * (P/p_i)^-1."""
+    conversion of INTT(ext[:, kql:]) * (P/p_i)^-1. On the card the cluster
+    INTT and the conversion (two launches), or the staged form for rings
+    the cluster NTT does not take."""
     if ext.device.type == "cpu":
         return _intt_conv_p_ref(ext, tabs)
+    entry = ("intt_conv_p" if cluster_geometry(tabs.basis_qlp.ring_dim)
+             else "intt_conv_p_staged")
+    return _intt_conv_p_cu(ext, tabs, entry)
+
+
+def intt_conv_p_staged(ext: torch.Tensor,
+                       tabs: FusedKSTables) -> torch.Tensor:
+    """K45 on the staged NTT passes, any ring; CUDA tensors only."""
+    return _intt_conv_p_cu(ext, tabs, "intt_conv_p_staged")
+
+
+def _intt_conv_p_cu(ext: torch.Tensor, tabs: FusedKSTables,
+                    entry: str) -> torch.Tensor:
     kql, kp = tabs.kql, tabs.kp
-    _check("intt_conv_p", tabs, ext=(ext, (2, kql + kp)))
+    _check(entry, tabs, ext=(ext, (2, kql + kp)))
     n = ext.shape[-1]
     pc = ext.new_empty((2, kp, n))
     out = ext.new_empty((2, kql, n))
     bp = tabs.basis_p
-    _build.launch("ks_fused", "intt_conv_p", ext, pc, out, bp.ipsi_br,
+    _build.launch("ks_fused", entry, ext, pc, out, bp.ipsi_br,
                   bp.ipsi_br_sh, bp.q, tabs.k45_scale, tabs.k45_scale_sh,
                   tabs.pconv_w, tabs.pconv_w_sh, tabs.basis_ql.q, kql, kp,
                   _log_n(tabs))

@@ -140,7 +140,8 @@ def test_kernel_wrappers_take_no_fallback():
                ntt._ntt_inv_staged_cu):
         with pytest.raises(ValueError, match="no kernel"):
             fn(x, tb)
-    # the fused chains' seven wrappers, at 2 Q + 1 P towers and 2 digits
+    # the fused chains' seven wrappers and the two staged forms, at 2 Q +
+    # 1 P towers and 2 digits
     mods = [nbtheory.first_prime(b, 2 * n) for b in (26, 27, 28)]
     tabs = ks_fused.make_fused_ks_tables(make_basis(mods, n), 2, 2, 2)
     meta = lambda *shape: torch.empty(shape + (n,), dtype=torch.int32,
@@ -155,6 +156,11 @@ def test_kernel_wrappers_take_no_fallback():
         ("ntt_keymul_acc", lambda: ks_fused.ntt_keymul_acc(
             meta(2, 3), q_in, key, key, key, key, tabs)),
         ("intt_conv_p", lambda: ks_fused.intt_conv_p(ext, tabs)),
+        # the staged forms of K3 and K45
+        ("ntt_keymul_acc_staged", lambda: ks_fused.ntt_keymul_acc_staged(
+            meta(2, 3), q_in, key, key, key, key, tabs)),
+        ("intt_conv_p_staged", lambda: ks_fused.intt_conv_p_staged(ext,
+                                                                   tabs)),
         ("ntt_subscale", lambda: ks_fused.ntt_subscale(meta(2, 2), ext,
                                                        tabs)),
         ("ntt_submul_final", lambda: ks_fused.ntt_submul_final(

@@ -117,9 +117,12 @@ def inv_round_hi(lo_b, top):
     return min(lo_b + LOG_R, top)
 
 
-def model_fwd(x, psi, q, log_w):
+def model_fwd(x, psi, q, log_w, epilogue=None):
     """fwd_cluster on rows x [rows, N] (int64) with per-row twiddles psi
-    [rows, N] and moduli q [rows]: returns the output words."""
+    [rows, N] and moduli q [rows]: returns the output words. The words
+    each thread holds at the end go to `epilogue(rank, a, idx)` (the hook
+    of `fwd_cluster_row`: a [rows, T, R] and their row words idx [T, R],
+    consecutive in each thread), by default stored at idx."""
     rows, n = x.shape
     log_n = n.bit_length() - 1
     c, t_n, kp, lo1 = _geometry(log_n, log_w)
@@ -128,6 +131,11 @@ def model_fwd(x, psi, q, log_w):
     slots = np.arange(R, dtype=np.int64)
     tiles = np.zeros((rows, c, 1 << log_w), np.int64)
     out = np.empty_like(x)
+
+    def store(rank, a, idx):
+        out[:, idx] = a
+
+    epilogue = epilogue or store
     # 1. block r's threads: slot s is word j + (s << kLo1), j = r T + tid;
     # the cross-block stages and the tile's top kP, then slot (i, p) to
     # word j + (p << kLo1) of block i's tile
@@ -137,7 +145,7 @@ def model_fwd(x, psi, q, log_w):
         a = x[:, idx]
         _stages(a, j, lo1, 0, LOG_R - 1, log_n, psi, q, False)
         if lo1 == 0:
-            out[:, idx] = a
+            epilogue(rank, a, idx)
             continue
         for s in range(R):
             i, p = s >> kp, s & ((1 << kp) - 1)
@@ -155,7 +163,7 @@ def model_fwd(x, psi, q, log_w):
             _stages(a, x_tile + base, lo, 0, hi - lo, log_n, psi, q, False)
             if lo == 0:
                 assert (idx == base[:, None] + slots).all()
-                out[:, x_tile + idx] = a
+                epilogue(rank, a, x_tile + idx)
                 break
             tiles[:, rank][:, phys(idx, log_w)] = a
             hi = lo - 1
