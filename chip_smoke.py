@@ -28,20 +28,24 @@ is not beside it. Phases, none of which catches its own failure:
    level 0 (31 Q towers), level 1 (30) and on a chain of the largest
    31-bit primes (4 Q + 2 P towers, N=2^16) in 2 digits and in 1,
    `intt_scale` also in its K4 form (ext's P rows, 2 elements) and
-   `ntt_subscale` also with BGV's t = 65537 in the tables. K3 and K45
-   (`ntt_keymul_acc`, `intt_conv_p`, on the cluster NTT) are also held
-   against their staged forms (`ntt_keymul_acc_staged`,
-   `intt_conv_p_staged`), also at levels 3, 11, 15, 23 and 30 (44 down to
-   17 Q_l*P towers, two digits and one), on the 31-bit chain at N=2^12,
-   2^14, 2^15 and 2^17 in two digits and in one (clusters of 1, 2, 4, 8)
-   and in one digit over 20 and 40 P towers (each of `pconv`'s column
-   widths); each call must launch its entry once and the staged one never,
-   and both are timed as the NTT is (`ms` device time, `call_ms` a call);
+   `ntt_subscale` also with BGV's t = 65537 in the tables. K3, K45 and
+   K6f (`ntt_keymul_acc`, `intt_conv_p`, `ntt_submul_final`, on the
+   cluster NTT) and K2 (`conv_digits`, y's digits read in place) are also
+   held against their former forms (`ntt_keymul_acc_staged`,
+   `intt_conv_p_staged`, `ntt_submul_final_staged` on the staged NTT
+   passes; `conv_digits_rowmod` over the zero-padded digits, the pad
+   included), also at levels 3, 11, 15, 23 and 30 (44 down to 17 Q_l*P
+   towers, two digits and one), on the 31-bit chain at N=2^12, 2^14, 2^15
+   and 2^17 in two digits and in one (clusters of 1, 2, 4, 8) and in one
+   digit over 20 and 40 P towers (each of `pconv`'s column widths); each
+   call must launch its entry once and the former form never, and both
+   are timed as the NTT is (`ms` device time, `call_ms` a call);
 4. main path at N=2^16, L=30 (31 Q + 16 P towers, 2 digits), with the
    launch counters reset just before and read just after: context,
    KeyGen, EvalMultKeyGen, rotation keys (1, -1, the EvalSum ladder of
    batch 64, conjugation), encode, Encrypt x3; then at level 0 and at
-   level 1 EvalMult (one launch of each kernel of the mult chain),
+   level 1 EvalMult (one launch of each kernel of the mult chain; at level
+   0 the profiler must see MULT_KERNELS device kernels, all of csrc/),
    Relinearize(EvalMultNoRelin) and EvalRotate (one launch of each kernel
    of the general chain, nothing else) and the same ops through the
    unfused chain (`dataclasses.replace(tables, fused=None)`: the NTT and
@@ -142,13 +146,20 @@ DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
                        # the sign fix (compare and add)
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
-# the staged forms of the NTT (csrc/ntt.cu) and of K3 and K45
-# (csrc/ks_fused.cu): rings above 2^17, and the yardstick the cluster forms
+# the former forms: the staged NTT (csrc/ntt.cu) and K3, K45 and K6f on
+# the staged NTT passes (csrc/ks_fused.cu), for rings above 2^17, and K2 on
+# rowmod_core.cuh over the zero-padded digits: the yardstick the new forms
 # are held against here; no launch on the main path
 STAGED = ("ntt_fwd_staged", "ntt_inv_staged", "ntt_keymul_acc_staged",
-          "intt_conv_p_staged")
-# the fused kernels on the cluster NTT, each beside its staged form
-FUSED_CLUSTER = ("ntt_keymul_acc", "intt_conv_p")
+          "intt_conv_p_staged", "ntt_submul_final_staged",
+          "conv_digits_rowmod")
+# the fused kernels on the cluster NTT
+FUSED_CLUSTER = ("ntt_keymul_acc", "intt_conv_p", "ntt_submul_final")
+# the fused kernels held beside their former forms (`cluster_case`)
+FORMER = {"ntt_keymul_acc": "ntt_keymul_acc_staged",
+          "intt_conv_p": "intt_conv_p_staged",
+          "ntt_submul_final": "ntt_submul_final_staged",
+          "conv_digits": "conv_digits_rowmod"}
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
 BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
@@ -156,6 +167,9 @@ FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
 # the kernels of one EvalMult, and of one Relinearize or automorphism
 MULT_CHAIN = ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
               "ntt_submul_final")
+# device kernels of one EvalMult at N=2^16: K1t's tile pass and 3 stages,
+# K2, K3, K45's INTT and conversion, K6f; nothing else (no digit pad)
+MULT_KERNELS = 9
 KS_CHAIN = ("intt_scale", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
             "ntt_subscale")
 SHARDED = ("mod_matmul", "conv_digits_rows", "conv_p_to_q_rows",
@@ -189,6 +203,10 @@ WHERE = {
                               "openfhe_tpu/pke/keyswitch/ks_fused.py:690"),
     "intt_conv_p_staged": ("csrc/ks_fused.cu",
                            "openfhe_tpu/pke/keyswitch/ks_fused.py:618"),
+    "ntt_submul_final_staged": ("csrc/ks_fused.cu",
+                                "openfhe_tpu/pke/keyswitch/ks_fused.py:802"),
+    "conv_digits_rowmod": ("csrc/ks_fused.cu",
+                           "openfhe_tpu/pke/keyswitch/ks_fused.py:513"),
     "ntt_subscale": ("csrc/ks_fused.cu",
                      "openfhe_tpu/pke/keyswitch/ks_fused.py:747"),
     "ntt_submul_final": ("csrc/ks_fused.cu",
@@ -439,7 +457,7 @@ def fused_work(tabs) -> dict:
         "intt_scale": (WORD * n * 4 * kql, ntt(kql) + kql * n * SHOUP_OPS),
         "intt_scale_p": (WORD * n * 6 * kp,
                          ntt(2 * kp) + 2 * kp * n * SHOUP_OPS),
-        "conv_digits": (WORD * n * nd * (tabs.alpha + kqlp),
+        "conv_digits": (WORD * n * (kql + nd * kqlp),
                         n * ROWMOD_TERM_OPS * sum(a * (kqlp - a)
                                                   for a in digits)),
         # the extended digits' rows other than their own, c2, the key rows,
@@ -482,13 +500,13 @@ def kernel_case(name, kern, ref, args, tabs, work, label,
 
 
 def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
-    """A fused kernel on the cluster NTT against its plain twin and its
-    staged form, word for word; each call of kern must launch its entry
-    once and the staged one never. `ms` is device time (`device_ms`) and
-    `call_ms` a call, each beside the staged form's in this run. Returns
-    the case of each entry."""
+    """A fused kernel against its plain twin and its former form `staged`
+    (entry FORMER[name]), word for word; each call of kern must launch its
+    entry once and the former one never. `ms` is device time (`device_ms`)
+    and `call_ms` a call, each beside the former form's (`staged_ms`,
+    `staged_call_ms`) in this run. Returns the case of each entry."""
     from openfhe_tpu_torch.ops.ntt import cluster_geometry
-    both = (name, name + "_staged")
+    both = (name, FORMER[name])
     got, per = count_launches(lambda: kern(*args, tabs), both)
     want, by_stages = ref(*args, tabs), staged(*args, tabs)
     torch.cuda.synchronize()
@@ -496,7 +514,7 @@ def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
     require(err == 0 and err_staged == 0,
             f"{name} {label} differs from its plain version (max abs err: "
             f"cluster {err}, staged {err_staged})")
-    require(per == {name: 1, name + "_staged": 0},
+    require(per == {name: 1, FORMER[name]: 0},
             f"{name} {label} launched {per}, expected one launch of {name}")
     b_ms, b_by = bound(*work)
     staged_ms = device_ms(lambda: staged(*args, tabs))
@@ -509,21 +527,23 @@ def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
                        ms=device_ms(lambda: kern(*args, tabs)),
                        call_ms=cuda_ms(lambda: kern(*args, tabs)),
                        staged_ms=staged_ms, staged_call_ms=staged_call_ms,
-                       launches_per_call=per[name],
-                       cluster=list(cluster_geometry(
-                           tabs.basis_qlp.ring_dim))),
-            name + "_staged": dict(common, max_abs_err=err_staged,
-                                   ms=staged_ms, call_ms=staged_call_ms)}
+                       former=FORMER[name], launches_per_call=per[name],
+                       cluster=(list(cluster_geometry(
+                           tabs.basis_qlp.ring_dim))
+                           if name in FUSED_CLUSTER else None)),
+            FORMER[name]: dict(common, max_abs_err=err_staged,
+                               ms=staged_ms, call_ms=staged_call_ms)}
 
 
 def fused_cases(ksf, tabs, key, gen, label, names=FUSED) -> dict:
     """Each kernel of the fused key switches (of `names`) vs its plain
     twin on one table set, on random residues (and a random key with
-    companions); K3 and K45 also vs their staged forms (`cluster_case`)."""
+    companions); K3, K45, K6f and K2 also vs their former forms
+    (`cluster_case`; K2's is run on `_pad_digits` of its input)."""
     n, nd = tabs.basis_qlp.ring_dim, tabs.nd
     mq, mqlp = tabs.basis_ql.moduli, tabs.basis_qlp.moduli
     a = [rand_residues(gen, mq, n) for _ in range(4)]
-    y_pad = ksf._pad_digits(rand_residues(gen, mq, n), tabs)
+    y = rand_residues(gen, mq, n)
     conv = rand_residues(gen, mqlp, n, (nd,))
     ext = rand_residues(gen, mqlp, n, (2,))
     convq = rand_residues(gen, mq, n, (2,))
@@ -532,7 +552,7 @@ def fused_cases(ksf, tabs, key, gen, label, names=FUSED) -> dict:
         "tensor_intt": (ksf.tensor_intt, ksf._tensor_intt_ref,
                         (a[1], a[3])),
         "intt_scale": (ksf.intt_scale, ksf._intt_scale_ref, (a[2],)),
-        "conv_digits": (ksf.conv_digits, ksf._conv_digits_ref, (y_pad,)),
+        "conv_digits": (ksf.conv_digits, ksf._conv_digits_ref, (y,)),
         "ntt_keymul_acc": (ksf.ntt_keymul_acc, ksf._ntt_keymul_acc_ref,
                            (conv, a[0], *keys)),
         "intt_conv_p": (ksf.intt_conv_p, ksf._intt_conv_p_ref, (ext,)),
@@ -546,8 +566,11 @@ def fused_cases(ksf, tabs, key, gen, label, names=FUSED) -> dict:
     for name, (kern, ref, args) in calls.items():
         if name not in names:
             continue
-        if name in FUSED_CLUSTER:
-            staged = getattr(ksf, name + "_staged")
+        if name in FORMER:
+            staged = getattr(ksf, FORMER[name])
+            if name == "conv_digits":
+                staged = lambda y, t: ksf.conv_digits_rowmod(
+                    ksf._pad_digits(y, t), t)
             out.update(cluster_case(name, kern, staged, ref, args, tabs,
                                     work[name], label))
         else:
@@ -566,8 +589,8 @@ def rand_key(gen, moduli, n):
 
 
 def cluster_shape_cases(ksf, gen, rings, wide, n):
-    """K3 and K45 (`cluster_case`) on 4 Q + 2 P towers of each (ring,
-    moduli) of `rings`, in two digits and in one (clusters of 1 to 8
+    """K3, K45, K6f and K2 (`cluster_case`) on 4 Q + 2 P towers of each
+    (ring, moduli) of `rings`, in two digits and in one (clusters of 1 to 8
     blocks; a cluster of one syncs its block between digit transforms);
     then at ring n in one digit over 4 Q + kp P towers of `wide` for each
     kp of WIDE_P, which `pconv` takes with 2 columns a thread (up to 32
@@ -590,7 +613,7 @@ def cluster_shape_cases(ksf, gen, rings, wide, n):
             f"largest 31-bit primes (4 Q + {kp} P), one digit"))
     for tabs, key, label in shapes:
         yield from fused_cases(ksf, tabs, key, gen, label,
-                               FUSED_CLUSTER).items()
+                               tuple(FORMER)).items()
 
 
 def modown_mean_slots(cc, sk, scale: float) -> np.ndarray:
@@ -617,6 +640,20 @@ def count_launches(fn, names):
     out = fn()
     torch.cuda.synchronize()
     return out, {k: _build.LAUNCHES[k] - before.get(k, 0) for k in names}
+
+
+def device_kernels(fn) -> list:
+    """The names of the device kernels one call of fn runs (torch.profiler,
+    after a call that warms up)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def ntt_small_cases(gen) -> dict:
@@ -1305,14 +1342,14 @@ def main() -> int:
         for name, case in fused_cases(ks_fused, tabs, key, gen,
                                       label).items():
             (staged if name in STAGED else cases)[name].append(case)
-    # K3 and K45 by level, 44 down to 17 Q_l*P towers in two digits and in
-    # one: their time against the clusters a wave places
+    # K3, K45, K6f and K2 by level, 44 down to 17 Q_l*P towers in two
+    # digits and in one: their time against the clusters a wave places
     for lvl in (3, 11, 15, 23, 30):
         tabs = cc.hybrid_tables(cc.size_ql(lvl)).fused
         for name, case in fused_cases(
                 ks_fused, tabs, key_main, gen,
                 f"level {lvl} ({tabs.kql} Q + {tabs.kp} P)",
-                FUSED_CLUSTER).items():
+                tuple(FORMER)).items():
             (staged if name in STAGED else cases)[name].append(case)
     rings = [(1 << log_n, top31) for log_n in (12, 14, 15)]
     if ntt.cluster_geometry(big):
@@ -1362,8 +1399,8 @@ def main() -> int:
     for name, rows in {**cases, **staged}.items():
         for c in rows:
             extra = "" if "staged_ms" not in c else (
-                f"(call {c['call_ms']:.4f})  staged {c['staged_ms']:.4f} ms "
-                f"(call {c['staged_call_ms']:.4f})  ")
+                f"(call {c['call_ms']:.4f})  {c.get('former', 'staged')} "
+                f"{c['staged_ms']:.4f} ms (call {c['staged_call_ms']:.4f})  ")
             print(f"  {name:18s} {str(c['shape']):18s} {c['moduli']:32s} "
                   f"kernel {c['ms']:.4f} ms  {extra}plain "
                   f"{c['plain_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
@@ -1547,6 +1584,17 @@ def main() -> int:
     require(per_mult == want_mult and per_mult1 == want_mult,
             f"EvalMult launches {per_mult} / {per_mult1}, expected "
             f"{want_mult}")
+    from openfhe_tpu_torch.trace_evalmult import OWN
+    mult_kernels = device_kernels(lambda: cc.EvalMult(ct_a, ct_b))
+    own = [k for k in mult_kernels
+           if any(f"{o}(" in k or f"{o}<" in k for o in OWN)]
+    short = lambda k: (re.search(r"::(\w+(?:<[^<>]*>)?)\(", k)
+                       or re.search(r"^(.*)$", k)).group(1)
+    print(f"EvalMult on the card: {len(mult_kernels)} device kernels, "
+          f"{len(own)} of csrc/: " + ", ".join(map(short, mult_kernels)))
+    require(len(mult_kernels) == MULT_KERNELS == len(own),
+            f"EvalMult ran {len(mult_kernels)} device kernels ({len(own)} "
+            f"of csrc/), expected {MULT_KERNELS}, all of csrc/")
     for label, got in (("Relinearize", per_relin),
                        ("Relinearize, level 1", per_relin1),
                        ("EvalRotate +1", per_rot[1]),
@@ -1646,7 +1694,8 @@ def main() -> int:
             **({k: head[k] for k in ("call_ms", "staged_ms",
                                       "staged_call_ms", "launches_per_call",
                                       "cluster")}
-               if name in ("ntt_fwd", "ntt_inv") + FUSED_CLUSTER else {}),
+               if name in ("ntt_fwd", "ntt_inv") + tuple(FORMER) else {}),
+            **({"former": FORMER[name]} if name in FORMER else {}),
             **({"call_ms": head["call_ms"]} if name in STAGED else {}),
             **({"call_ms": head["call_ms"]} if name in BLIND else {}),
             cases=rows))

@@ -1,6 +1,6 @@
 // The fused HYBRID key switch for Hopper (sm_90a): seven entry points, one
 // per TPU kernel of openfhe_tpu/pke/keyswitch/ks_fused.py (mult_relin_fused
-// and keyswitch_core_fused), plus the former forms of two of them.
+// and keyswitch_core_fused), plus the former forms of four of them.
 //
 //   tensor_intt       replaces _tensor_intt (K1t, pallas_call :366) and
 //                     _tensor_intt_single (:301): c2 = a1*b1 and
@@ -9,7 +9,7 @@
 //                     _intt_scale (:476): out[e, tau] =
 //                     INTT(x[e, in_off + tau]) * scale[tau], K1 on the
 //                     Q_l rows of c2 or K4 on ext's P rows read in place
-//   conv_digits       replaces _conv_digits (K2, :513): every digit
+//   conv_digits       replaces _conv_digits (K2, :513): every digit of y
 //                     extended to all Q_l*P towers, own rows zero
 //   ntt_keymul_acc    replaces _ntt_keymul_acc (K3, :690): NTT of each
 //                     extended digit (c2 on the digit's own towers) times
@@ -21,26 +21,31 @@
 //                     (ext - t * NTT(convq)) * P^-1, t = 1 for CKKS
 //   ntt_submul_final  replaces _ntt_submul_final (K6f, :802):
 //                     (ext - NTT(convq)) * P^-1 plus the tensor terms
-//   ntt_keymul_acc_staged, intt_conv_p_staged: K3 and K45 on the staged
-//                     NTT passes, for rings outside the cluster NTT's
-//                     2^4 .. 2^17 and as the yardstick on the card
+//   ntt_keymul_acc_staged, intt_conv_p_staged, ntt_submul_final_staged:
+//                     K3, K45 and K6f on the staged NTT passes, for rings
+//                     outside the cluster NTT's 2^4 .. 2^17 and as the
+//                     yardstick on the card; conv_digits_rowmod: K2 on
+//                     rowmod_core.cuh over the zero-padded digits, the
+//                     yardstick of conv_digits
 //
 // The TPU kernels multiply through int8 Karatsuba limbs and float
 // quotients on the MXU; here every product is exact 32-bit modular
 // arithmetic on canonical residues: Shoup with precomputed companions for
-// a constant or key factor (every odd q < 2^31), and a 64-bit product
-// reduced with % for the variable x variable tensor terms. Every output is
+// a constant or key factor (every odd q < 2^31), and for a product of two
+// variables (the tensor terms) the 64-bit product reduced by reduce_wide,
+// with per-tower constants the host computes (Basis.red64); the staged
+// forms' tile passes keep the former % reduction. Every output is
 // canonical (< q).
 //
-// What bounds them on an H100: device-memory bytes, except the P -> Q_l
-// conversion, whose Shoup products bound it by 32-bit integer operations.
-// At the main path's shapes (kql 31, kp 16, 2 digits, N = 2^16) K3 reads
-// the two key halves and their companions (98 MB) and the others move
-// 8-65 MB each, against about ten integer operations per word and
-// butterfly stage.
+// What bounds them on an H100: device-memory bytes, except the
+// conversions (K2, K45's second half), whose products bound them by 32-bit
+// integer operations. At the main path's shapes (kql 31, kp 16, 2 digits,
+// N = 2^16) K3 reads the two key halves and their companions (98 MB) and
+// the others move 8-65 MB each, against about ten integer operations per
+// word and butterfly stage.
 //
-// Design: K3 and K45 run on the cluster NTT of ntt_cluster.cuh (a tower
-// per thread-block cluster, the words through device memory once):
+// Design: K3, K45 and K6f run on the cluster NTT of ntt_cluster.cuh (a
+// tower per thread-block cluster, the words through device memory once):
 //   * K3 (keymul_cluster) is one launch, a cluster per tower of Q_l*P:
 //     the digit loop runs inside the cluster, a digit's own towers read
 //     c2's row in place of the transform, and the key product is the
@@ -54,6 +59,15 @@
 //     the conversion kernel pconv: weights in shared memory, 4 columns a
 //     thread with 16-byte loads, lazy Shoup products in [0, 2q) summed in
 //     64 bits and reduced once.
+//   * K6f (submul_cluster) is one launch, a cluster per element row
+//     (e, tau) of the output, the two elements of a tower side by side:
+//     the forward transform of convq[e, tau], then an epilogue on the
+//     thread's 16 output words that reads ext and the inputs at the same
+//     words with 16-byte loads, forms the element's tensor term and the
+//     mod-down, and writes out: no scratch, 4 launches become 1.
+//   * K2 is pconv too, a digit per blockIdx.y with its own weights: it
+//     reads the digit's rows of y in place (no zero-padded copy) and
+//     writes the digit's own rows as zeros without forming a product.
 // The other kernels are the device-memory stage launches of ntt_core.cuh
 // plus one shared-memory tile pass (one tower, 256 KB, is larger than a
 // block's shared memory), each prologue or epilogue riding the pass that
@@ -74,8 +88,9 @@
 //     one tile pass per (tile, element row) whose epilogue is the
 //     mod-down: an optional Shoup multiply by t, the subtraction from
 //     ext's Q row and the Shoup multiply by P^-1.
-//   * K6f's tile pass keeps c0 and c1 of its tile in registers and runs
-//     both elements' transforms, so the tensor terms are formed once.
+//   * K6f's staged form is the same stages, then one tile pass per (tile,
+//     Q tower) that keeps c0 and c1 of its tile in registers and runs
+//     both elements' tile stages.
 // The key is indexed in place (key_row), not copied. There is no bucket
 // padding: tower counts are runtime arguments.
 
@@ -123,10 +138,11 @@ __global__ void tensor_intt_tile(const uint32_t* __restrict__ a1,
   }
 }
 
-// K6f tile pass, one (tile, Q tower) per block: c0 = a0 b0 and
+// K6f's staged tile pass, one (tile, Q tower) per block: c0 = a0 b0 and
 // c1 = (a0 + a1)(b0 + b1) - c0 - a1 b1 in registers, then per element e
 // the last forward stages of src[e, tau] and
-// out[e] = c_e + (ext[e] - NTT(convq[e])) * P^-1.
+// out[e] = c_e + (ext[e, tau] - NTT(convq[e])) * P^-1, ext: [2, ext_rows,
+// N] from the first row read.
 __global__ void submul_tile(const uint32_t* __restrict__ src,
                             const uint32_t* __restrict__ ext,
                             const uint32_t* __restrict__ a0,
@@ -139,7 +155,7 @@ __global__ void submul_tile(const uint32_t* __restrict__ src,
                             const uint32_t* __restrict__ qs,
                             const uint32_t* __restrict__ pinv,
                             const uint32_t* __restrict__ pinv_sh, int kql,
-                            int kqlp, int log_n, int log_tile) {
+                            int ext_rows, int log_n, int log_tile) {
   __shared__ uint32_t s[1 << kMaxTileLog];
   const int tau = blockIdx.y;
   const uint32_t tile = blockIdx.x;
@@ -171,7 +187,7 @@ __global__ void submul_tile(const uint32_t* __restrict__ src,
     __syncthreads();
     fwd_tile_stages(s, psi + tw0, psi_sh + tw0, q, log_n, log_tile, tile);
     const uint32_t* xe =
-        ext + ((static_cast<size_t>(e) * kqlp + tau) << log_n) + col0;
+        ext + ((static_cast<size_t>(e) * ext_rows + tau) << log_n) + col0;
     uint32_t* oe = out + ((static_cast<size_t>(e) * kql + tau) << log_n) + col0;
 #pragma unroll
     for (int w = 0; w < kTileWords; ++w) {
@@ -341,49 +357,207 @@ KeymulKernel keymul_kernel(int log_n, std::integer_sequence<int, I...>) {
   return kernels[log_n - kMinClusterLogN];
 }
 
-// K45's P -> Q_l conversion: out[b, j, n] = sum_i y[b, i, n] * w[i, j]
-// mod d_j, y: [batch, a_dim, N], w(_sh): [a_dim, d_dim], d: [d_dim], out:
-// [batch, d_dim, N]. What bounds it is integer issue: a_dim * d_dim Shoup
-// products a column. So each thread holds COLS consecutive columns of
-// all a_dim rows in registers (16-byte loads) and, for each output row,
-// forms the lazy Shoup products x * w - floor(x * w_sh / 2^32) * d_j in
-// [0, 2 d_j) (exact in 32 bits for d_j < 2^31) and sums them in 64 bits
-// (a_dim < 2^32 of them cannot overflow), then reduces the sum hi * 2^32
-// + lo once: hi * (2^32 mod d_j) and lo each by a Shoup multiply, and
-// their sum. The weights (w, w_sh) and the per-row constants sit in shared
-// memory; a block takes the output rows [z * per_block, (z + 1) *
-// per_block) so that enough blocks fill the card.
+// x mod q for any 64-bit x = hi 2^32 + lo, q < 2^31: hi * (2^32 mod q) by
+// a Shoup multiply (exact for any hi < 2^32) and lo by a Barrett step with
+// m32 = floor(2^32 / q), each in [0, 2q) and then canonical, and their sum.
+// r32, r32_sh, m32: a row of Basis.red64, computed on the host.
+__device__ __forceinline__ uint32_t reduce_wide(uint64_t x, uint32_t q,
+                                                uint32_t r32, uint32_t r32_sh,
+                                                uint32_t m32) {
+  const uint32_t hi = static_cast<uint32_t>(x >> 32);
+  const uint32_t lo = static_cast<uint32_t>(x);
+  return add_q(mul_shoup_q(hi, r32, r32_sh, q),
+               csub(lo - __umulhi(lo, m32) * q, q), q);
+}
+
+// Four words at p (16-byte aligned, read-only in the kernel) as an array.
+struct Words4 {
+  uint32_t v[4];
+};
+
+__device__ __forceinline__ Words4 load4(const uint32_t* p) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+  return {{w.x, w.y, w.z, w.w}};
+}
+
+// K6f's operands: one kernel parameter, read in place (__grid_constant__).
+struct SubmulArgs {
+  const uint32_t* convq;     // [2, kql, N] COEFF
+  const uint32_t* ext;       // [2, ext_rows, N] EVAL, rows ext_off + tau
+  const uint32_t* a0;        // [kql, N] EVAL each
+  const uint32_t* a1;
+  const uint32_t* b0;
+  const uint32_t* b1;
+  uint32_t* out;             // [2, kql, N] EVAL
+  const uint32_t* psi;       // [kql, N]
+  const uint32_t* psi_sh;
+  const uint32_t* qs;        // [kql]
+  const uint32_t* pinv;      // [kql] P^-1 mod q_i
+  const uint32_t* pinv_sh;
+  const uint32_t* red;       // [kql, 3] Basis.red64
+  int kql, ext_rows, ext_off;
+};
+
+// One element of K6f in a cluster: the forward transform of convq[E, tau]
+// and the epilogue on each thread's kR consecutive output words a at row
+// word x: out[E, tau] = c_E + (ext[E, ext_off + tau] - a) * P^-1, where
+// c_0 = a0 b0 and c_1 = a0 b1 + a1 b0 (equal mod q to the Karatsuba form
+// (a0 + a1)(b0 + b1) - a0 b0 - a1 b1 of the TPU kernel, which shares c0
+// with element 0; here each element has its own cluster, and two
+// products are fewer than three). Each product sum is below 2^63 and is
+// reduced once (reduce_wide). What the epilogue needs (its addresses,
+// P^-1, the reduction constants) it derives there, after the transform;
+// its words go 4 at a time with 16-byte loads.
+template <int E, int LOG_N>
+__device__ __forceinline__ void submul_row(const SubmulArgs& p, int tau,
+                                           uint32_t* tile) {
+  const uint32_t q = p.qs[tau];
+  auto epi = [&](const uint32_t (&a)[kR], uint32_t x) {
+    const size_t row = static_cast<size_t>(tau) << LOG_N;
+    const uint32_t* xe =
+        p.ext +
+        ((static_cast<size_t>(E) * p.ext_rows + p.ext_off + tau) << LOG_N);
+    uint32_t* oe =
+        p.out + ((static_cast<size_t>(E) * p.kql + tau) << LOG_N);
+    const uint32_t pv = p.pinv[tau], pv_sh = p.pinv_sh[tau];
+    const uint32_t r32 = p.red[3 * tau], r32_sh = p.red[3 * tau + 1],
+                   m32 = p.red[3 * tau + 2];
+#pragma unroll
+    for (int v = 0; v < kR / 4; ++v) {
+      const size_t at = row + x + 4 * v;
+      const Words4 xv = load4(xe + x + 4 * v), p0 = load4(p.a0 + at),
+                   q0 = load4(p.b0 + at);
+      Words4 p1 = {}, q1 = {};
+      if constexpr (E == 1) {
+        p1 = load4(p.a1 + at);
+        q1 = load4(p.b1 + at);
+      }
+      uint32_t r[4];
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        uint64_t s;
+        if constexpr (E == 0)
+          s = static_cast<uint64_t>(p0.v[l]) * q0.v[l];
+        else
+          s = static_cast<uint64_t>(p0.v[l]) * q1.v[l] +
+              static_cast<uint64_t>(p1.v[l]) * q0.v[l];
+        const uint32_t c = reduce_wide(s, q, r32, r32_sh, m32);
+        const uint32_t d =
+            mul_shoup_q(sub_q(xv.v[l], a[4 * v + l], q), pv, pv_sh, q);
+        r[l] = add_q(c, d, q);
+      }
+      *reinterpret_cast<uint4*>(oe + x + 4 * v) =
+          make_uint4(r[0], r[1], r[2], r[3]);
+    }
+  };
+  const size_t tw0 = static_cast<size_t>(tau) << LOG_N;
+  fwd_cluster_row<LOG_N>(
+      p.convq + ((static_cast<size_t>(E) * p.kql + tau) << LOG_N),
+      p.psi + tw0, p.psi_sh + tw0, q, tile, epi);
+}
+
+// K6f on the cluster NTT: cluster c takes element e = c % 2 of Q tower
+// tau = c / 2 (the two elements of a tower run side by side, so the
+// second reads a0, b0 and the twiddles from L2). One transform a cluster:
+// a cluster that ran both elements' transforms one after the other kept
+// the first's twiddles in registers for the second (the compiler merges
+// the identical read-only loads), spilling 500-900 bytes a thread at 64
+// registers. One block of 512 threads holds 2^13 words up to N = 2^16, so
+// at 64 registers two blocks share an SM: 62 clusters of 8 in two waves.
+template <int LOG_N>
+__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
+                                  Geometry<LOG_N>::kMinBlocks)
+    submul_cluster(const __grid_constant__ SubmulArgs p) {
+  extern __shared__ __align__(16) uint32_t tile[];
+  const uint32_t c = blockIdx.x >> Geometry<LOG_N>::kLogC;
+  const int tau = static_cast<int>(c >> 1);
+  if (c & 1)
+    submul_row<1, LOG_N>(p, tau, tile);
+  else
+    submul_row<0, LOG_N>(p, tau, tile);
+}
+
+using SubmulKernel = void (*)(const SubmulArgs);
+
+template <int... I>
+SubmulKernel submul_kernel(int log_n, std::integer_sequence<int, I...>) {
+  static const SubmulKernel kernels[] = {
+      submul_cluster<kMinClusterLogN + I>...};
+  return kernels[log_n - kMinClusterLogN];
+}
+
+// The first COLS of r0 .. r3 at p (COLS 4 and 2: one 16- or 8-byte store).
+template <int COLS>
+__device__ __forceinline__ void store_cols(uint32_t* p, uint32_t r0,
+                                           uint32_t r1, uint32_t r2,
+                                           uint32_t r3) {
+  if constexpr (COLS == 4)
+    *reinterpret_cast<uint4*>(p) = make_uint4(r0, r1, r2, r3);
+  else if constexpr (COLS == 2)
+    *reinterpret_cast<uint2*>(p) = make_uint2(r0, r1);
+  else
+    *p = r0;
+}
+
+// The conversion of K45 (P -> Q_l) and K2 (each digit -> Q_l*P):
+//   out[b, j, n] = sum_{i < rows_b} y[b a_dim + i, n] * w_b[i, j] mod d_j,
+// y: [>= a_total, N] (batch b's rows b a_dim .. b a_dim + rows_b - 1,
+// rows_b = min(a_dim, a_total - b a_dim)), w_b(_sh) = w(_sh) + b w_stride:
+// [a_dim, d_dim] (w_stride 0: one table for every batch), d: [d_dim],
+// red: [d_dim, 3] (Basis.red64 of d), out: [batch, d_dim, N]. With `own`,
+// batch b's own rows (j in [b a_dim, b a_dim + rows_b), K2's digit rows,
+// whose weights are zero) are written as zeros without a product. What
+// bounds it is integer issue: rows_b * (d_dim - own rows) Shoup products
+// a column. So each thread holds COLS consecutive columns of the batch's
+// rows in registers (16-byte loads) and, for each output row, forms the
+// lazy Shoup products x * w - floor(x * w_sh / 2^32) * d_j in [0, 2 d_j)
+// (exact in 32 bits for d_j < 2^31) and sums them in 64 bits (a_dim <
+// 2^32 of them cannot overflow), then reduces the sum once
+// (reduce_wide). The weights (w, w_sh) and the per-row constants sit in
+// shared memory; blockIdx.z takes an equal share of the batch's converted
+// rows (and of its own rows) so that enough blocks fill the card.
 constexpr int kConvThreads = 128;
 
 template <int MAXA, int COLS>
 __global__ void __launch_bounds__(kConvThreads)
     pconv(const uint32_t* __restrict__ y, const uint32_t* __restrict__ w,
           const uint32_t* __restrict__ w_sh,
-          const uint32_t* __restrict__ d, uint32_t* __restrict__ out,
-          int a_dim, int d_dim, int n, int per_block) {
+          const uint32_t* __restrict__ d, const uint32_t* __restrict__ red,
+          uint32_t* __restrict__ out, int a_dim, int a_total, int d_dim,
+          int n, int w_stride, int own) {
   extern __shared__ uint4 conv_sm[];
   uint4* consts = conv_sm;               // [d_dim]: d, 2^32 mod d, its
                                          // companion, floor(2^32 / d)
-  uint2* sw = reinterpret_cast<uint2*>(conv_sm + d_dim);  // [a_dim, d_dim]
-  for (int x = threadIdx.x; x < a_dim * d_dim; x += blockDim.x)
-    sw[x] = make_uint2(w[x], w_sh[x]);
-  for (int x = threadIdx.x; x < d_dim; x += blockDim.x) {
-    const uint64_t dj = d[x];
-    const uint64_t c = (uint64_t{1} << 32) % dj;
-    consts[x] = make_uint4(static_cast<uint32_t>(dj),
-                           static_cast<uint32_t>(c),
-                           static_cast<uint32_t>((c << 32) / dj),
-                           static_cast<uint32_t>((uint64_t{1} << 32) / dj));
-  }
+  uint2* sw = reinterpret_cast<uint2*>(conv_sm + d_dim);  // [rows, d_dim]
+  const int b = blockIdx.y;
+  const int rows = min(a_dim, a_total - b * a_dim);
+  const uint32_t* wb = w + static_cast<size_t>(b) * w_stride;
+  const uint32_t* wb_sh = w_sh + static_cast<size_t>(b) * w_stride;
+  for (int x = threadIdx.x; x < rows * d_dim; x += blockDim.x)
+    sw[x] = make_uint2(wb[x], wb_sh[x]);
+  for (int x = threadIdx.x; x < d_dim; x += blockDim.x)
+    consts[x] = make_uint4(d[x], red[3 * x], red[3 * x + 1], red[3 * x + 2]);
   __syncthreads();
   const int col = (blockIdx.x * blockDim.x + threadIdx.x) * COLS;
   if (col >= n) return;
-  const uint32_t* yb = y + static_cast<size_t>(blockIdx.y) * a_dim * n + col;
-  uint32_t* ob = out + static_cast<size_t>(blockIdx.y) * d_dim * n + col;
+  const uint32_t* yb = y + static_cast<size_t>(b) * a_dim * n + col;
+  uint32_t* ob = out + static_cast<size_t>(b) * d_dim * n + col;
+  // this block's share of the converted rows k < d_dim - n_own (row j =
+  // k, or k + n_own past the own rows) and of the own rows
+  const int own_lo = b * a_dim, n_own = own ? rows : 0;
+  const int m = d_dim - n_own, splits = gridDim.z, z = blockIdx.z;
+  const int per = (m + splits - 1) / splits;
+  const int per_own = (n_own + splits - 1) / splits;
+  const int k1 = min(m, (z + 1) * per);
+  const int o1 = min(n_own, (z + 1) * per_own);
+  for (int k = z * per_own; k < o1; ++k)
+    store_cols<COLS>(ob + static_cast<size_t>(own_lo + k) * n, 0u, 0u, 0u,
+                     0u);
+  if (z * per >= k1) return;
   uint32_t x[MAXA][COLS];
 #pragma unroll
   for (int i = 0; i < MAXA; ++i) {
-    if (i < a_dim) {
+    if (i < rows) {
       const uint32_t* yi = yb + static_cast<size_t>(i) * n;
       if constexpr (COLS == 4) {
         const uint4 v = *reinterpret_cast<const uint4*>(yi);
@@ -400,9 +574,8 @@ __global__ void __launch_bounds__(kConvThreads)
       }
     }
   }
-  const int j0 = blockIdx.z * per_block;
-  const int j1 = j0 + per_block < d_dim ? j0 + per_block : d_dim;
-  for (int j = j0; j < j1; ++j) {
+  for (int k = z * per; k < k1; ++k) {
+    const int j = k < own_lo ? k : k + n_own;
     const uint4 cj = consts[j];
     const uint32_t q = cj.x;
     uint64_t sum[COLS];
@@ -410,86 +583,94 @@ __global__ void __launch_bounds__(kConvThreads)
     for (int c = 0; c < COLS; ++c) sum[c] = 0;
 #pragma unroll
     for (int i = 0; i < MAXA; ++i) {
-      if (i < a_dim) {
+      if (i < rows) {
         const uint2 wi = sw[i * d_dim + j];
 #pragma unroll
         for (int c = 0; c < COLS; ++c)
           sum[c] += x[i][c] * wi.x - __umulhi(x[i][c], wi.y) * q;
       }
     }
-    uint32_t r[COLS];
+    uint32_t r[4] = {};
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const uint32_t hi = static_cast<uint32_t>(sum[c] >> 32);
-      const uint32_t lo = static_cast<uint32_t>(sum[c]);
-      r[c] = add_q(mul_shoup_q(hi, cj.y, cj.z, q),
-                   csub(lo - __umulhi(lo, cj.w) * q, q), q);
-    }
-    uint32_t* oj = ob + static_cast<size_t>(j) * n;
-    if constexpr (COLS == 4)
-      *reinterpret_cast<uint4*>(oj) = make_uint4(r[0], r[1], r[2], r[3]);
-    else if constexpr (COLS == 2)
-      *reinterpret_cast<uint2*>(oj) = make_uint2(r[0], r[1]);
-    else
-      *oj = r[0];
+    for (int c = 0; c < COLS; ++c)
+      r[c] = reduce_wide(sum[c], q, cj.y, cj.z, cj.w);
+    store_cols<COLS>(ob + static_cast<size_t>(j) * n, r[0], r[1], r[2],
+                     r[3]);
   }
 }
 
 template <int MAXA, int COLS>
 int pconv_launch(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
-                 const uint32_t* d, uint32_t* out, int batch, int a_dim,
-                 int d_dim, int n, cudaStream_t st) {
+                 const uint32_t* d, const uint32_t* red, uint32_t* out,
+                 int batch, int a_dim, int a_total, int d_dim, int n,
+                 int w_stride, int own, cudaStream_t st) {
   const size_t smem = 16 * static_cast<size_t>(d_dim) +
                       8 * static_cast<size_t>(a_dim) * d_dim;
-  // as many blocks as fit on the card at once: split the output rows
-  static int resident = 0;
-  static size_t resident_smem = 0;
-  if (!resident || smem != resident_smem) {
+  // as many blocks as fit on the card at once: split the output rows. The
+  // blocks an SM holds depend on smem, so a few sizes are remembered (K2
+  // and K45 alternate in every key switch).
+  struct Resident {
+    size_t smem;
+    int blocks;
+  };
+  static Resident seen[4] = {};
+  Resident* hit = nullptr;
+  for (Resident& r : seen)
+    if (r.blocks && r.smem == smem) hit = &r;
+  if (!hit) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, pconv<MAXA, COLS>, kConvThreads, smem);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-    resident_smem = smem;
+    hit = &seen[0];
+    for (Resident& r : seen)
+      if (!r.blocks) {
+        hit = &r;
+        break;
+      }
+    *hit = {smem, sms * (per_sm > 0 ? per_sm : 1)};
   }
   const int cols = kConvThreads * COLS;
   const int blocks = (n + cols - 1) / cols * batch;
-  int splits = resident / blocks;
+  int splits = hit->blocks / blocks;
   splits = splits < 1 ? 1 : splits > d_dim ? d_dim : splits;
-  const int per_block = (d_dim + splits - 1) / splits;
-  const dim3 grid((n + cols - 1) / cols, batch,
-                  (d_dim + per_block - 1) / per_block);
-  pconv<MAXA, COLS><<<grid, kConvThreads, smem, st>>>(y, w, w_sh, d, out,
-                                                      a_dim, d_dim, n,
-                                                      per_block);
+  const dim3 grid((n + cols - 1) / cols, batch, splits);
+  pconv<MAXA, COLS><<<grid, kConvThreads, smem, st>>>(
+      y, w, w_sh, d, red, out, a_dim, a_total, d_dim, n, w_stride, own);
   return 0;
 }
 
-// Checks the shape (the tables must fit 48 KB of shared memory, rows of N
-// a multiple of 4 words on 16-byte boundaries) and launches; returns a
-// CUDA error code, 0 when launched.
+// Checks the shape (every batch has a row, the tables fit 48 KB of shared
+// memory, rows of N a multiple of 4 words on 16-byte boundaries) and
+// launches; returns a CUDA error code, 0 when launched.
 int pconv_run(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
-              const uint32_t* d, uint32_t* out, int batch, int a_dim,
-              int d_dim, int n, cudaStream_t st) {
+              const uint32_t* d, const uint32_t* red, uint32_t* out,
+              int batch, int a_dim, int a_total, int d_dim, int n,
+              int w_stride, int own, cudaStream_t st) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(y) |
                           reinterpret_cast<uintptr_t>(out);
   if (batch < 1 || batch > 65535 || a_dim < 1 || a_dim > 64 || d_dim < 1 ||
-      n < 4 || n % 4 != 0 || align % 16 != 0 ||
+      a_total > batch * a_dim || a_total <= (batch - 1) * a_dim ||
+      w_stride < 0 || n < 4 || n % 4 != 0 || align % 16 != 0 ||
       16 * d_dim + 8 * a_dim * d_dim > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a_dim <= 8)
-    return pconv_launch<8, 4>(y, w, w_sh, d, out, batch, a_dim, d_dim, n, st);
+    return pconv_launch<8, 4>(y, w, w_sh, d, red, out, batch, a_dim, a_total,
+                              d_dim, n, w_stride, own, st);
   if (a_dim <= 16)
-    return pconv_launch<16, 4>(y, w, w_sh, d, out, batch, a_dim, d_dim, n,
-                               st);
+    return pconv_launch<16, 4>(y, w, w_sh, d, red, out, batch, a_dim,
+                               a_total, d_dim, n, w_stride, own, st);
   if (a_dim <= 32)
-    return pconv_launch<32, 2>(y, w, w_sh, d, out, batch, a_dim, d_dim, n,
-                               st);
-  return pconv_launch<64, 1>(y, w, w_sh, d, out, batch, a_dim, d_dim, n, st);
+    return pconv_launch<32, 2>(y, w, w_sh, d, red, out, batch, a_dim,
+                               a_total, d_dim, n, w_stride, own, st);
+  return pconv_launch<64, 1>(y, w, w_sh, d, red, out, batch, a_dim, a_total,
+                             d_dim, n, w_stride, own, st);
 }
 
-int keymul_placeable[kMaxClusterLogN + 1], intt_p_placeable[kMaxClusterLogN + 1];
+int keymul_placeable[kMaxClusterLogN + 1],
+    intt_p_placeable[kMaxClusterLogN + 1],
+    submul_placeable[kMaxClusterLogN + 1];
 
 }  // namespace
 
@@ -539,11 +720,32 @@ extern "C" int intt_scale(const void* x, void* out, const void* ipsi,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y: [nd, alpha, N] (each digit's rows, zero-padded to alpha); w, w_sh:
-// [nd, alpha, kqlp]; q: [kqlp]; out: [nd, kqlp, N].
+// y: [kql, N] COEFF (digit j's rows j * alpha .. min((j + 1) * alpha,
+// kql) - 1, read in place); w, w_sh: [nd, alpha, kqlp]; q: [kqlp]; red:
+// [kqlp, 3] (Basis.red64 of Q_l*P); out: [nd, kqlp, N], zero on each
+// digit's own rows. One launch of pconv.
 extern "C" int conv_digits(const void* y, const void* w, const void* w_sh,
-                           const void* q, void* out, int nd, int alpha,
-                           int kqlp, int n, void* stream) {
+                           const void* q, const void* red, void* out, int nd,
+                           int alpha, int kql, int kqlp, int n,
+                           void* stream) {
+  if (kql > kqlp || static_cast<long long>(alpha) * kqlp > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  if (int bad = pconv_run(in(y), in(w), in(w_sh), in(q), in(red),
+                          static_cast<uint32_t*>(out), nd, alpha, kql, kqlp,
+                          n, alpha * kqlp, 1,
+                          static_cast<cudaStream_t>(stream)))
+    return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y: [nd, alpha, N] (each digit's rows, zero-padded to alpha); w, w_sh:
+// [nd, alpha, kqlp]; q: [kqlp]; out: [nd, kqlp, N]. K2's former form:
+// rowmod_core.cuh's conversion, every product of the padded rows formed.
+extern "C" int conv_digits_rowmod(const void* y, const void* w,
+                                  const void* w_sh, const void* q, void* out,
+                                  int nd, int alpha, int kqlp, int n,
+                                  void* stream) {
   if (int bad = rowmod_run(static_cast<const uint32_t*>(y),
                            static_cast<const uint32_t*>(w),
                            static_cast<const uint32_t*>(w_sh),
@@ -614,16 +816,17 @@ extern "C" int ntt_keymul_acc_staged(const void* conv,
 
 // ext: [2, kql + kp, N] EVAL; pc: [2, kp, N] scratch; out: [2, kql, N]
 // COEFF. ipsi(_sh): [kp, N] and qp, scale(_sh): [kp] of the P towers, with
-// scale = N^-1 * (P/p_i)^-1 * t^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql].
-// The inverse cluster transform of ext's P rows, read in place, with the
-// scale as its last multiply, then pconv; refuses rings outside
-// 2^4 .. 2^17 (intt_conv_p_staged serves them).
+// scale = N^-1 * (P/p_i)^-1 * t^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql];
+// red: [kql, 3] (Basis.red64 of Q_l). The inverse cluster transform of
+// ext's P rows, read in place, with the scale as its last multiply, then
+// pconv; refuses rings outside 2^4 .. 2^17 (intt_conv_p_staged serves
+// them).
 extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
                            const void* ipsi, const void* ipsi_sh,
                            const void* qp, const void* scale,
                            const void* scale_sh, const void* w,
-                           const void* w_sh, const void* qq, int kql, int kp,
-                           int log_n, void* stream) {
+                           const void* w_sh, const void* qq, const void* red,
+                           int kql, int kp, int log_n, void* stream) {
   if (int bad = check_cluster(ext, pc, 2 * kp, kp, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
@@ -634,9 +837,9 @@ extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
                                in(qp), in(scale), in(scale_sh), kp, kql + kp,
                                kql))
     return bad;
-  if (int bad = pconv_run(pcp, in(w), in(w_sh), in(qq),
-                          static_cast<uint32_t*>(out), 2, kp, kql,
-                          1 << log_n, st))
+  if (int bad = pconv_run(pcp, in(w), in(w_sh), in(qq), in(red),
+                          static_cast<uint32_t*>(out), 2, kp, 2 * kp, kql,
+                          1 << log_n, 0, 0, st))
     return bad;
   return static_cast<int>(cudaGetLastError());
 }
@@ -700,17 +903,54 @@ extern "C" int ntt_subscale(const void* convq, const void* ext,
   return static_cast<int>(cudaGetLastError());
 }
 
-// convq: [2, kql, N] COEFF; ext: [2, kql + kp, N] EVAL; a0, a1, b0, b1:
-// [kql, N] EVAL; scratch, out: [2, kql, N]; psi(_sh): [kql, N]; q,
-// pinv(_sh): [kql] with pinv = P^-1 mod q_i.
+// convq: [2, kql, N] COEFF; ext: [2, ext_rows, N] EVAL, of which rows
+// ext_off .. ext_off + kql - 1 are read (in place: the sharded path passes
+// the gathered ext); a0, a1, b0, b1: [kql, N] EVAL; out: [2, kql, N];
+// psi(_sh): [kql, N]; q, pinv(_sh): [kql] with pinv = P^-1 mod q_i; red:
+// [kql, 3] (Basis.red64). One launch of submul_cluster; refuses rings
+// outside 2^4 .. 2^17 (ntt_submul_final_staged serves them) and operands
+// off a 16-byte boundary.
 extern "C" int ntt_submul_final(const void* convq, const void* ext,
                                 const void* a0, const void* a1,
-                                const void* b0, const void* b1,
-                                void* scratch, void* out, const void* psi,
-                                const void* psi_sh, const void* q,
-                                const void* pinv, const void* pinv_sh,
-                                int kql, int kp, int log_n, void* stream) {
+                                const void* b0, const void* b1, void* out,
+                                const void* psi, const void* psi_sh,
+                                const void* q, const void* pinv,
+                                const void* pinv_sh, const void* red,
+                                int kql, int ext_rows, int ext_off,
+                                int log_n, void* stream) {
+  if (int bad = check_cluster(convq, out, 2 * kql, kql, log_n)) return bad;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(ext) | reinterpret_cast<uintptr_t>(a0) |
+      reinterpret_cast<uintptr_t>(a1) | reinterpret_cast<uintptr_t>(b0) |
+      reinterpret_cast<uintptr_t>(b1);
+  if (ext_off < 0 || ext_rows < ext_off + kql || align % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  const SubmulArgs args = {in(convq), in(ext), in(a0), in(a1), in(b0),
+                           in(b1), static_cast<uint32_t*>(out), in(psi),
+                           in(psi_sh), in(q), in(pinv), in(pinv_sh), in(red),
+                           kql, ext_rows, ext_off};
+  return launch_cluster(submul_kernel(log_n, ClusterRings{}),
+                        &submul_placeable[log_n], 2 * kql, log_n,
+                        static_cast<cudaStream_t>(stream), args);
+}
+
+// The same function on the staged NTT passes, any ring: the forward
+// stages of ntt_core.cuh over both elements' rows into scratch ([2, kql,
+// N]), then submul_tile; the arguments of ntt_submul_final with scratch in
+// place of red.
+extern "C" int ntt_submul_final_staged(const void* convq, const void* ext,
+                                       const void* a0, const void* a1,
+                                       const void* b0, const void* b1,
+                                       void* scratch, void* out,
+                                       const void* psi, const void* psi_sh,
+                                       const void* q, const void* pinv,
+                                       const void* pinv_sh, int kql,
+                                       int ext_rows, int ext_off, int log_n,
+                                       void* stream) {
   if (int bad = check_shape(2 * kql, kql, log_n)) return bad;
+  if (ext_off < 0 || ext_rows < ext_off + kql)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const uint32_t*>(psi);
   const auto* w_sh = static_cast<const uint32_t*>(psi_sh);
@@ -721,11 +961,13 @@ extern "C" int ntt_submul_final(const void* convq, const void* ext,
                  log_n, st);
   const int log_tile = tile_log(log_n);
   submul_tile<<<tile_grid(log_n, kql), tile_threads(log_tile), 0, st>>>(
-      src, static_cast<const uint32_t*>(ext),
+      src,
+      static_cast<const uint32_t*>(ext) +
+          (static_cast<size_t>(ext_off) << log_n),
       static_cast<const uint32_t*>(a0), static_cast<const uint32_t*>(a1),
       static_cast<const uint32_t*>(b0), static_cast<const uint32_t*>(b1),
       static_cast<uint32_t*>(out), w, w_sh, qs,
       static_cast<const uint32_t*>(pinv),
-      static_cast<const uint32_t*>(pinv_sh), kql, kql + kp, log_n, log_tile);
+      static_cast<const uint32_t*>(pinv_sh), kql, ext_rows, log_n, log_tile);
   return static_cast<int>(cudaGetLastError());
 }

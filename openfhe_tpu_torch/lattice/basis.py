@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from openfhe_tpu_torch.math import nbtheory
-from openfhe_tpu_torch.math.modops import u32_tensor
+from openfhe_tpu_torch.math.modops import mod_constants, u32_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +45,15 @@ class Basis:
     @property
     def device(self) -> torch.device:
         return self.q.device
+
+    @functools.cached_property
+    def red64(self) -> torch.Tensor:
+        """[k, 3] per tower: 2^32 mod q, its Shoup companion and
+        floor(2^32 / q), with which a kernel reduces a 64-bit word mod q
+        (`reduce_wide` of csrc/ks_fused.cu). Made on the host at first use
+        and kept with the basis; a slice makes its own."""
+        return u32_tensor(np.array([mod_constants(q) for q in self.moduli],
+                                   np.uint64).reshape(-1, 3), self.device)
 
     def _map(self, fn, moduli) -> "Basis":
         return Basis(moduli=tuple(moduli), ring_dim=self.ring_dim,

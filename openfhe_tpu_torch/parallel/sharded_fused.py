@@ -12,7 +12,8 @@ points are `all_gather`s:
        -- all_gather ext --
   K4   intt_scale (p_rows)   all P rows on every shard (kp rarely divides)
   o    conv_p_to_q_rows      the shard's Q rows
-  K6f  ntt_submul_final      the shard's Q rows         (ks_fused kernel)
+  K6f  ntt_submul_final      the shard's Q rows, ext's read in place
+                             (ks_fused kernel, ext_off)
 
 One EvalMult over L shards is 6L launches: each of the six kernels once
 per shard. Rows n, o and p are this module's wrappers (kernels of
@@ -325,9 +326,8 @@ def mult_relin_fused_local(a0, a1, b0, b1, views) -> tuple:
     outs = []
     for e, x0, x1, y0, y1, v in zip(ext_all, a0, a1, b0, b1, views):
         convq = conv_p_to_q_rows(ks_fused.intt_scale(e, v.p, p_rows=True), v)
-        xq = e[:, v.q0:v.q0 + v.q.kql].contiguous()
-        outs.append(ks_fused.ntt_submul_final(convq, xq, x0, x1, y0, y1,
-                                              v.q))
+        outs.append(ks_fused.ntt_submul_final(convq, e, x0, x1, y0, y1, v.q,
+                                              ext_off=v.q0))
     return [o[0] for o in outs], [o[1] for o in outs]
 
 

@@ -39,12 +39,15 @@ kernels that read it (`intt_conv_p` through t^-1 in its scale,
 
 Each kernel has a wrapper and its plain twin (`_..._ref`) here. The
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises. K3 and K45 run on the cluster NTT
+launches the kernel or raises. K3, K45 and K6f run on the cluster NTT
 (`csrc/ntt_cluster.cuh`) where `ops.ntt.cluster_geometry` takes the ring
-(2^4 <= N <= 2^17): K3 in one launch, K45 in two. Their former forms on
-the staged NTT passes, `ntt_keymul_acc_staged` and `intt_conv_p_staged`,
-serve every other ring (the choice reads the ring alone) and are the
-yardstick the cluster forms are held against on the card.
+(2^4 <= N <= 2^17): K3 and K6f in one launch each, K45 in two. Their
+former forms on the staged NTT passes, `ntt_keymul_acc_staged`,
+`intt_conv_p_staged` and `ntt_submul_final_staged`, serve every other
+ring (the choice reads the ring alone) and are the yardstick the cluster
+forms are held against on the card. K2 reads y's digits in place; its
+former form `conv_digits_rowmod` takes them zero-padded (`_pad_digits`)
+and is its yardstick.
 """
 
 from __future__ import annotations
@@ -245,21 +248,40 @@ def _intt_scale_ref(x, tabs: FusedKSTables, p_rows: bool = False):
     return mo.mul_mod_shoup(_ntt_inv_ref(x, b), c, c_sh, b.q)
 
 
-def conv_digits(y_pad: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
-    """K2: y_pad [nd, alpha, N] COEFF (each digit's rows, zero-padded) ->
-    [nd, kqlp, N] COEFF, sum_i y[j, i] * W[j, i, tau] mod q_tau."""
-    if y_pad.device.type == "cpu":
-        return _conv_digits_ref(y_pad, tabs)
+def conv_digits(y: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
+    """K2: y [kql, N] COEFF -> [nd, kqlp, N] COEFF, every digit j (rows
+    j * alpha .. min((j + 1) * alpha, kql) - 1 of y) extended to all
+    Q_l*P towers, sum_i y[j * alpha + i] * W[j, i, tau] mod q_tau, zero on
+    the digit's own rows. On the card one launch of the conversion kernel,
+    which reads the digits in place."""
+    if y.device.type == "cpu":
+        return _conv_digits_ref(y, tabs)
     nd, alpha, kqlp = tabs.conv_w.shape
-    _check("conv_digits", tabs, y_pad=(y_pad, (nd, alpha)))
+    _check("conv_digits", tabs, y=(y, (tabs.kql,)))
+    n = y.shape[-1]
+    out = y.new_empty((nd, kqlp, n))
+    b = tabs.basis_qlp
+    _build.launch("ks_fused", "conv_digits", y, tabs.conv_w, tabs.conv_w_sh,
+                  b.q, b.red64, out, nd, alpha, tabs.kql, kqlp, n)
+    return out
+
+
+def conv_digits_rowmod(y_pad: torch.Tensor,
+                       tabs: FusedKSTables) -> torch.Tensor:
+    """K2's former form: y_pad [nd, alpha, N] (`_pad_digits`) -> the
+    output of `conv_digits`, by rowmod_core.cuh's conversion over the
+    padded rows; CUDA tensors only."""
+    nd, alpha, kqlp = tabs.conv_w.shape
+    _check("conv_digits_rowmod", tabs, y_pad=(y_pad, (nd, alpha)))
     n = y_pad.shape[-1]
     out = y_pad.new_empty((nd, kqlp, n))
-    _build.launch("ks_fused", "conv_digits", y_pad, tabs.conv_w,
+    _build.launch("ks_fused", "conv_digits_rowmod", y_pad, tabs.conv_w,
                   tabs.conv_w_sh, tabs.basis_qlp.q, out, nd, alpha, kqlp, n)
     return out
 
 
-def _conv_digits_ref(y_pad, tabs: FusedKSTables):
+def _conv_digits_ref(y, tabs: FusedKSTables):
+    y_pad = _pad_digits(y, tabs)
     return torch.stack([_mod_matmul_rowmod_ref(y_pad[j], tabs.conv_w[j],
                                                tabs.basis_qlp.q)
                         for j in range(tabs.nd)])
@@ -347,10 +369,11 @@ def _intt_conv_p_cu(ext: torch.Tensor, tabs: FusedKSTables,
     n = ext.shape[-1]
     pc = ext.new_empty((2, kp, n))
     out = ext.new_empty((2, kql, n))
-    bp = tabs.basis_p
+    bp, bq = tabs.basis_p, tabs.basis_ql
+    red = () if entry.endswith("_staged") else (bq.red64,)
     _build.launch("ks_fused", entry, ext, pc, out, bp.ipsi_br,
                   bp.ipsi_br_sh, bp.q, tabs.k45_scale, tabs.k45_scale_sh,
-                  tabs.pconv_w, tabs.pconv_w_sh, tabs.basis_ql.q, kql, kp,
+                  tabs.pconv_w, tabs.pconv_w_sh, bq.q, *red, kql, kp,
                   _log_n(tabs))
     return out
 
@@ -360,35 +383,64 @@ def _intt_conv_p_ref(ext, tabs: FusedKSTables):
                                   tabs.pconv_w, tabs.basis_ql.q)
 
 
-def ntt_submul_final(convq, ext, a0, a1, b0, b1,
-                     tabs: FusedKSTables) -> torch.Tensor:
-    """K6f: convq [2, kql, N] COEFF, ext [2, kqlp, N] EVAL and the inputs
-    a0, a1, b0, b1 [kql, N] EVAL -> [2, kql, N] EVAL:
-    d_e = (ext[e] - NTT(convq[e])) * P^-1, c0 = a0 b0, c2 = a1 b1,
-    c1 = (a0 + a1)(b0 + b1) - c0 - c2, out = (c0 + d_0, c1 + d_1)."""
+def ntt_submul_final(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
+                     ext_off: int = 0) -> torch.Tensor:
+    """K6f: convq [2, kql, N] COEFF, ext [2, R, N] EVAL whose rows ext_off
+    .. ext_off + kql - 1 are the Q_l rows (R = kqlp and ext_off = 0 on one
+    card; the gathered ext and the shard's first Q row when sharded) and
+    the inputs a0, a1, b0, b1 [kql, N] EVAL -> [2, kql, N] EVAL:
+    d_e = (ext[e, ext_off:][:kql] - NTT(convq[e])) * P^-1, c0 = a0 b0,
+    c2 = a1 b1, c1 = (a0 + a1)(b0 + b1) - c0 - c2, out = (c0 + d_0,
+    c1 + d_1). On the card one launch of the cluster kernel, or the staged
+    one for rings it does not take; ext is read in place."""
     if convq.device.type == "cpu":
-        return _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs)
-    kql, kp = tabs.kql, tabs.kp
-    _check("ntt_submul_final", tabs, convq=(convq, (2, kql)),
-           ext=(ext, (2, kql + kp)), a0=(a0, (kql,)), a1=(a1, (kql,)),
-           b0=(b0, (kql,)), b1=(b1, (kql,)))
-    scratch, out = torch.empty_like(convq), torch.empty_like(convq)
+        return _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs,
+                                     ext_off)
+    entry = ("ntt_submul_final" if cluster_geometry(tabs.basis_qlp.ring_dim)
+             else "ntt_submul_final_staged")
+    return _ntt_submul_final_cu(convq, ext, a0, a1, b0, b1, tabs, ext_off,
+                                entry)
+
+
+def ntt_submul_final_staged(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
+                            ext_off: int = 0) -> torch.Tensor:
+    """K6f on the staged NTT passes, any ring; CUDA tensors only."""
+    return _ntt_submul_final_cu(convq, ext, a0, a1, b0, b1, tabs, ext_off,
+                                "ntt_submul_final_staged")
+
+
+def _ntt_submul_final_cu(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
+                         ext_off: int, entry: str) -> torch.Tensor:
+    kql = tabs.kql
+    rows = ext.shape[1] if ext.dim() == 3 else -1
+    if ext_off < 0 or rows < ext_off + kql:
+        raise ValueError(f"{entry}: ext of shape {tuple(ext.shape)} has no "
+                         f"rows {ext_off} .. {ext_off + kql - 1}")
+    _check(entry, tabs, convq=(convq, (2, kql)), ext=(ext, (2, rows)),
+           a0=(a0, (kql,)), a1=(a1, (kql,)), b0=(b0, (kql,)),
+           b1=(b1, (kql,)))
+    out = torch.empty_like(convq)
     bq = tabs.basis_ql
-    _build.launch("ks_fused", "ntt_submul_final", convq, ext, a0, a1, b0, b1,
-                  scratch, out, bq.psi_br, bq.psi_br_sh, bq.q, tabs.pinv_q,
-                  tabs.pinv_q_sh, kql, kp, _log_n(tabs))
+    tail = ((torch.empty_like(convq), out) if entry.endswith("_staged")
+            else (out,))
+    red = () if entry.endswith("_staged") else (bq.red64,)
+    _build.launch("ks_fused", entry, convq, ext, a0, a1, b0, b1, *tail,
+                  bq.psi_br, bq.psi_br_sh, bq.q, tabs.pinv_q, tabs.pinv_q_sh,
+                  *red, kql, rows, ext_off, _log_n(tabs))
     return out
 
 
-def _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables):
+def _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
+                          ext_off: int = 0):
     bq = tabs.basis_ql
     q = bq.q
     c0 = mo.mul_mod(a0, b0, q)
     c2 = mo.mul_mod(a1, b1, q)
     cross = mo.mul_mod(mo.add_mod(a0, a1, q), mo.add_mod(b0, b1, q), q)
     c1 = mo.sub_mod(mo.sub_mod(cross, c0, q), c2, q)
-    d = mo.mul_mod_shoup(mo.sub_mod(ext[:, :tabs.kql], _ntt_fwd_ref(convq, bq),
-                                    q), tabs.pinv_q, tabs.pinv_q_sh, q)
+    xq = ext[:, ext_off:ext_off + tabs.kql]
+    d = mo.mul_mod_shoup(mo.sub_mod(xq, _ntt_fwd_ref(convq, bq), q),
+                         tabs.pinv_q, tabs.pinv_q_sh, q)
     return torch.stack([mo.add_mod(c0, d[0], q), mo.add_mod(c1, d[1], q)])
 
 
@@ -425,7 +477,8 @@ def _ntt_subscale_ref(convq, ext, tabs: FusedKSTables):
 # ---------------------------------------------------------------------------
 
 def _pad_digits(y: torch.Tensor, tabs: FusedKSTables) -> torch.Tensor:
-    """y [kql, N] -> [nd, alpha, N], the last digit zero-padded."""
+    """y [kql, N] -> [nd, alpha, N], the last digit zero-padded: the input
+    of conv_digits_rowmod and of the sharded kernel n."""
     pad = tabs.nd * tabs.alpha - tabs.kql
     if pad:
         y = torch.cat([y, y.new_zeros((pad, y.shape[-1]))])
@@ -439,7 +492,7 @@ def mult_relin_fused(a0, a1, b0, b1, bv, av, bv_sh, av_sh,
     a0, a1, b0, b1: [kql, N] EVAL; bv, av (+ companions): the eval key
     [dnum, k_q_full + kp, N]. Returns (o0, o1) [kql, N] EVAL."""
     c2, y = tensor_intt(a1, b1, tabs)
-    conv = conv_digits(_pad_digits(y, tabs), tabs)
+    conv = conv_digits(y, tabs)
     ext = ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh, tabs)
     convq = intt_conv_p(ext, tabs)
     out = ntt_submul_final(convq, ext, a0, a1, b0, b1, tabs)
@@ -453,7 +506,7 @@ def keyswitch_core_fused(c2, bv, av, bv_sh, av_sh, tabs: FusedKSTables):
     [dnum, k_q_full + kp, N]. Returns (d0, d1) [kql, N] EVAL, the words of
     `hybrid.keyswitch_core`'s unfused chain."""
     y = intt_scale(c2, tabs)
-    conv = conv_digits(_pad_digits(y, tabs), tabs)
+    conv = conv_digits(y, tabs)
     ext = ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh, tabs)
     convq = intt_conv_p(ext, tabs)
     out = ntt_subscale(convq, ext, tabs)

@@ -117,21 +117,58 @@ def model_keymul(conv, c2, key, psi, q, kql, alpha, key_shift, log_w):
     return ext
 
 
-def model_pconv(y, w, w_sh, d):
-    """pconv: y [B, a, N], w and w_sh [a, d], d [d] -> [B, d, N]: lazy
-    Shoup products summed in 64 bits, then (hi 2^32 + lo) mod d by two
-    Shoup multiplies."""
-    y = y.astype(np.uint64)[:, :, None, :]
-    w, w_sh = w[None, :, :, None], w_sh[None, :, :, None]
-    dd = d.astype(np.uint64)[None, None, :, None]
-    total = ((y * w - ((y * w_sh) >> U32) * dd) & MASK).sum(axis=1)
-    d = d.astype(np.uint64)[None, :, None]
-    c = (np.uint64(1) << U32) % d
-    hi, lo = total >> U32, total & MASK
-    r_lo = (lo - ((lo * ((np.uint64(1) << U32) // d)) >> U32) * d) & MASK
-    r = shoup(hi, c, companion(c, d), d) + np.where(r_lo >= d, r_lo - d,
-                                                     r_lo)
-    return np.where(r >= d, r - d, r), total
+def csub(r, q):
+    """csub: min(r, r - q) in 32 bits."""
+    return np.minimum(r, (r - q) & MASK)
+
+
+def reduce_wide(x, q, red):
+    """reduce_wide: x (uint64 words) mod q with red = (2^32 mod q, its
+    companion, floor(2^32 / q)) (a row of `Basis.red64`): hi by a Shoup
+    multiply and lo by a Barrett step, each then canonical, and their sum,
+    in 32-bit words."""
+    r32, r32_sh, m32 = (np.asarray(v, np.uint64) for v in red)
+    hi, lo = x >> U32, x & MASK
+    t_lo = csub((lo - ((lo * m32) >> U32) * q) & MASK, q)
+    return csub((shoup(hi, r32, r32_sh, q) + t_lo) & MASK, q)
+
+
+def model_pconv(y, w, w_sh, d, red, a_dim, a_total, own=False, splits=1):
+    """pconv: y [>= a_total, N] (batch b's rows b a_dim .. b a_dim + rows_b
+    - 1, rows_b = min(a_dim, a_total - b a_dim)), w and w_sh [batch, a_dim,
+    d] (one table a batch), d [d], red [d, 3] -> [batch, d, N] and the
+    64-bit sums: lazy Shoup products, summed, reduced once by
+    reduce_wide; with `own` batch b's own rows [b a_dim, b a_dim + rows_b)
+    are zero. Block z of `splits` takes its share of the converted rows
+    (and of the own rows), as the kernel's blockIdx.z does; every row is
+    written exactly once."""
+    batch, d_dim = w.shape[0], len(d)
+    n = y.shape[-1]
+    y = y.astype(np.uint64)
+    dd = d.astype(np.uint64)
+    out = np.zeros((batch, d_dim, n), np.uint64)
+    total = np.zeros((batch, d_dim, n), np.uint64)
+    written = np.zeros((batch, d_dim), int)
+    for b in range(batch):
+        rows = min(a_dim, a_total - b * a_dim)
+        assert rows >= 1
+        x = y[b * a_dim:b * a_dim + rows]
+        own_lo, n_own = b * a_dim, rows if own else 0
+        m = d_dim - n_own
+        per, per_own = -(-m // splits), -(-n_own // splits)
+        for z in range(splits):
+            for k in range(z * per_own, min(n_own, (z + 1) * per_own)):
+                written[b, own_lo + k] += 1
+            for k in range(z * per, min(m, (z + 1) * per)):
+                j = k if k < own_lo else k + n_own
+                wj = w[b, :rows, j, None].astype(np.uint64)
+                wj_sh = w_sh[b, :rows, j, None].astype(np.uint64)
+                terms = (x * wj - ((x * wj_sh) >> U32) * dd[j]) & MASK
+                total[b, j] = terms.sum(axis=0)
+                out[b, j] = reduce_wide(total[b, j], dd[j], red[j])
+                written[b, j] += 1
+    assert (written == 1).all()
+    return out, total
 
 
 def model_intt_conv_p(ext, tabs, log_w):
@@ -147,9 +184,11 @@ def model_intt_conv_p(ext, tabs, log_w):
     pc = model_inv(ext.reshape(-1, n)[src].astype(np.int64),
                    u64(bp.ipsi_br)[tower], np.array(bp.moduli)[tower],
                    u64(tabs.k45_scale).reshape(-1)[tower], log_w)
-    out, _ = model_pconv(pc.reshape(2, kp, n), mo.to_u32(tabs.pconv_w),
-                         mo.to_u32(tabs.pconv_w_sh),
-                         np.array(tabs.basis_ql.moduli))
+    w = lambda t: np.broadcast_to(mo.to_u32(t), (2,) + tuple(t.shape))
+    bq = tabs.basis_ql
+    out, _ = model_pconv(pc, w(tabs.pconv_w), w(tabs.pconv_w_sh),
+                         np.array(bq.moduli), mo.to_u32(bq.red64), kp,
+                         2 * kp, splits=3)
     return out
 
 
@@ -293,32 +332,57 @@ def test_models_on_31_bit_primes_match_jax_ntt_and_twins(log_w):
     np.testing.assert_array_equal(k45, conv)
 
 
-@pytest.mark.parametrize("a_dim", [16, 64])
-def test_conversion_arithmetic_worst_case(a_dim):
+@pytest.mark.parametrize("a_dim,digits", [(16, 1), (64, 1), (16, 2)],
+                         ids=["P16", "P64", "digits-16+14"])
+def test_conversion_arithmetic_worst_case(a_dim, digits):
     """pconv's lazy products and 64-bit sum at the largest 31-bit primes,
-    every input word and weight q - 1 (and the real mod-down weights of a
-    16-tower P): equal to the plain conversion, with sums past 2^32, so a
-    32-bit sum would overflow."""
+    every input word and weight q - 1 (and the real weights: the mod-down's
+    of a P of a_dim towers, or K2's per-digit ones at two digits of 16 and
+    14 rows, own rows zero): equal to the plain conversion, with sums past
+    2^32, so a 32-bit sum would overflow."""
     n = 8
     mods = _top31(a_dim + 31, 1 << 16)
     mp, mq = mods[:a_dim], mods[a_dim:]
     d = np.array(mq, np.uint64)
-    y = np.broadcast_to(np.array(mp, np.uint64)[None, :, None] - 1,
-                        (2, a_dim, n)).copy()
-    big_p = int(np.prod([int(p) for p in mp], dtype=object))
-    weights = [np.broadcast_to(d - 1, (a_dim, len(mq))).copy(),
-               np.array([[big_p // p % q for q in mq] for p in mp],
-                        np.uint64)]
-    for w in weights:
-        got, total = model_pconv(y, w, companion(w, d[None, :]), d)
-        want = _mod_matmul_rowmod_ref(mo.u32_tensor(y), mo.u32_tensor(w),
-                                      mo.u32_tensor(d))
-        np.testing.assert_array_equal(got, mo.to_u32(want))
-        assert total.max() > MASK
-    # the port's mod-down weights for that P are the ones modelled
-    tabs = ks_fused.make_fused_ks_tables(make_basis(mq + mp, n), len(mq),
-                                         len(mq), 1)
-    np.testing.assert_array_equal(mo.to_u32(tabs.pconv_w), weights[1])
+    red = mo.to_u32(make_basis(mq, n).red64)
+    if digits == 1:
+        # K45: both elements through the P -> Q weights
+        y = np.broadcast_to(np.array(mp, np.uint64)[:, None] - 1,
+                            (a_dim, n))
+        y = np.concatenate([y, y])
+        big_p = int(np.prod([int(p) for p in mp], dtype=object))
+        weights = [np.broadcast_to(d - 1, (a_dim, len(mq))).copy(),
+                   np.array([[big_p // p % q for q in mq] for p in mp],
+                            np.uint64)]
+        for w in weights:
+            ws = np.stack([w, w])
+            got, total = model_pconv(y, ws, companion(ws, d), d, red, a_dim,
+                                     2 * a_dim, splits=4)
+            want = _mod_matmul_rowmod_ref(
+                mo.u32_tensor(y.reshape(2, a_dim, n)), mo.u32_tensor(w),
+                mo.u32_tensor(d))
+            np.testing.assert_array_equal(got, mo.to_u32(want))
+            assert total.max() > MASK
+        # the port's mod-down weights for that P are the ones modelled
+        tabs = ks_fused.make_fused_ks_tables(make_basis(mq + mp, n),
+                                             len(mq), len(mq), 1)
+        np.testing.assert_array_equal(mo.to_u32(tabs.pconv_w), weights[1])
+        return
+    # K2 at level 1's shape: 30 Q of a 31-tower chain in two digits of 16
+    # and 14 rows, extended to 30 + a_dim towers, inputs q - 1
+    qlp = mq[:30] + mp
+    tabs = ks_fused.make_fused_ks_tables(make_basis(qlp, n), 30, 31, 2)
+    assert (tabs.nd, tabs.alpha) == (2, 16)
+    dq = np.array(qlp, np.uint64)
+    y = np.broadcast_to(dq[:30, None] - 1, (30, n)).copy()
+    got, total = model_pconv(y, mo.to_u32(tabs.conv_w),
+                             mo.to_u32(tabs.conv_w_sh), dq,
+                             mo.to_u32(tabs.basis_qlp.red64), 16, 30,
+                             own=True, splits=3)
+    want = ks_fused.conv_digits(mo.u32_tensor(y), tabs)
+    np.testing.assert_array_equal(got, mo.to_u32(want))
+    assert total.max() > MASK
+    assert not got[0, :16].any() and not got[1, 16:30].any()
 
 
 # ---------------------------------------------------------------------------
@@ -352,9 +416,18 @@ def test_staged_forms_serve_other_rings_by_shape(monkeypatch):
 
 
 def test_staged_entries_are_registered():
+    """Every former form is an entry point of ks_fused.cu's library, with
+    the argtypes its wrapper passes."""
     src = _build.SOURCES["ks_fused"]
-    assert src["ntt_keymul_acc_staged"] == [_build._P] * 11 + [_build._I] * 6 \
-        + [_build._P]
-    assert src["ntt_keymul_acc"] == [_build._P] * 10 + [_build._I] * 6 \
-        + [_build._P]
-    assert src["intt_conv_p_staged"] == src["intt_conv_p"]
+    p, i = _build._P, _build._I
+    assert src["ntt_keymul_acc_staged"] == [p] * 11 + [i] * 6 + [p]
+    assert src["ntt_keymul_acc"] == [p] * 10 + [i] * 6 + [p]
+    # the cluster form also reads the Q_l towers' Basis.red64
+    assert src["intt_conv_p"] == [p] * 12 + [i] * 3 + [p]
+    assert src["intt_conv_p_staged"] == [p] * 11 + [i] * 3 + [p]
+    # K6f: the staged form takes scratch where the cluster form takes red
+    assert src["ntt_submul_final"] == [p] * 13 + [i] * 4 + [p]
+    assert src["ntt_submul_final_staged"] == src["ntt_submul_final"]
+    # K2: y in place with red64 and kql, or the padded digits
+    assert src["conv_digits"] == [p] * 6 + [i] * 5 + [p]
+    assert src["conv_digits_rowmod"] == [p] * 5 + [i] * 4 + [p]

@@ -150,7 +150,7 @@ def _twin_case(name, chain, tabs, ek):
         c2, y = ks_fused.tensor_intt(a1, b1, tabs)
         return torch.stack([c2, y]), np.stack([chain["c2"], chain["y"]])
     if name == "conv_digits":
-        return ks_fused.conv_digits(t("y_pad"), tabs), chain["conv"]
+        return ks_fused.conv_digits(t("y"), tabs), chain["conv"]
     if name == "ntt_keymul_acc":
         return ks_fused.ntt_keymul_acc(t("conv"), t("c2"), ek.bv, ek.bv_sh,
                                        ek.av, ek.av_sh, tabs), chain["ext"]

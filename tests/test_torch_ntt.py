@@ -140,7 +140,7 @@ def test_kernel_wrappers_take_no_fallback():
                ntt._ntt_inv_staged_cu):
         with pytest.raises(ValueError, match="no kernel"):
             fn(x, tb)
-    # the fused chains' seven wrappers and the two staged forms, at 2 Q +
+    # the fused chains' seven wrappers and the four former forms, at 2 Q +
     # 1 P towers and 2 digits
     mods = [nbtheory.first_prime(b, 2 * n) for b in (26, 27, 28)]
     tabs = ks_fused.make_fused_ks_tables(make_basis(mods, n), 2, 2, 2)
@@ -152,7 +152,7 @@ def test_kernel_wrappers_take_no_fallback():
         ("tensor_intt", lambda: ks_fused.tensor_intt(q_in, q_in, tabs)),
         ("intt_scale", lambda: ks_fused.intt_scale(q_in, tabs)),
         ("intt_scale", lambda: ks_fused.intt_scale(ext, tabs, p_rows=True)),
-        ("conv_digits", lambda: ks_fused.conv_digits(y_pad, tabs)),
+        ("conv_digits", lambda: ks_fused.conv_digits(q_in, tabs)),
         ("ntt_keymul_acc", lambda: ks_fused.ntt_keymul_acc(
             meta(2, 3), q_in, key, key, key, key, tabs)),
         ("intt_conv_p", lambda: ks_fused.intt_conv_p(ext, tabs)),
@@ -160,6 +160,11 @@ def test_kernel_wrappers_take_no_fallback():
         ("ntt_keymul_acc_staged", lambda: ks_fused.ntt_keymul_acc_staged(
             meta(2, 3), q_in, key, key, key, key, tabs)),
         ("intt_conv_p_staged", lambda: ks_fused.intt_conv_p_staged(ext,
+                                                                   tabs)),
+        # the former forms of K6f and K2
+        ("ntt_submul_final_staged", lambda: ks_fused.ntt_submul_final_staged(
+            meta(2, 2), ext, q_in, q_in, q_in, q_in, tabs)),
+        ("conv_digits_rowmod", lambda: ks_fused.conv_digits_rowmod(y_pad,
                                                                    tabs)),
         ("ntt_subscale", lambda: ks_fused.ntt_subscale(meta(2, 2), ext,
                                                        tabs)),
