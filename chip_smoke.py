@@ -28,12 +28,15 @@ is not beside it. Phases, none of which catches its own failure:
    level 0 (31 Q towers), level 1 (30) and on a chain of the largest
    31-bit primes (4 Q + 2 P towers, N=2^16) in 2 digits and in 1,
    `intt_scale` also in its K4 form (ext's P rows, 2 elements) and
-   `ntt_subscale` also with BGV's t = 65537 in the tables. K3, K45 and
-   K6f (`ntt_keymul_acc`, `intt_conv_p`, `ntt_submul_final`, on the
-   cluster NTT) and K2 (`conv_digits`, y's digits read in place) are also
-   held against their former forms (`ntt_keymul_acc_staged`,
-   `intt_conv_p_staged`, `ntt_submul_final_staged` on the staged NTT
-   passes; `conv_digits_rowmod` over the zero-padded digits, the pad
+   `ntt_subscale` also with BGV's t = 65537 in the tables and with one and
+   two addends (the final add it takes from Relinearize, KeySwitch and the
+   automorphisms). K1t, K3, K45, K6 and K6f (`tensor_intt`,
+   `ntt_keymul_acc`, `intt_conv_p`, `ntt_subscale`, `ntt_submul_final`,
+   on the cluster NTT) and K2 (`conv_digits`, y's digits read in place)
+   are also held against their former forms (`tensor_intt_staged`,
+   `ntt_keymul_acc_staged`, `intt_conv_p_staged`, `ntt_subscale_staged`,
+   `ntt_submul_final_staged` on the staged NTT passes;
+   `conv_digits_rowmod` over the zero-padded digits, the pad
    included), also at levels 3, 11, 15, 23 and 30 (44 down to 17 Q_l*P
    towers, two digits and one), on the 31-bit chain at N=2^12, 2^14, 2^15
    and 2^17 in two digits and in one (clusters of 1, 2, 4, 8) and in one
@@ -47,7 +50,9 @@ is not beside it. Phases, none of which catches its own failure:
    level 1 EvalMult (one launch of each kernel of the mult chain; at level
    0 the profiler must see MULT_KERNELS device kernels, all of csrc/),
    Relinearize(EvalMultNoRelin) and EvalRotate (one launch of each kernel
-   of the general chain, nothing else) and the same ops through the
+   of the general chain, nothing else; at level 0 one Relinearize must run
+   RELIN_KERNELS device kernels, all of csrc/: no plain-torch final add)
+   and the same ops through the
    unfused chain (`dataclasses.replace(tables, fused=None)`: the NTT and
    conversion kernels); hoisted rotations (EvalFastRotationPrecompute +
    EvalFastRotation, unfused by design); EvalConjugate; EvalInnerProduct
@@ -146,18 +151,22 @@ DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
                        # the sign fix (compare and add)
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
-# the former forms: the staged NTT (csrc/ntt.cu) and K3, K45 and K6f on
-# the staged NTT passes (csrc/ks_fused.cu), for rings above 2^17, and K2 on
-# rowmod_core.cuh over the zero-padded digits: the yardstick the new forms
-# are held against here; no launch on the main path
-STAGED = ("ntt_fwd_staged", "ntt_inv_staged", "ntt_keymul_acc_staged",
-          "intt_conv_p_staged", "ntt_submul_final_staged",
+# the former forms: the staged NTT (csrc/ntt.cu) and K1t, K3, K45, K6 and
+# K6f on the staged NTT passes (csrc/ks_fused.cu), for rings above 2^17,
+# and K2 on rowmod_core.cuh over the zero-padded digits: the yardstick the
+# new forms are held against here; no launch on the main path
+STAGED = ("ntt_fwd_staged", "ntt_inv_staged", "tensor_intt_staged",
+          "ntt_keymul_acc_staged", "intt_conv_p_staged",
+          "ntt_subscale_staged", "ntt_submul_final_staged",
           "conv_digits_rowmod")
 # the fused kernels on the cluster NTT
-FUSED_CLUSTER = ("ntt_keymul_acc", "intt_conv_p", "ntt_submul_final")
+FUSED_CLUSTER = ("tensor_intt", "ntt_keymul_acc", "intt_conv_p",
+                 "ntt_subscale", "ntt_submul_final")
 # the fused kernels held beside their former forms (`cluster_case`)
-FORMER = {"ntt_keymul_acc": "ntt_keymul_acc_staged",
+FORMER = {"tensor_intt": "tensor_intt_staged",
+          "ntt_keymul_acc": "ntt_keymul_acc_staged",
           "intt_conv_p": "intt_conv_p_staged",
+          "ntt_subscale": "ntt_subscale_staged",
           "ntt_submul_final": "ntt_submul_final_staged",
           "conv_digits": "conv_digits_rowmod"}
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
@@ -167,9 +176,12 @@ FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
 # the kernels of one EvalMult, and of one Relinearize or automorphism
 MULT_CHAIN = ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
               "ntt_submul_final")
-# device kernels of one EvalMult at N=2^16: K1t's tile pass and 3 stages,
-# K2, K3, K45's INTT and conversion, K6f; nothing else (no digit pad)
-MULT_KERNELS = 9
+# device kernels of one EvalMult at N=2^16: K1t, K2, K3, K45's INTT and
+# conversion, K6f; nothing else (no digit pad)
+MULT_KERNELS = 6
+# device kernels of one Relinearize at N=2^16: K1's tile pass and 3 stages,
+# K2, K3, K45's INTT and conversion, K6 with the final add; nothing else
+RELIN_KERNELS = 9
 KS_CHAIN = ("intt_scale", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
             "ntt_subscale")
 SHARDED = ("mod_matmul", "conv_digits_rows", "conv_p_to_q_rows",
@@ -190,6 +202,8 @@ WHERE = {
                           "openfhe_tpu/ops/modmatmul.py:232"),
     "tensor_intt": ("csrc/ks_fused.cu",
                     "openfhe_tpu/pke/keyswitch/ks_fused.py:366"),
+    "tensor_intt_staged": ("csrc/ks_fused.cu",
+                           "openfhe_tpu/pke/keyswitch/ks_fused.py:366"),
     "intt_scale": ("csrc/ks_fused.cu",
                    "openfhe_tpu/pke/keyswitch/ks_fused.py:422, "
                    "openfhe_tpu/pke/keyswitch/ks_fused.py:476"),
@@ -209,6 +223,8 @@ WHERE = {
                            "openfhe_tpu/pke/keyswitch/ks_fused.py:513"),
     "ntt_subscale": ("csrc/ks_fused.cu",
                      "openfhe_tpu/pke/keyswitch/ks_fused.py:747"),
+    "ntt_subscale_staged": ("csrc/ks_fused.cu",
+                            "openfhe_tpu/pke/keyswitch/ks_fused.py:747"),
     "ntt_submul_final": ("csrc/ks_fused.cu",
                          "openfhe_tpu/pke/keyswitch/ks_fused.py:802"),
     "ntt_small_fwd": ("csrc/ntt_small.cu", "openfhe_tpu/ops/ntt_small.py:157"),
@@ -441,11 +457,13 @@ def rowmod_case(mm, tab, d_basis, gen, label):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def fused_work(tabs) -> dict:
+def fused_work(tabs, adds: int = 0) -> dict:
     """(bytes, operations) of each fused kernel at one table set: each
     input and output once, twiddles and keys included; the conversions'
     operations count their nonzero weights only. `intt_scale_p` is
-    intt_scale's K4 form (2 elements of kp rows)."""
+    intt_scale's K4 form (2 elements of kp rows). K1t moves a1, b1, c2, y
+    and the inverse twiddles once each; K6 reads `adds` addends of kql
+    rows (0, 1 or 2) and adds each word of them."""
     n, kql, kp, nd = (tabs.basis_qlp.ring_dim, tabs.kql, tabs.kp, tabs.nd)
     kqlp, log_n = kql + kp, n.bit_length() - 1
     digits = [min(tabs.alpha, kql - j * tabs.alpha) for j in range(nd)]
@@ -471,9 +489,10 @@ def fused_work(tabs) -> dict:
         "intt_conv_p": (WORD * n * (2 * kp + 2 * kp + 2 * kql),
                         ntt(2 * kp) + 2 * kp * n * SHOUP_OPS
                         + 2 * kp * kql * n * ROWMOD_TERM_OPS),
-        "ntt_subscale": (WORD * n * 8 * kql,
+        "ntt_subscale": (WORD * n * (8 + adds) * kql,
                          ntt(2 * kql) + 2 * kql * n * (SHOUP_OPS + 3
-                                                       + t_ops)),
+                                                       + t_ops)
+                         + adds * kql * n * 2),
         "ntt_submul_final": (WORD * n * 12 * kql,
                              ntt(2 * kql) + kql * n * (3 * MULMOD_OPS + 12)
                              + 2 * kql * n * (SHOUP_OPS + 5)),
@@ -510,6 +529,8 @@ def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
     got, per = count_launches(lambda: kern(*args, tabs), both)
     want, by_stages = ref(*args, tabs), staged(*args, tabs)
     torch.cuda.synchronize()
+    if isinstance(got, tuple):          # K1t: (c2, y)
+        got, want, by_stages = map(torch.stack, (got, want, by_stages))
     err, err_staged = max_abs_err(got, want), max_abs_err(by_stages, want)
     require(err == 0 and err_staged == 0,
             f"{name} {label} differs from its plain version (max abs err: "
@@ -1360,8 +1381,10 @@ def main() -> int:
     for name, case in cluster_shape_cases(ks_fused, gen, rings, wide31, n):
         (staged if name in STAGED else cases)[name].append(case)
     del key_main, key31
-    # intt_scale's K4 form (both elements' P rows of ext, read in place)
-    # and ntt_subscale with BGV's t = 65537 (K6's t multiply), at level 0
+    # intt_scale's K4 form (both elements' P rows of ext, read in place),
+    # and ntt_subscale with BGV's t = 65537 (K6's t multiply) and with one
+    # and two addends (the final add of an automorphism or KeySwitch, and
+    # of Relinearize), each beside its staged form, at level 0
     work0 = fused_work(top.fused)
     ext = rand_residues(gen, top.basis_qlp.moduli, n, (2,))
     cases["intt_scale"].append(kernel_case(
@@ -1371,10 +1394,22 @@ def main() -> int:
     tabs_t = ks_fused.make_fused_ks_tables(top.basis_qlp, cc.size_ql(0),
                                            len(cc.moduli_q), 2,
                                            ns_int=65537)
-    cases["ntt_subscale"].append(kernel_case(
-        "ntt_subscale", ks_fused.ntt_subscale, ks_fused._ntt_subscale_ref,
-        (rand_residues(gen, top.basis_ql.moduli, n, (2,)), ext), tabs_t,
-        fused_work(tabs_t)["ntt_subscale"], "level 0, t = 65537"))
+    convq = rand_residues(gen, top.basis_ql.moduli, n, (2,))
+    adds = [rand_residues(gen, top.basis_ql.moduli, n) for _ in range(2)]
+    with_adds = lambda fn: (lambda cq, x, a0, a1, t: fn(cq, x, t, a0, a1))
+    for tabs, given, label in (
+            (tabs_t, (None, None), "level 0, t = 65537"),
+            (top.fused, (adds[0], None), "level 0, addend to element 0"),
+            (top.fused, tuple(adds), "level 0, both addends")):
+        for name, case in cluster_case(
+                "ntt_subscale", with_adds(ks_fused.ntt_subscale),
+                with_adds(ks_fused.ntt_subscale_staged),
+                with_adds(ks_fused._ntt_subscale_ref),
+                (convq, ext, *given), tabs,
+                fused_work(tabs, sum(a is not None for a in given))[
+                    "ntt_subscale"], label).items():
+            (staged if name in STAGED else cases)[name].append(case)
+    del convq, adds
     del ext
     small = ntt_small_cases(gen)
     blind = blind_rotate_cases(gen)
@@ -1585,6 +1620,7 @@ def main() -> int:
             f"EvalMult launches {per_mult} / {per_mult1}, expected "
             f"{want_mult}")
     from openfhe_tpu_torch.trace_evalmult import OWN
+    prod3 = cc.EvalMultNoRelin(ct_a, ct_b)
     mult_kernels = device_kernels(lambda: cc.EvalMult(ct_a, ct_b))
     own = [k for k in mult_kernels
            if any(f"{o}(" in k or f"{o}<" in k for o in OWN)]
@@ -1595,6 +1631,14 @@ def main() -> int:
     require(len(mult_kernels) == MULT_KERNELS == len(own),
             f"EvalMult ran {len(mult_kernels)} device kernels ({len(own)} "
             f"of csrc/), expected {MULT_KERNELS}, all of csrc/")
+    relin_kernels = device_kernels(lambda: cc.Relinearize(prod3))
+    own = [k for k in relin_kernels
+           if any(f"{o}(" in k or f"{o}<" in k for o in OWN)]
+    print(f"Relinearize on the card: {len(relin_kernels)} device kernels, "
+          f"{len(own)} of csrc/: " + ", ".join(map(short, relin_kernels)))
+    require(len(relin_kernels) == RELIN_KERNELS == len(own),
+            f"Relinearize ran {len(relin_kernels)} device kernels "
+            f"({len(own)} of csrc/), expected {RELIN_KERNELS}, all of csrc/")
     for label, got in (("Relinearize", per_relin),
                        ("Relinearize, level 1", per_relin1),
                        ("EvalRotate +1", per_rot[1]),
@@ -1612,7 +1656,6 @@ def main() -> int:
             f"hoisted rotation launches {per_pre} / {per_fast}, expected "
             f"{want_hoist} each")
 
-    prod3 = cc.EvalMultNoRelin(ct_a, ct_b)
     times = {
         "evalmult_ms": cuda_ms(lambda: cc.EvalMult(ct_a, ct_b), reps=10),
         "evalmult_unfused_ms": cuda_ms(lambda: unfused(ct_a, ct_b),

@@ -50,7 +50,8 @@ SOURCES = {
     "rowmod": {"mod_matmul_rowmod": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _P]},
     "modmatmul": {"mod_matmul": [_P] * 4 + [_I] * 4 + [_P]},
-    "ks_fused": {"tensor_intt": [_P] * 9 + [_I] * 2 + [_P],
+    "ks_fused": {"tensor_intt": [_P] * 10 + [_I] * 2 + [_P],
+                 "tensor_intt_staged": [_P] * 9 + [_I] * 2 + [_P],
                  "intt_scale": [_P] * 7 + [_I] * 5 + [_P],
                  "conv_digits": [_P] * 6 + [_I] * 5 + [_P],
                  "conv_digits_rowmod": [_P] * 5 + [_I] * 4 + [_P],
@@ -58,7 +59,8 @@ SOURCES = {
                  "intt_conv_p": [_P] * 12 + [_I] * 3 + [_P],
                  "ntt_keymul_acc_staged": [_P] * 11 + [_I] * 6 + [_P],
                  "intt_conv_p_staged": [_P] * 11 + [_I] * 3 + [_P],
-                 "ntt_subscale": [_P] * 11 + [_I] * 4 + [_P],
+                 "ntt_subscale": [_P] * 12 + [_I] * 4 + [_P],
+                 "ntt_subscale_staged": [_P] * 13 + [_I] * 4 + [_P],
                  "ntt_submul_final": [_P] * 13 + [_I] * 4 + [_P],
                  "ntt_submul_final_staged": [_P] * 13 + [_I] * 4 + [_P]},
     "blind_rotate": {"blind_rotate_cggi": [_P] * 14 + [_I] * 6 + [_P],

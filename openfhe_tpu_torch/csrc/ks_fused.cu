@@ -1,6 +1,6 @@
 // The fused HYBRID key switch for Hopper (sm_90a): seven entry points, one
 // per TPU kernel of openfhe_tpu/pke/keyswitch/ks_fused.py (mult_relin_fused
-// and keyswitch_core_fused), plus the former forms of four of them.
+// and keyswitch_core_fused), plus the former forms of six of them.
 //
 //   tensor_intt       replaces _tensor_intt (K1t, pallas_call :366) and
 //                     _tensor_intt_single (:301): c2 = a1*b1 and
@@ -18,14 +18,17 @@
 //                     rows * (P/p_i)^-1 * t^-1, then the P -> Q_l
 //                     conversion (the function of _conv_p_to_q, K5, :549)
 //   ntt_subscale      replaces _ntt_subscale (K6, :747):
-//                     (ext - t * NTT(convq)) * P^-1, t = 1 for CKKS
+//                     (ext - t * NTT(convq)) * P^-1, t = 1 for CKKS, plus
+//                     an optional addend per element (the caller's final
+//                     add of Relinearize, KeySwitch and the automorphisms)
 //   ntt_submul_final  replaces _ntt_submul_final (K6f, :802):
 //                     (ext - NTT(convq)) * P^-1 plus the tensor terms
-//   ntt_keymul_acc_staged, intt_conv_p_staged, ntt_submul_final_staged:
-//                     K3, K45 and K6f on the staged NTT passes, for rings
-//                     outside the cluster NTT's 2^4 .. 2^17 and as the
-//                     yardstick on the card; conv_digits_rowmod: K2 on
-//                     rowmod_core.cuh over the zero-padded digits, the
+//   tensor_intt_staged, ntt_keymul_acc_staged, intt_conv_p_staged,
+//   ntt_subscale_staged, ntt_submul_final_staged:
+//                     K1t, K3, K45, K6 and K6f on the staged NTT passes,
+//                     for rings outside the cluster NTT's 2^4 .. 2^17 and
+//                     as the yardstick on the card; conv_digits_rowmod: K2
+//                     on rowmod_core.cuh over the zero-padded digits, the
 //                     yardstick of conv_digits
 //
 // The TPU kernels multiply through int8 Karatsuba limbs and float
@@ -44,8 +47,14 @@
 // the others move 8-65 MB each, against about ten integer operations per
 // word and butterfly stage.
 //
-// Design: K3, K45 and K6f run on the cluster NTT of ntt_cluster.cuh (a
-// tower per thread-block cluster, the words through device memory once):
+// Design: K1t, K3, K45, K6 and K6f run on the cluster NTT of
+// ntt_cluster.cuh (a tower per thread-block cluster, the words through
+// device memory once):
+//   * K1t (tensor_intt_cluster) is one launch, a cluster per Q tower: the
+//     inverse cluster transform whose load hook forms c2 = a1 * b1 on the
+//     16 words each thread reads first (reduce_wide), writes c2 beside and
+//     hands the words on; N^-1 (B_j/b_i)^-1 is its last multiply. 4
+//     launches become 1.
 //   * K3 (keymul_cluster) is one launch, a cluster per tower of Q_l*P:
 //     the digit loop runs inside the cluster, a digit's own towers read
 //     c2's row in place of the transform, and the key product is the
@@ -59,35 +68,38 @@
 //     the conversion kernel pconv: weights in shared memory, 4 columns a
 //     thread with 16-byte loads, lazy Shoup products in [0, 2q) summed in
 //     64 bits and reduced once.
-//   * K6f (submul_cluster) is one launch, a cluster per element row
-//     (e, tau) of the output, the two elements of a tower side by side:
-//     the forward transform of convq[e, tau], then an epilogue on the
-//     thread's 16 output words that reads ext and the inputs at the same
-//     words with 16-byte loads, forms the element's tensor term and the
-//     mod-down, and writes out: no scratch, 4 launches become 1.
+//   * K6 (subscale_cluster) and K6f (submul_cluster) are one launch each,
+//     a cluster per element row (e, tau) of the output, the two elements
+//     of a tower side by side: the forward transform of convq[e, tau],
+//     then an epilogue on the thread's 16 output words that reads ext (and
+//     K6f's inputs, K6's addend) at the same words with 16-byte loads and
+//     writes out: K6 the optional t multiply, the mod-down and the addend,
+//     K6f the element's tensor term and the mod-down. No scratch, 4
+//     launches become 1.
 //   * K2 is pconv too, a digit per blockIdx.y with its own weights: it
 //     reads the digit's rows of y in place (no zero-padded copy) and
 //     writes the digit's own rows as zeros without forming a product.
-// The other kernels are the device-memory stage launches of ntt_core.cuh
-// plus one shared-memory tile pass (one tower, 256 KB, is larger than a
-// block's shared memory), each prologue or epilogue riding the pass that
-// touches the data first (inverse) or last (forward):
-//   * K1t's tile pass forms c2 from a1, b1 and writes it; the inverse
-//     stages follow, the last folding (N^-1 * (B_j/b_i)^-1) mod q.
+// intt_scale (K1, K4) and the former forms are the device-memory stage
+// launches of ntt_core.cuh plus one shared-memory tile pass (one tower,
+// 256 KB, is larger than a block's shared memory), each prologue or
+// epilogue riding the pass that touches the data first (inverse) or last
+// (forward):
 //   * intt_scale is inv_tile, which picks k rows out of every in_rows (so
 //     K4 reads ext's P rows in place), then the inverse stages with
 //     (N^-1 * scale) folded into the last pass. The tower count is a
 //     runtime argument: the TPU's tower pairs, and the garbage row they
 //     pad an odd kql with, have no counterpart.
+//   * K1t's staged form: a tile pass forms c2 from a1, b1 and writes it;
+//     the inverse stages follow, the last folding (N^-1 * (B_j/b_i)^-1).
 //   * K3's staged form runs the forward stages over all nd * kqlp rows of
 //     the extended digits, then one tile pass per (tile, tower) that loops
 //     over the digits, takes c2 on own towers, and keeps both key-product
 //     sums in registers (keymul_core.cuh); K45's is intt_scale's K4 form
 //     into the intermediate, then rowmod_core.cuh's conversion.
-//   * K6 runs the forward stages over both elements' 2 * kql rows, then
-//     one tile pass per (tile, element row) whose epilogue is the
-//     mod-down: an optional Shoup multiply by t, the subtraction from
-//     ext's Q row and the Shoup multiply by P^-1.
+//   * K6's staged form runs the forward stages over both elements' 2 * kql
+//     rows, then one tile pass per (tile, element row) whose epilogue is
+//     the mod-down: an optional Shoup multiply by t, the subtraction from
+//     ext's Q row, the Shoup multiply by P^-1 and the optional addend.
 //   * K6f's staged form is the same stages, then one tile pass per (tile,
 //     Q tower) that keeps c0 and c1 of its tile in registers and runs
 //     both elements' tile stages.
@@ -101,9 +113,9 @@
 
 namespace {
 
-// K1t tile pass: c2 = a1 * b1 for one (tile, tower), written out, then the
-// first inverse stages; with `scale` (no device stage follows) the folded
-// constant too.
+// K1t's staged tile pass: c2 = a1 * b1 for one (tile, tower), written
+// out, then the first inverse stages; with `scale` (no device stage
+// follows) the folded constant too.
 __global__ void tensor_intt_tile(const uint32_t* __restrict__ a1,
                                  const uint32_t* __restrict__ b1,
                                  uint32_t* __restrict__ c2,
@@ -203,7 +215,8 @@ __global__ void submul_tile(const uint32_t* __restrict__ src,
 
 // K6 tile pass, one (tile, element row e * kql + tau) per block: the last
 // forward stages of src[e, tau], then
-// out[e, tau] = (ext[e, tau] - t * NTT(convq[e, tau])) * P^-1.
+// out[e, tau] = (ext[e, tau] - t * NTT(convq[e, tau])) * P^-1, plus
+// add_e[tau] where element e's addend is not null.
 __global__ void subscale_tile(const uint32_t* __restrict__ src,
                               const uint32_t* __restrict__ ext,
                               uint32_t* __restrict__ out,
@@ -213,7 +226,9 @@ __global__ void subscale_tile(const uint32_t* __restrict__ src,
                               const uint32_t* __restrict__ t,
                               const uint32_t* __restrict__ t_sh,
                               const uint32_t* __restrict__ pinv,
-                              const uint32_t* __restrict__ pinv_sh, int kql,
+                              const uint32_t* __restrict__ pinv_sh,
+                              const uint32_t* __restrict__ add0,
+                              const uint32_t* __restrict__ add1, int kql,
                               int kqlp, int t_mul, int log_n, int log_tile) {
   __shared__ uint32_t s[1 << kMaxTileLog];
   const int row = blockIdx.y;
@@ -233,10 +248,13 @@ __global__ void subscale_tile(const uint32_t* __restrict__ src,
       ext + ((static_cast<size_t>(e) * kqlp + tau) << log_n) + col0;
   const uint32_t tv = t[tau], tv_sh = t_sh[tau];
   const uint32_t pv = pinv[tau], pv_sh = pinv_sh[tau];
+  const uint32_t* add = e ? add1 : add0;
+  if (add) add += tw0 + col0;
   for (uint32_t x = threadIdx.x; x < size; x += blockDim.x) {
     uint32_t v = s[x];
     if (t_mul) v = mul_shoup(v, tv, tv_sh, q);        // block-uniform
-    out[base + x] = mul_shoup(sub_mod(xe[x], v, q), pv, pv_sh, q);
+    v = mul_shoup(sub_mod(xe[x], v, q), pv, pv_sh, q);
+    out[base + x] = add ? add_mod(v, add[x], q) : v;
   }
 }
 
@@ -323,16 +341,8 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads, 1)
       }
     };
     if (own) {
-      const uint4* s4 = reinterpret_cast<const uint4*>(c2 + tw0 + x0);
       uint32_t a[kR];
-#pragma unroll
-      for (int v = 0; v < kR / 4; ++v) {
-        const uint4 w = s4[v];
-        a[4 * v] = w.x;
-        a[4 * v + 1] = w.y;
-        a[4 * v + 2] = w.z;
-        a[4 * v + 3] = w.w;
-      }
+      load_words(a, c2 + tw0 + x0);
       keymul(a, x0);
     } else {
       fwd_cluster_row<LOG_N>(
@@ -483,6 +493,140 @@ template <int... I>
 SubmulKernel submul_kernel(int log_n, std::integer_sequence<int, I...>) {
   static const SubmulKernel kernels[] = {
       submul_cluster<kMinClusterLogN + I>...};
+  return kernels[log_n - kMinClusterLogN];
+}
+
+// K1t on the cluster NTT: cluster c takes Q tower tau = c; the inverse
+// cluster transform (inv_cluster_row) whose load hook forms the tensor
+// product c2 = a1 * b1 on each thread's kR consecutive words, 4 at a time
+// with 16-byte loads, each 64-bit product reduced by reduce_wide with the
+// tower's Basis.red64 row, writes c2 at the words it read (EVAL, as it
+// came) as soon as it is formed, and hands the words to the transform; its
+// last multiply folds N^-1 (B_j/b_i)^-1 (scale) in. a1, b1, c2, y: [kql, N];
+// ipsi(_sh): [kql, N]; qs, scale(_sh): [kql]; red: [kql, 3].
+template <int LOG_N>
+__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
+                                  Geometry<LOG_N>::kMinBlocks)
+    tensor_intt_cluster(const uint32_t* __restrict__ a1,
+                        const uint32_t* __restrict__ b1,
+                        uint32_t* __restrict__ c2, uint32_t* y,
+                        const uint32_t* __restrict__ ipsi,
+                        const uint32_t* __restrict__ ipsi_sh,
+                        const uint32_t* __restrict__ qs,
+                        const uint32_t* __restrict__ scale,
+                        const uint32_t* __restrict__ scale_sh,
+                        const uint32_t* __restrict__ red) {
+  extern __shared__ __align__(16) uint32_t tile[];
+  const int tau = static_cast<int>(blockIdx.x >> Geometry<LOG_N>::kLogC);
+  const size_t row = static_cast<size_t>(tau) << LOG_N;
+  const uint32_t q = qs[tau];
+  auto load = [&](uint32_t (&a)[kR], uint32_t x) {
+    const uint32_t r32 = red[3 * tau], r32_sh = red[3 * tau + 1],
+                   m32 = red[3 * tau + 2];
+#pragma unroll
+    for (int v = 0; v < kR / 4; ++v) {
+      const size_t at = row + x + 4 * v;
+      const Words4 u = load4(a1 + at), w = load4(b1 + at);
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        a[4 * v + l] = reduce_wide(static_cast<uint64_t>(u.v[l]) * w.v[l], q,
+                                   r32, r32_sh, m32);
+      *reinterpret_cast<uint4*>(c2 + at) =
+          make_uint4(a[4 * v], a[4 * v + 1], a[4 * v + 2], a[4 * v + 3]);
+    }
+  };
+  inv_cluster_row<LOG_N>(load, y + row, ipsi + row, ipsi_sh + row, q,
+                         scale + tau, scale_sh + tau, tile);
+}
+
+using TensorInttKernel = void (*)(const uint32_t*, const uint32_t*,
+                                  uint32_t*, uint32_t*, const uint32_t*,
+                                  const uint32_t*, const uint32_t*,
+                                  const uint32_t*, const uint32_t*,
+                                  const uint32_t*);
+
+template <int... I>
+TensorInttKernel tensor_intt_kernel(int log_n,
+                                    std::integer_sequence<int, I...>) {
+  static const TensorInttKernel kernels[] = {
+      tensor_intt_cluster<kMinClusterLogN + I>...};
+  return kernels[log_n - kMinClusterLogN];
+}
+
+// K6's operands: one kernel parameter, read in place (__grid_constant__).
+struct SubscaleArgs {
+  const uint32_t* convq;     // [2, kql, N] COEFF
+  const uint32_t* ext;       // [2, ext_rows, N] EVAL, rows tau < kql read
+  const uint32_t* add0;      // [kql, N] EVAL, added to element 0, or null
+  const uint32_t* add1;      // the same for element 1
+  uint32_t* out;             // [2, kql, N] EVAL
+  const uint32_t* psi;       // [kql, N]
+  const uint32_t* psi_sh;
+  const uint32_t* qs;        // [kql]
+  const uint32_t* t;         // [kql] t mod q_i, read when t_mul
+  const uint32_t* t_sh;
+  const uint32_t* pinv;      // [kql] P^-1 mod q_i
+  const uint32_t* pinv_sh;
+  int kql, ext_rows, t_mul;
+};
+
+// K6 on the cluster NTT, in submul_cluster's shape: cluster c takes element
+// e = c % 2 of Q tower tau = c / 2 (one transform a cluster), the forward
+// transform of convq[e, tau], then an epilogue on each thread's kR
+// consecutive output words a at row word x, 4 at a time with 16-byte
+// loads: out[e, tau] = (ext[e, tau] - t a) * P^-1 (t a by a Shoup
+// multiply, only when t_mul: the transform's words are canonical already),
+// plus add_e[tau] where element e's addend is set (Relinearize's e0 / e1,
+// an automorphism's or KeySwitch's c0: the caller's final add, in no extra
+// launch). t_mul and the addend's pointer are uniform over the cluster.
+template <int LOG_N>
+__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
+                                  Geometry<LOG_N>::kMinBlocks)
+    subscale_cluster(const __grid_constant__ SubscaleArgs p) {
+  extern __shared__ __align__(16) uint32_t tile[];
+  const uint32_t c = blockIdx.x >> Geometry<LOG_N>::kLogC;
+  const int e = static_cast<int>(c & 1), tau = static_cast<int>(c >> 1);
+  const uint32_t q = p.qs[tau];
+  const size_t tw0 = static_cast<size_t>(tau) << LOG_N;
+  auto epi = [&](const uint32_t (&a)[kR], uint32_t x) {
+    const uint32_t* xe =
+        p.ext + ((static_cast<size_t>(e) * p.ext_rows + tau) << LOG_N);
+    uint32_t* oe = p.out + ((static_cast<size_t>(e) * p.kql + tau) << LOG_N);
+    const uint32_t* add = e ? p.add1 : p.add0;
+    const uint32_t pv = p.pinv[tau], pv_sh = p.pinv_sh[tau];
+    uint32_t tv = 0, tv_sh = 0;
+    if (p.t_mul) {
+      tv = p.t[tau];
+      tv_sh = p.t_sh[tau];
+    }
+#pragma unroll
+    for (int v = 0; v < kR / 4; ++v) {
+      const Words4 xv = load4(xe + x + 4 * v);
+      Words4 av = {};
+      if (add) av = load4(add + tw0 + x + 4 * v);
+      uint32_t r[4];
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        uint32_t w = a[4 * v + l];
+        if (p.t_mul) w = mul_shoup_q(w, tv, tv_sh, q);
+        r[l] = mul_shoup_q(sub_q(xv.v[l], w, q), pv, pv_sh, q);
+        if (add) r[l] = add_q(r[l], av.v[l], q);
+      }
+      *reinterpret_cast<uint4*>(oe + x + 4 * v) =
+          make_uint4(r[0], r[1], r[2], r[3]);
+    }
+  };
+  fwd_cluster_row<LOG_N>(
+      p.convq + ((static_cast<size_t>(e) * p.kql + tau) << LOG_N),
+      p.psi + tw0, p.psi_sh + tw0, q, tile, epi);
+}
+
+using SubscaleKernel = void (*)(const SubscaleArgs);
+
+template <int... I>
+SubscaleKernel subscale_kernel(int log_n, std::integer_sequence<int, I...>) {
+  static const SubscaleKernel kernels[] = {
+      subscale_cluster<kMinClusterLogN + I>...};
   return kernels[log_n - kMinClusterLogN];
 }
 
@@ -670,17 +814,43 @@ int pconv_run(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
 
 int keymul_placeable[kMaxClusterLogN + 1],
     intt_p_placeable[kMaxClusterLogN + 1],
-    submul_placeable[kMaxClusterLogN + 1];
+    submul_placeable[kMaxClusterLogN + 1],
+    tensor_intt_placeable[kMaxClusterLogN + 1],
+    subscale_placeable[kMaxClusterLogN + 1];
 
 }  // namespace
 
 // a1, b1, c2, y: [kql, N] words; ipsi(_sh): [kql, N] of the Q_l towers;
-// q, scale(_sh): [kql] with scale = N^-1 * (B_j/b_i)^-1 mod q_i.
+// q, scale(_sh): [kql] with scale = N^-1 * (B_j/b_i)^-1 mod q_i; red:
+// [kql, 3] (Basis.red64 of Q_l). One launch of tensor_intt_cluster; refuses
+// rings outside 2^4 .. 2^17 (tensor_intt_staged serves them) and operands
+// off a 16-byte boundary.
 extern "C" int tensor_intt(const void* a1, const void* b1, void* c2, void* y,
                            const void* ipsi, const void* ipsi_sh,
                            const void* q, const void* scale,
-                           const void* scale_sh, int kql, int log_n,
-                           void* stream) {
+                           const void* scale_sh, const void* red, int kql,
+                           int log_n, void* stream) {
+  if (int bad = check_cluster(a1, y, kql, kql, log_n)) return bad;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(b1) | reinterpret_cast<uintptr_t>(c2);
+  if (align % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  return launch_cluster(tensor_intt_kernel(log_n, ClusterRings{}),
+                        &tensor_intt_placeable[log_n], kql, log_n,
+                        static_cast<cudaStream_t>(stream), in(a1), in(b1),
+                        static_cast<uint32_t*>(c2), static_cast<uint32_t*>(y),
+                        in(ipsi), in(ipsi_sh), in(q), in(scale),
+                        in(scale_sh), in(red));
+}
+
+// The same function on the staged NTT passes, any ring: tensor_intt_tile,
+// then the inverse stages of ntt_core.cuh; the arguments of tensor_intt
+// without red.
+extern "C" int tensor_intt_staged(const void* a1, const void* b1, void* c2,
+                                  void* y, const void* ipsi,
+                                  const void* ipsi_sh, const void* q,
+                                  const void* scale, const void* scale_sh,
+                                  int kql, int log_n, void* stream) {
   if (int bad = check_shape(kql, kql, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* yp = static_cast<uint32_t*>(y);
@@ -873,15 +1043,45 @@ extern "C" int intt_conv_p_staged(const void* ext, void* pc, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// convq: [2, kql, N] COEFF; ext: [2, kql + kp, N] EVAL; scratch, out:
-// [2, kql, N]; psi(_sh): [kql, N]; q, t(_sh), pinv(_sh): [kql] with
-// t = ns_int mod q_i (multiplied only when t_mul) and pinv = P^-1 mod q_i.
-extern "C" int ntt_subscale(const void* convq, const void* ext,
-                            void* scratch, void* out, const void* psi,
-                            const void* psi_sh, const void* q, const void* t,
-                            const void* t_sh, const void* pinv,
-                            const void* pinv_sh, int kql, int kp, int t_mul,
-                            int log_n, void* stream) {
+// convq: [2, kql, N] COEFF; ext: [2, kql + kp, N] EVAL; out: [2, kql, N];
+// psi(_sh): [kql, N]; q, t(_sh), pinv(_sh): [kql] with t = ns_int mod q_i
+// (multiplied only when t_mul) and pinv = P^-1 mod q_i; add0, add1: [kql,
+// N] EVAL or null, added to element 0 / 1 of out. One launch of
+// subscale_cluster; refuses rings outside 2^4 .. 2^17 (ntt_subscale_staged
+// serves them) and operands off a 16-byte boundary.
+extern "C" int ntt_subscale(const void* convq, const void* ext, void* out,
+                            const void* psi, const void* psi_sh,
+                            const void* q, const void* t, const void* t_sh,
+                            const void* pinv, const void* pinv_sh,
+                            const void* add0, const void* add1, int kql,
+                            int kp, int t_mul, int log_n, void* stream) {
+  if (int bad = check_cluster(convq, out, 2 * kql, kql, log_n)) return bad;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(ext) |
+                          reinterpret_cast<uintptr_t>(add0) |
+                          reinterpret_cast<uintptr_t>(add1);
+  if (kp < 0 || align % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  const SubscaleArgs args = {in(convq), in(ext), in(add0), in(add1),
+                             static_cast<uint32_t*>(out), in(psi),
+                             in(psi_sh), in(q), in(t), in(t_sh), in(pinv),
+                             in(pinv_sh), kql, kql + kp, t_mul};
+  return launch_cluster(subscale_kernel(log_n, ClusterRings{}),
+                        &subscale_placeable[log_n], 2 * kql, log_n,
+                        static_cast<cudaStream_t>(stream), args);
+}
+
+// The same function on the staged NTT passes, any ring: the forward stages
+// of ntt_core.cuh over both elements' rows into scratch ([2, kql, N]), then
+// subscale_tile; the arguments of ntt_subscale with scratch before out.
+extern "C" int ntt_subscale_staged(const void* convq, const void* ext,
+                                   void* scratch, void* out, const void* psi,
+                                   const void* psi_sh, const void* q,
+                                   const void* t, const void* t_sh,
+                                   const void* pinv, const void* pinv_sh,
+                                   const void* add0, const void* add1,
+                                   int kql, int kp, int t_mul, int log_n,
+                                   void* stream) {
   if (int bad = check_shape(2 * kql, kql, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const uint32_t*>(psi);
@@ -898,7 +1098,9 @@ extern "C" int ntt_subscale(const void* convq, const void* ext,
                         static_cast<const uint32_t*>(t),
                         static_cast<const uint32_t*>(t_sh),
                         static_cast<const uint32_t*>(pinv),
-                        static_cast<const uint32_t*>(pinv_sh), kql, kql + kp,
+                        static_cast<const uint32_t*>(pinv_sh),
+                        static_cast<const uint32_t*>(add0),
+                        static_cast<const uint32_t*>(add1), kql, kql + kp,
                         t_mul, log_n, log_tile);
   return static_cast<int>(cudaGetLastError());
 }

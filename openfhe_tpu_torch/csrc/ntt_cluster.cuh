@@ -35,12 +35,15 @@
 //      (fwd_cluster_row): ntt_fwd writes them straight to device memory,
 //      ks_fused.cu's key product multiplies them by the key's words at the
 //      same indices and runs the transform once per digit in one launch.
-// The inverse is the mirror image: the first round reads 16 consecutive
-// words a thread, the tile's stages run from span 1 up, a cluster barrier,
-// then block r gathers slot (i, p) from block i's shared memory, runs the
-// last 4 stages and the N^-1 multiply in registers and writes the words; a
-// last cluster barrier keeps every block's shared memory alive until the
-// other blocks have read it.
+// The inverse is the mirror image: the first round takes 16 consecutive
+// words a thread from a load hook (inv_cluster_row: ntt_inv reads them in
+// place, ks_fused.cu's K1t forms them as the tensor product a1 * b1 and
+// writes that beside), the tile's stages run from span 1 up, a cluster
+// barrier, then block r gathers slot (i, p) from block i's shared memory,
+// runs the last 4 stages and the N^-1 multiply (or N^-1 times a folded
+// per-tower constant) in registers and writes the words; a last cluster
+// barrier keeps every block's shared memory alive until the other blocks
+// have read it.
 //
 // So the words cross device memory once each way, and each block reads the
 // twiddles of its own tile's stages (about W pairs) once. What bounds it:
@@ -287,14 +290,15 @@ __host__ __device__ constexpr int inv_round_hi(int lo_b, int top) {
 }
 
 // The inverse rounds from tile index bit LO_B up to Geometry::kLo1, in
-// shared memory; `tw` holds this round's twiddles on entry. The first
-// (LO_B = 0, slots on bits 0 .. kLogR - 1) reads its kR consecutive words
-// from src + base; every round leaves its words in the tile.
-template <int LOG_N, int LO_B>
+// shared memory; `tw` holds this round's twiddles on entry, except in the
+// first (LO_B = 0, slots on bits 0 .. kLogR - 1), which takes its kR
+// consecutive words, row words x_tile + base .. + kR - 1, from the load
+// hook, load(a, x_tile + base), and then loads its twiddles. Every round
+// leaves its words in the tile.
+template <int LOG_N, int LO_B, typename Load>
 __device__ __forceinline__ void inv_rounds(uint32_t (&a)[kR], Twiddles& tw,
                                            uint32_t* tile, uint32_t tid,
-                                           uint32_t x_tile,
-                                           const uint32_t* src,
+                                           uint32_t x_tile, Load& load,
                                            const uint32_t* __restrict__ ipsi,
                                            const uint32_t* __restrict__ ipsi_sh,
                                            uint32_t q) {
@@ -304,15 +308,9 @@ __device__ __forceinline__ void inv_rounds(uint32_t (&a)[kR], Twiddles& tw,
   const uint32_t base = round_base<G::kLogW, kLo>(tid);
   const uint32_t pb = phys<G::kLogW>(base);
   if constexpr (LO_B == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(src + base);
-#pragma unroll
-    for (int v = 0; v < kR / 4; ++v) {
-      const uint4 w = s4[v];
-      a[4 * v] = w.x;
-      a[4 * v + 1] = w.y;
-      a[4 * v + 2] = w.z;
-      a[4 * v + 3] = w.w;
-    }
+    load(a, x_tile + base);
+    load_twiddles<LOG_N, kLo, 0, kHi - 1 - kLo>(tw, x_tile + base, ipsi,
+                                                ipsi_sh);
   } else {
 #pragma unroll
     for (int s = 0; s < kR; ++s)
@@ -328,7 +326,22 @@ __device__ __forceinline__ void inv_rounds(uint32_t (&a)[kR], Twiddles& tw,
     load_twiddles<LOG_N, kLo2, kHi - kLo2, kHi2 - 1 - kLo2>(
         tw, x_tile + round_base<G::kLogW, kLo2>(tid), ipsi, ipsi_sh);
     __syncthreads();
-    inv_rounds<LOG_N, kHi>(a, tw, tile, tid, x_tile, src, ipsi, ipsi_sh, q);
+    inv_rounds<LOG_N, kHi>(a, tw, tile, tid, x_tile, load, ipsi, ipsi_sh,
+                           q);
+  }
+}
+
+// Load a thread's kR consecutive words a from src (16-byte aligned).
+__device__ __forceinline__ void load_words(uint32_t (&a)[kR],
+                                           const uint32_t* src) {
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int v = 0; v < kR / 4; ++v) {
+    const uint4 w = s4[v];
+    a[4 * v] = w.x;
+    a[4 * v + 1] = w.y;
+    a[4 * v + 2] = w.z;
+    a[4 * v + 3] = w.w;
   }
 }
 
@@ -445,56 +458,43 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
                          psi_sh + tw0, qs[tower], tile, store);
 }
 
-// The inverse, times a per-tower constant (ninv, ninv_sh: N^-1, or N^-1
-// times a scale folded in); the layout and launch of fwd_cluster, except
-// that output row r reads input row (r / k) * in_rows + in_off + r % k, so
-// that k rows of every in_rows are read in place (in_rows = k, in_off = 0
-// for a plain transform).
-template <int LOG_N>
-__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
-                                  Geometry<LOG_N>::kMinBlocks)
-    inv_cluster(const uint32_t* x, uint32_t* out,
-                const uint32_t* __restrict__ ipsi,
-                const uint32_t* __restrict__ ipsi_sh,
-                const uint32_t* __restrict__ qs,
-                const uint32_t* __restrict__ ninv,
-                const uint32_t* __restrict__ ninv_sh, int k, int in_rows,
-                int in_off) {
+// The inverse transform of one row (N = 2^LOG_N words, EVAL) in the
+// cluster of this block, times the tower's constant c[0] (c_sh[0] its
+// companion: N^-1, or N^-1 times a scale folded in), into dst (COEFF), with
+// the tower's twiddles ipsi / ipsi_sh, modulus q and the block's tile. The
+// input comes from the load hook, the mirror of fwd_cluster_row's epilogue:
+// load(a, x) fills a thread's kR consecutive words from row word x on (x a
+// multiple of kR), once per thread, before any other read of the row (a
+// read in place for ntt_inv and K45, the tensor product for ks_fused.cu's
+// K1t). Every block of the cluster must call it together; it ends with a
+// cluster barrier, so that no block's tile is read after the block exits.
+template <int LOG_N, typename Load>
+__device__ __forceinline__ void inv_cluster_row(
+    Load& load, uint32_t* dst, const uint32_t* __restrict__ ipsi,
+    const uint32_t* __restrict__ ipsi_sh, uint32_t q,
+    const uint32_t* __restrict__ c, const uint32_t* __restrict__ c_sh,
+    uint32_t* tile) {
   using G = Geometry<LOG_N>;
   constexpr int kP = kLogR - G::kLogC;
-  extern __shared__ __align__(16) uint32_t tile[];
   const uint32_t rank = blockIdx.x & ((1u << G::kLogC) - 1);
-  const uint32_t row = blockIdx.x >> G::kLogC;
-  const int tower = row % k;
-  const uint32_t q = qs[tower];
-  const size_t tw0 = static_cast<size_t>(tower) << LOG_N;
-  ipsi += tw0;
-  ipsi_sh += tw0;
   const uint32_t tid = threadIdx.x;
   const uint32_t j = rank * G::kThreads + tid;
   const uint32_t x_tile = rank << G::kLogW;
-  const uint32_t* src =
-      x + (static_cast<size_t>(row / k * in_rows + in_off + tower) << LOG_N);
   uint32_t a[kR];
   Twiddles tw;
 
   // 1. the tile's stages below bit kLo1, kLogR a round from the bottom
-  if constexpr (G::kLo1 > 0) {
-    constexpr int kLo = inv_round_lo(0, G::kLo1);
-    constexpr int kHi = inv_round_hi(0, G::kLo1);
-    load_twiddles<LOG_N, kLo, 0, kHi - 1 - kLo>(
-        tw, x_tile + round_base<G::kLogW, kLo>(tid), ipsi, ipsi_sh);
-    inv_rounds<LOG_N, 0>(a, tw, tile, tid, x_tile, src + x_tile, ipsi,
-                         ipsi_sh, q);
-  }
+  if constexpr (G::kLo1 > 0)
+    inv_rounds<LOG_N, 0>(a, tw, tile, tid, x_tile, load, ipsi, ipsi_sh, q);
 
   // 2. the last kLogR stages on words j + (s << kLo1): the tile's top kP
-  // and the cross-block ones, then N^-1
-  load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, ipsi, ipsi_sh);
+  // and the cross-block ones, then the constant
   if constexpr (G::kLo1 == 0) {
-#pragma unroll
-    for (int s = 0; s < kR; ++s) a[s] = src[j + s];
+    // the whole row is one round (N = 2^kLogR): its words are the input
+    load(a, j);
+    load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, ipsi, ipsi_sh);
   } else {
+    load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, ipsi, ipsi_sh);
     const uint32_t pj = phys<G::kLogW>(j);
     if constexpr (G::kLogC > 0) {
       cg::cluster_group cluster = cg::this_cluster();
@@ -515,13 +515,42 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
     }
   }
   inv_butterflies<0, kLogR - 1>(a, tw, q);
-  const uint32_t c = ninv[tower], c_sh = ninv_sh[tower];
-  uint32_t* dst = out + (static_cast<size_t>(row) << LOG_N);
+  const uint32_t cv = c[0], cv_sh = c_sh[0];
 #pragma unroll
   for (int s = 0; s < kR; ++s)
-    dst[j + (s << G::kLo1)] = mul_shoup_q(a[s], c, c_sh, q);
+    dst[j + (s << G::kLo1)] = mul_shoup_q(a[s], cv, cv_sh, q);
   if constexpr (G::kLogC > 0)
     cg::this_cluster().sync();   // no block's tile is read after it exits
+}
+
+// The inverse, times a per-tower constant (ninv, ninv_sh: N^-1, or N^-1
+// times a scale folded in); the layout and launch of fwd_cluster, except
+// that output row r reads input row (r / k) * in_rows + in_off + r % k, so
+// that k rows of every in_rows are read in place (in_rows = k, in_off = 0
+// for a plain transform).
+template <int LOG_N>
+__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
+                                  Geometry<LOG_N>::kMinBlocks)
+    inv_cluster(const uint32_t* x, uint32_t* out,
+                const uint32_t* __restrict__ ipsi,
+                const uint32_t* __restrict__ ipsi_sh,
+                const uint32_t* __restrict__ qs,
+                const uint32_t* __restrict__ ninv,
+                const uint32_t* __restrict__ ninv_sh, int k, int in_rows,
+                int in_off) {
+  using G = Geometry<LOG_N>;
+  extern __shared__ __align__(16) uint32_t tile[];
+  const uint32_t row = blockIdx.x >> G::kLogC;
+  const int tower = row % k;
+  const size_t tw0 = static_cast<size_t>(tower) << LOG_N;
+  const uint32_t* src =
+      x + (static_cast<size_t>(row / k * in_rows + in_off + tower) << LOG_N);
+  auto load = [src](uint32_t (&a)[kR], uint32_t x0) {
+    load_words(a, src + x0);
+  };
+  inv_cluster_row<LOG_N>(load, out + (static_cast<size_t>(row) << LOG_N),
+                         ipsi + tw0, ipsi_sh + tw0, qs[tower], ninv + tower,
+                         ninv_sh + tower, tile);
 }
 
 // ---------------------------------------------------------------------------

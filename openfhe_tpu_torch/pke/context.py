@@ -78,9 +78,7 @@ def mult_relin_hybrid(a0, a1, b0, b1, ek: EvalKey,
 def relin_hybrid(e0, e1, e2, ek: EvalKey, tabs: hybrid.HybridTables):
     """(e0, e1, e2) -> (e0 + d0, e1 + d1) with (d0, d1) the key switch of
     e2, as the JAX package's `_k_relin_hybrid`."""
-    d0, d1 = hybrid.keyswitch_core(e2, ek, tabs)
-    q = tabs.basis_ql.q
-    return mo.add_mod(e0, d0, q), mo.add_mod(e1, d1, q)
+    return hybrid.keyswitch_core(e2, ek, tabs, e0, e1)
 
 
 def automorph_hybrid(elems, idx: torch.Tensor, ek: EvalKey,
@@ -90,8 +88,7 @@ def automorph_hybrid(elems, idx: torch.Tensor, ek: EvalKey,
     `idx`, the second key-switched from s(X^g) back to s, its first half
     added to the first."""
     rot = [torch.index_select(c, -1, idx) for c in elems]
-    d0, d1 = hybrid.keyswitch_core(rot[1], ek, tabs)
-    return mo.add_mod(rot[0], d0, tabs.basis_ql.q), d1
+    return hybrid.keyswitch_core(rot[1], ek, tabs, rot[0])
 
 
 class CryptoContext:
@@ -469,10 +466,9 @@ class CryptoContext:
         """Switch a 2-element ciphertext to the key `ek` targets."""
         self._two_elements(ct, "KeySwitch")
         tabs = self.hybrid_tables(self.size_ql(ct.level))
-        d0, d1 = hybrid.keyswitch_core(ct.elements[1], ek, tabs)
         return dataclasses.replace(
-            ct, elements=(mo.add_mod(ct.elements[0], d0, tabs.basis_ql.q),
-                          d1),
+            ct, elements=hybrid.keyswitch_core(ct.elements[1], ek, tabs,
+                                               ct.elements[0]),
             key_tag=ek.key_tag)
 
     # ------------------------------------------------------------------

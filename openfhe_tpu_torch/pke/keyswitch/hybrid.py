@@ -186,17 +186,23 @@ def _mod_down_pair(ext0, ext1, tabs: HybridTables):
                  for ext in (ext0, ext1))
 
 
-def keyswitch_core(c: torch.Tensor, ek: EvalKey, tabs: HybridTables):
+def keyswitch_core(c: torch.Tensor, ek: EvalKey, tabs: HybridTables,
+                   add0: torch.Tensor | None = None,
+                   add1: torch.Tensor | None = None):
     """KeySwitchCore on one polynomial (usually ct[last]): returns
-    (delta0, delta1) over Q_l in EVAL. The fused chain when the tables
-    carry it (a CUDA context), which needs the key's Shoup companions;
-    else the unfused chain."""
+    (delta0, delta1) over Q_l in EVAL, each plus its addend where one is
+    given ([size_ql, N] EVAL: the caller's final add). The fused chain when
+    the tables carry it (a CUDA context), which needs the key's Shoup
+    companions and adds in its last kernel; else the unfused chain."""
     if tabs.fused is not None:
         require_companions(ek)
         return ks_fused.keyswitch_core_fused(c, ek.bv, ek.av, ek.bv_sh,
-                                             ek.av_sh, tabs.fused)
-    return _mod_down_pair(*_fast_core_ext(_decompose_digits(c, tabs), ek,
-                                          tabs), tabs)
+                                             ek.av_sh, tabs.fused, add0, add1)
+    d = _mod_down_pair(*_fast_core_ext(_decompose_digits(c, tabs), ek, tabs),
+                       tabs)
+    q = tabs.basis_ql.q
+    return tuple(x if a is None else mo.add_mod(a, x, q)
+                 for x, a in zip(d, (add0, add1)))
 
 
 def eval_fast_rotation_precompute(c1: torch.Tensor, tabs: HybridTables):

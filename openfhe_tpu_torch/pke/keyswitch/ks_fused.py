@@ -21,7 +21,10 @@ give way to
 
   intt_scale        (K1)  y = INTT(c2) * (B_j/b_i)^-1; the same kernel
                           does K4's INTT of ext's P rows (`p_rows`)
-  ntt_subscale      (K6)  out = (ext - t * NTT(convq)) * P^-1
+  ntt_subscale      (K6)  out = (ext - t * NTT(convq)) * P^-1, plus an
+                          optional addend per element (the caller's final
+                          add: Relinearize's e0, e1; an automorphism's or
+                          KeySwitch's c0)
 
 Every step is exact modular arithmetic on canonical residues, so the
 words equal the unfused chain's (`hybrid.keyswitch_core`, with the tensor
@@ -39,15 +42,16 @@ kernels that read it (`intt_conv_p` through t^-1 in its scale,
 
 Each kernel has a wrapper and its plain twin (`_..._ref`) here. The
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises. K3, K45 and K6f run on the cluster NTT
-(`csrc/ntt_cluster.cuh`) where `ops.ntt.cluster_geometry` takes the ring
-(2^4 <= N <= 2^17): K3 and K6f in one launch each, K45 in two. Their
-former forms on the staged NTT passes, `ntt_keymul_acc_staged`,
-`intt_conv_p_staged` and `ntt_submul_final_staged`, serve every other
+launches the kernel or raises. K1t, K3, K45, K6 and K6f run on the
+cluster NTT (`csrc/ntt_cluster.cuh`) where `ops.ntt.cluster_geometry`
+takes the ring (2^4 <= N <= 2^17): K1t, K3, K6 and K6f in one launch
+each, K45 in two. Their former forms on the staged NTT passes,
+`tensor_intt_staged`, `ntt_keymul_acc_staged`, `intt_conv_p_staged`,
+`ntt_subscale_staged` and `ntt_submul_final_staged`, serve every other
 ring (the choice reads the ring alone) and are the yardstick the cluster
 forms are held against on the card. K2 reads y's digits in place; its
 former form `conv_digits_rowmod` takes them zero-padded (`_pad_digits`)
-and is its yardstick.
+and is its yardstick. K1 (`intt_scale`) still runs on the staged passes.
 """
 
 from __future__ import annotations
@@ -185,16 +189,30 @@ def _log_n(tabs: FusedKSTables) -> int:
 
 def tensor_intt(a1: torch.Tensor, b1: torch.Tensor, tabs: FusedKSTables):
     """K1t: a1, b1 [kql, N] EVAL -> (c2 = a1*b1 [kql, N] EVAL,
-    y = INTT(c2) * (B_j/b_i)^-1 [kql, N] COEFF)."""
+    y = INTT(c2) * (B_j/b_i)^-1 [kql, N] COEFF). On the card one launch of
+    the cluster kernel, or the staged one for rings it does not take."""
     if a1.device.type == "cpu":
         return _tensor_intt_ref(a1, b1, tabs)
+    entry = ("tensor_intt" if cluster_geometry(tabs.basis_qlp.ring_dim)
+             else "tensor_intt_staged")
+    return _tensor_intt_cu(a1, b1, tabs, entry)
+
+
+def tensor_intt_staged(a1: torch.Tensor, b1: torch.Tensor,
+                       tabs: FusedKSTables):
+    """K1t on the staged NTT passes, any ring; CUDA tensors only."""
+    return _tensor_intt_cu(a1, b1, tabs, "tensor_intt_staged")
+
+
+def _tensor_intt_cu(a1, b1, tabs: FusedKSTables, entry: str):
     kql = tabs.kql
-    _check("tensor_intt", tabs, a1=(a1, (kql,)), b1=(b1, (kql,)))
+    _check(entry, tabs, a1=(a1, (kql,)), b1=(b1, (kql,)))
     c2, y = torch.empty_like(a1), torch.empty_like(a1)
     bq = tabs.basis_ql
-    _build.launch("ks_fused", "tensor_intt", a1, b1, c2, y, bq.ipsi_br,
-                  bq.ipsi_br_sh, bq.q, tabs.k1_scale, tabs.k1_scale_sh, kql,
-                  _log_n(tabs))
+    red = () if entry.endswith("_staged") else (bq.red64,)
+    _build.launch("ks_fused", entry, a1, b1, c2, y, bq.ipsi_br,
+                  bq.ipsi_br_sh, bq.q, tabs.k1_scale, tabs.k1_scale_sh, *red,
+                  kql, _log_n(tabs))
     return c2, y
 
 
@@ -444,32 +462,70 @@ def _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
     return torch.stack([mo.add_mod(c0, d[0], q), mo.add_mod(c1, d[1], q)])
 
 
-def ntt_subscale(convq: torch.Tensor, ext: torch.Tensor,
-                 tabs: FusedKSTables) -> torch.Tensor:
+def ntt_subscale(convq: torch.Tensor, ext: torch.Tensor, tabs: FusedKSTables,
+                 add0: torch.Tensor | None = None,
+                 add1: torch.Tensor | None = None) -> torch.Tensor:
     """K6: convq [2, kql, N] COEFF and ext [2, kqlp, N] EVAL ->
     [2, kql, N] EVAL, out[e] = (ext[e, :kql] - t * NTT(convq[e])) * P^-1
-    (t = 1 unless the tables were made with ns_int)."""
+    (t = 1 unless the tables were made with ns_int), plus add_e [kql, N]
+    EVAL where it is given (the caller's final add: Relinearize's (e0, e1),
+    an automorphism's or KeySwitch's c0). On the card one launch of the
+    cluster kernel, or the staged one for rings it does not take."""
     if convq.device.type == "cpu":
-        return _ntt_subscale_ref(convq, ext, tabs)
+        _check_addends("ntt_subscale", tabs, add0, add1)
+        return _ntt_subscale_ref(convq, ext, tabs, add0, add1)
+    entry = ("ntt_subscale" if cluster_geometry(tabs.basis_qlp.ring_dim)
+             else "ntt_subscale_staged")
+    return _ntt_subscale_cu(convq, ext, tabs, add0, add1, entry)
+
+
+def ntt_subscale_staged(convq: torch.Tensor, ext: torch.Tensor,
+                        tabs: FusedKSTables,
+                        add0: torch.Tensor | None = None,
+                        add1: torch.Tensor | None = None) -> torch.Tensor:
+    """K6 on the staged NTT passes, any ring; CUDA tensors only."""
+    return _ntt_subscale_cu(convq, ext, tabs, add0, add1,
+                            "ntt_subscale_staged")
+
+
+def _check_addends(name: str, tabs: FusedKSTables, *adds) -> None:
+    """Each addend is None or a [kql, N] tensor (the twin's check: `_check`
+    holds a CUDA addend to it)."""
+    want = (tabs.kql, tabs.basis_qlp.ring_dim)
+    for e, add in enumerate(adds):
+        if add is not None and tuple(add.shape) != want:
+            raise ValueError(f"{name}: add{e} has shape {tuple(add.shape)}, "
+                             f"expected {want}")
+
+
+def _ntt_subscale_cu(convq, ext, tabs: FusedKSTables, add0, add1,
+                     entry: str) -> torch.Tensor:
     kql, kp = tabs.kql, tabs.kp
-    _check("ntt_subscale", tabs, convq=(convq, (2, kql)),
-           ext=(ext, (2, kql + kp)))
-    scratch, out = torch.empty_like(convq), torch.empty_like(convq)
+    adds = {f"add{e}": (a, (kql,)) for e, a in enumerate((add0, add1))
+            if a is not None}
+    _check(entry, tabs, convq=(convq, (2, kql)), ext=(ext, (2, kql + kp)),
+           **adds)
+    out = torch.empty_like(convq)
+    tail = ((torch.empty_like(convq), out) if entry.endswith("_staged")
+            else (out,))
     bq = tabs.basis_ql
-    _build.launch("ks_fused", "ntt_subscale", convq, ext, scratch, out,
-                  bq.psi_br, bq.psi_br_sh, bq.q, tabs.t_modq, tabs.t_modq_sh,
-                  tabs.pinv_q, tabs.pinv_q_sh, kql, kp,
+    _build.launch("ks_fused", entry, convq, ext, *tail, bq.psi_br,
+                  bq.psi_br_sh, bq.q, tabs.t_modq, tabs.t_modq_sh,
+                  tabs.pinv_q, tabs.pinv_q_sh, add0, add1, kql, kp,
                   int(not tabs.t_is_one), _log_n(tabs))
     return out
 
 
-def _ntt_subscale_ref(convq, ext, tabs: FusedKSTables):
+def _ntt_subscale_ref(convq, ext, tabs: FusedKSTables, add0=None,
+                      add1=None):
     bq = tabs.basis_ql
     s = _ntt_fwd_ref(convq, bq)
     if not tabs.t_is_one:
         s = mo.mul_mod_shoup(s, tabs.t_modq, tabs.t_modq_sh, bq.q)
-    return mo.mul_mod_shoup(mo.sub_mod(ext[:, :tabs.kql], s, bq.q),
-                            tabs.pinv_q, tabs.pinv_q_sh, bq.q)
+    out = mo.mul_mod_shoup(mo.sub_mod(ext[:, :tabs.kql], s, bq.q),
+                           tabs.pinv_q, tabs.pinv_q_sh, bq.q)
+    return torch.stack([o if a is None else mo.add_mod(o, a, bq.q)
+                        for o, a in zip(out, (add0, add1))])
 
 
 # ---------------------------------------------------------------------------
@@ -499,15 +555,17 @@ def mult_relin_fused(a0, a1, b0, b1, bv, av, bv_sh, av_sh,
     return out[0], out[1]
 
 
-def keyswitch_core_fused(c2, bv, av, bv_sh, av_sh, tabs: FusedKSTables):
+def keyswitch_core_fused(c2, bv, av, bv_sh, av_sh, tabs: FusedKSTables,
+                         add0=None, add1=None):
     """KeySwitchCore on one polynomial as one five-kernel chain.
 
     c2: [kql, N] EVAL; bv, av (+ companions): the key-switch key
-    [dnum, k_q_full + kp, N]. Returns (d0, d1) [kql, N] EVAL, the words of
-    `hybrid.keyswitch_core`'s unfused chain."""
+    [dnum, k_q_full + kp, N]; add0, add1: None or [kql, N] EVAL, added to
+    the result by K6. Returns (d0 + add0, d1 + add1) [kql, N] EVAL, the
+    words of `hybrid.keyswitch_core`'s unfused chain."""
     y = intt_scale(c2, tabs)
     conv = conv_digits(y, tabs)
     ext = ntt_keymul_acc(conv, c2, bv, bv_sh, av, av_sh, tabs)
     convq = intt_conv_p(ext, tabs)
-    out = ntt_subscale(convq, ext, tabs)
+    out = ntt_subscale(convq, ext, tabs, add0, add1)
     return out[0], out[1]

@@ -54,7 +54,8 @@ LMK_BATCH = 64
 OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "fwd_cluster",
        "inv_cluster", "rowmod",
        "tensor_intt_tile", "keymul_tile", "subscale_tile", "submul_tile",
-       "keymul_cluster", "pconv", "submul_cluster",
+       "keymul_cluster", "pconv", "submul_cluster", "tensor_intt_cluster",
+       "subscale_cluster",
        "ntt_small_kernel", "mod_matmul_kernel", "blind_rotate_kernel")
 
 

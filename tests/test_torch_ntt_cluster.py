@@ -170,9 +170,13 @@ def model_fwd(x, psi, q, log_w, epilogue=None):
     return out
 
 
-def model_inv(x, ipsi, q, ninv, log_w):
-    """inv_cluster, as model_fwd; ninv [rows]."""
+def model_inv(x, ipsi, q, ninv, log_w, load=None):
+    """inv_cluster, as model_fwd; ninv [rows]. Each thread's R consecutive
+    input words come from `load(rank, idx)` (the hook of
+    `inv_cluster_row`: idx [T, R] their row words, consecutive in each
+    thread; it returns a [rows, T, R]), by default read from x."""
     rows, n = x.shape
+    load = load or (lambda rank, idx: x[:, idx])
     log_n = n.bit_length() - 1
     c, t_n, kp, lo1 = _geometry(log_n, log_w)
     q = q[:, None]
@@ -190,7 +194,7 @@ def model_inv(x, ipsi, q, ninv, log_w):
             idx = base[:, None] | (slots << lo)[None, :]
             if lo_b == 0:
                 assert (idx == base[:, None] + slots).all()
-                a = x[:, x_tile + idx]
+                a = load(rank, x_tile + idx)
             else:
                 a = tiles[:, rank][:, phys(idx, log_w)]
             _stages(a, x_tile + base, lo, lo_b - lo, hi - 1 - lo, log_n,
@@ -205,7 +209,7 @@ def model_inv(x, ipsi, q, ninv, log_w):
         j = rank * t_n + tid
         idx = j[:, None] + (slots << lo1)[None, :]
         if lo1 == 0:
-            a = x[:, idx]
+            a = load(rank, idx)
         else:
             a = np.empty((rows, t_n, R), np.int64)
             for s in range(R):
