@@ -23,17 +23,23 @@ is not beside it. Phases, none of which catches its own failure:
    of 1, 1, 2, 4, 8, 8 blocks from 2^12 up); each call of `ntt_fwd` /
    `ntt_inv` must launch the cluster entry once and the staged one never.
    Their `ms` is device time with the host's launch cost taken out
-   (`device_ms`), `call_ms` one call; the seven kernels of the fused key
-   switches at
+   (`device_ms`), `call_ms` one call; the conversion (kernel k,
+   `mod_matmul_rowmod`: `pconv` of csrc/pconv_core.cuh) at the hoisted
+   rotation's digit -> complement and P -> Q shapes and at a batch of 2,
+   on words below 2^31 not reduced mod the input moduli, against its plain
+   version and its former form `mod_matmul_rowmod_eager`, one launch of
+   the entry a call and none of the former; the seven kernels of the fused
+   key switches at
    level 0 (31 Q towers), level 1 (30) and on a chain of the largest
    31-bit primes (4 Q + 2 P towers, N=2^16) in 2 digits and in 1,
    `intt_scale` also in its K4 form (ext's P rows, 2 elements) and
    `ntt_subscale` also with BGV's t = 65537 in the tables and with one and
    two addends (the final add it takes from Relinearize, KeySwitch and the
-   automorphisms). K1t, K3, K45, K6 and K6f (`tensor_intt`,
-   `ntt_keymul_acc`, `intt_conv_p`, `ntt_subscale`, `ntt_submul_final`,
-   on the cluster NTT) and K2 (`conv_digits`, y's digits read in place)
-   are also held against their former forms (`tensor_intt_staged`,
+   automorphisms). K1t, K1/K4, K3, K45, K6 and K6f (`tensor_intt`,
+   `intt_scale` in both forms, `ntt_keymul_acc`, `intt_conv_p`,
+   `ntt_subscale`, `ntt_submul_final`, on the cluster NTT) and K2
+   (`conv_digits`, y's digits read in place) are also held against their
+   former forms (`tensor_intt_staged`, `intt_scale_staged`,
    `ntt_keymul_acc_staged`, `intt_conv_p_staged`, `ntt_subscale_staged`,
    `ntt_submul_final_staged` on the staged NTT passes;
    `conv_digits_rowmod` over the zero-padded digits, the pad
@@ -55,7 +61,9 @@ is not beside it. Phases, none of which catches its own failure:
    and the same ops through the
    unfused chain (`dataclasses.replace(tables, fused=None)`: the NTT and
    conversion kernels); hoisted rotations (EvalFastRotationPrecompute +
-   EvalFastRotation, unfused by design); EvalConjugate; EvalInnerProduct
+   EvalFastRotation, unfused by design: each two launches of `ntt_fwd`,
+   `ntt_inv` and `mod_matmul_rowmod`, none of a former form);
+   EvalConjugate; EvalInnerProduct
    (EvalMult + the EvalSum ladder); Rescale; Decrypt. The fused words must
    equal the unfused ones at both levels and the port's plain path run on
    the CPU; the decryptions must be within the limits below; every kernel
@@ -122,7 +130,11 @@ no 32-bit integer products. Operations count what the function needs: a
 conversion counts only its nonzero weights, a key product skips the NTT
 of the digit's own rows (and reads only the extended digits' other
 rows). A term of kernel l's modular matmul counts MATMUL_TERM_OPS: the
-62-bit product (two 32-bit multiplies) and its 64-bit sum (two adds).
+62-bit product (two 32-bit multiplies) and its 64-bit sum (two adds). A
+conversion on pconv (k, K2, K45's second launch) counts LAZY_TERM_OPS a
+term (the lazy Shoup product and its 64-bit sum) and REDUCE_WIDE_OPS an
+output word (its one reduction); the eager conversion's and the key
+product's terms count ROWMOD_TERM_OPS.
 """
 
 from __future__ import annotations
@@ -144,6 +156,9 @@ INT32_OPS_PER_S = None     # int32_rate(), from the card, before any bound
 BUTTERFLY_OPS = 10     # Shoup multiply 5, add_mod 2, sub_mod 3
 SHOUP_OPS = 5
 ROWMOD_TERM_OPS = 7    # Shoup multiply 5 + add_mod 2
+LAZY_TERM_OPS = 5      # pconv's term: mul.hi, mul, mad + 64-bit add 2
+REDUCE_WIDE_OPS = 11   # a 64-bit sum reduced once: Shoup multiply 5,
+                       # Barrett step 4 (mul.hi, mad, csub 2), add_mod 2
 MATMUL_TERM_OPS = 4    # 62-bit product 2 + 64-bit sum 2
 MULMOD_OPS = 10        # a 64-bit product reduced mod q
 CENTRE_OPS = 3         # compare, select, subtract
@@ -151,24 +166,28 @@ DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
                        # the sign fix (compare and add)
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
-# the former forms: the staged NTT (csrc/ntt.cu) and K1t, K3, K45, K6 and
-# K6f on the staged NTT passes (csrc/ks_fused.cu), for rings above 2^17,
-# and K2 on rowmod_core.cuh over the zero-padded digits: the yardstick the
-# new forms are held against here; no launch on the main path
+# the former forms: the staged NTT (csrc/ntt.cu) and K1t, K1/K4, K3, K45,
+# K6 and K6f on the staged NTT passes (csrc/ks_fused.cu), for rings above
+# 2^17, K2 on rowmod_core.cuh over the zero-padded digits and kernel k's
+# eager conversion (csrc/rowmod.cu): the yardstick the new forms are held
+# against here; no launch on the main path
 STAGED = ("ntt_fwd_staged", "ntt_inv_staged", "tensor_intt_staged",
-          "ntt_keymul_acc_staged", "intt_conv_p_staged",
+          "intt_scale_staged", "ntt_keymul_acc_staged", "intt_conv_p_staged",
           "ntt_subscale_staged", "ntt_submul_final_staged",
-          "conv_digits_rowmod")
+          "conv_digits_rowmod", "mod_matmul_rowmod_eager")
 # the fused kernels on the cluster NTT
-FUSED_CLUSTER = ("tensor_intt", "ntt_keymul_acc", "intt_conv_p",
-                 "ntt_subscale", "ntt_submul_final")
-# the fused kernels held beside their former forms (`cluster_case`)
+FUSED_CLUSTER = ("tensor_intt", "intt_scale", "ntt_keymul_acc",
+                 "intt_conv_p", "ntt_subscale", "ntt_submul_final")
+# the kernels held beside their former forms (`cluster_case`,
+# `rowmod_case`)
 FORMER = {"tensor_intt": "tensor_intt_staged",
+          "intt_scale": "intt_scale_staged",
           "ntt_keymul_acc": "ntt_keymul_acc_staged",
           "intt_conv_p": "intt_conv_p_staged",
           "ntt_subscale": "ntt_subscale_staged",
           "ntt_submul_final": "ntt_submul_final_staged",
-          "conv_digits": "conv_digits_rowmod"}
+          "conv_digits": "conv_digits_rowmod",
+          "mod_matmul_rowmod": "mod_matmul_rowmod_eager"}
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
 BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
@@ -179,9 +198,9 @@ MULT_CHAIN = ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
 # device kernels of one EvalMult at N=2^16: K1t, K2, K3, K45's INTT and
 # conversion, K6f; nothing else (no digit pad)
 MULT_KERNELS = 6
-# device kernels of one Relinearize at N=2^16: K1's tile pass and 3 stages,
-# K2, K3, K45's INTT and conversion, K6 with the final add; nothing else
-RELIN_KERNELS = 9
+# device kernels of one Relinearize at N=2^16: K1 (one cluster INTT), K2,
+# K3, K45's INTT and conversion, K6 with the final add; nothing else
+RELIN_KERNELS = 6
 KS_CHAIN = ("intt_scale", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
             "ntt_subscale")
 SHARDED = ("mod_matmul", "conv_digits_rows", "conv_p_to_q_rows",
@@ -200,6 +219,8 @@ WHERE = {
     "ntt_inv_staged": ("csrc/ntt.cu", "openfhe_tpu/ops/ntt_fused.py:205"),
     "mod_matmul_rowmod": ("csrc/rowmod.cu",
                           "openfhe_tpu/ops/modmatmul.py:232"),
+    "mod_matmul_rowmod_eager": ("csrc/rowmod.cu",
+                                "openfhe_tpu/ops/modmatmul.py:232"),
     "tensor_intt": ("csrc/ks_fused.cu",
                     "openfhe_tpu/pke/keyswitch/ks_fused.py:366"),
     "tensor_intt_staged": ("csrc/ks_fused.cu",
@@ -207,6 +228,9 @@ WHERE = {
     "intt_scale": ("csrc/ks_fused.cu",
                    "openfhe_tpu/pke/keyswitch/ks_fused.py:422, "
                    "openfhe_tpu/pke/keyswitch/ks_fused.py:476"),
+    "intt_scale_staged": ("csrc/ks_fused.cu",
+                          "openfhe_tpu/pke/keyswitch/ks_fused.py:422, "
+                          "openfhe_tpu/pke/keyswitch/ks_fused.py:476"),
     "conv_digits": ("csrc/ks_fused.cu",
                     "openfhe_tpu/pke/keyswitch/ks_fused.py:513"),
     "ntt_keymul_acc": ("csrc/ks_fused.cu",
@@ -437,24 +461,51 @@ def ntt_cases(ntt, basis, gen, label, lead=()):
     return out
 
 
-def rowmod_case(mm, tab, d_basis, gen, label):
+def rowmod_case(mm, tab, d_basis, gen, label, lead=()):
+    """Kernel k (`mod_matmul_rowmod`) against its plain version and its
+    former form `mod_matmul_rowmod_eager`, word for word, on words below
+    2^31 that are not reduced mod the input moduli; each call must launch
+    the entry once and the former form never. `ms` is device time
+    (`device_ms`) and `call_ms` a call, each beside the former form's in
+    this run. Returns the case of each entry."""
+    name = "mod_matmul_rowmod"
+    former = FORMER[name]
     a_dim, d_dim = tab.bhat_mod_d.shape
     n = d_basis.ring_dim
-    y = rand_residues(gen, [2 ** 31 - 1] * a_dim, n)      # any words < 2^31
-    args = (y, tab.bhat_mod_d, tab.bhat_mod_d_sh, d_basis.q)
-    got = mm.mod_matmul_rowmod(*args)
-    want = mm._mod_matmul_rowmod_ref(y, tab.bhat_mod_d, d_basis.q)
+    y = rand_residues(gen, [2 ** 31 - 1] * a_dim, n, lead)
+    w = (tab.bhat_mod_d, tab.bhat_mod_d_sh, d_basis.q)
+    kern = lambda: mm.mod_matmul_rowmod(y, *w, d_basis.red64)
+    eager = lambda: mm.mod_matmul_rowmod_eager(y, *w)
+    ref = lambda: mm._mod_matmul_rowmod_ref(y, tab.bhat_mod_d, d_basis.q)
+    got, per = count_launches(kern, (name, former))
+    want, by_eager = ref(), eager()
     torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    require(err == 0, f"mod_matmul_rowmod {label} differs from its plain "
-            f"version (max abs err {err})")
-    nbytes = 4 * ((a_dim + d_dim) * n + 2 * a_dim * d_dim + d_dim)
-    b_ms, b_by = bound(nbytes, n * a_dim * d_dim * ROWMOD_TERM_OPS)
-    return dict(shape=[a_dim, d_dim, n], moduli=label, max_abs_err=err,
-                ms=cuda_ms(lambda: mm.mod_matmul_rowmod(*args)),
-                plain_ms=cuda_ms(lambda: mm._mod_matmul_rowmod_ref(
-                    y, tab.bhat_mod_d, d_basis.q)),
-                bound_ms=b_ms, bound_by=b_by)
+    err, err_eager = max_abs_err(got, want), max_abs_err(by_eager, want)
+    require(err == 0 and err_eager == 0,
+            f"{name} {label} differs from its plain version (max abs err: "
+            f"{name} {err}, {former} {err_eager})")
+    require(per == {name: 1, former: 0},
+            f"{name} {label} launched {per}, expected one launch of {name}")
+    batch = y.numel() // (a_dim * n)
+    # y and out once, the weights and companions, d and its red64 row
+    nbytes = WORD * ((a_dim + d_dim) * n * batch + 2 * a_dim * d_dim
+                     + 4 * d_dim)
+    b_ms, b_by = bound(nbytes, pconv_ops(batch * n * d_dim, a_dim))
+    eager_ms, eager_call_ms = device_ms(eager), cuda_ms(eager)
+    common = dict(shape=list(lead) + [a_dim, d_dim, n], moduli=label,
+                  plain_ms=cuda_ms(ref), bound_ms=b_ms, bound_by=b_by)
+    return {name: dict(common, max_abs_err=err, ms=device_ms(kern),
+                       call_ms=cuda_ms(kern), staged_ms=eager_ms,
+                       staged_call_ms=eager_call_ms, former=former,
+                       launches_per_call=per[name], cluster=None),
+            former: dict(common, max_abs_err=err_eager, ms=eager_ms,
+                         call_ms=eager_call_ms)}
+
+
+def pconv_ops(outputs: int, terms: int) -> int:
+    """Operations of a lazy conversion: `outputs` words of `terms` terms
+    each, every word reduced once."""
+    return outputs * (terms * LAZY_TERM_OPS + REDUCE_WIDE_OPS)
 
 
 def fused_work(tabs, adds: int = 0) -> dict:
@@ -476,8 +527,7 @@ def fused_work(tabs, adds: int = 0) -> dict:
         "intt_scale_p": (WORD * n * 6 * kp,
                          ntt(2 * kp) + 2 * kp * n * SHOUP_OPS),
         "conv_digits": (WORD * n * (kql + nd * kqlp),
-                        n * ROWMOD_TERM_OPS * sum(a * (kqlp - a)
-                                                  for a in digits)),
+                        sum(pconv_ops(n * (kqlp - a), a) for a in digits)),
         # the extended digits' rows other than their own, c2, the key rows,
         # ext, the twiddles of the towers that transform at least once
         "ntt_keymul_acc": (WORD * n * (sum(kqlp - a for a in digits) + kql
@@ -488,7 +538,7 @@ def fused_work(tabs, adds: int = 0) -> dict:
                            + 2 * nd * kqlp * n * ROWMOD_TERM_OPS),
         "intt_conv_p": (WORD * n * (2 * kp + 2 * kp + 2 * kql),
                         ntt(2 * kp) + 2 * kp * n * SHOUP_OPS
-                        + 2 * kp * kql * n * ROWMOD_TERM_OPS),
+                        + pconv_ops(2 * kql * n, kp)),
         "ntt_subscale": (WORD * n * (8 + adds) * kql,
                          ntt(2 * kql) + 2 * kql * n * (SHOUP_OPS + 3
                                                        + t_ops)
@@ -556,11 +606,13 @@ def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
                                ms=staged_ms, call_ms=staged_call_ms)}
 
 
-def fused_cases(ksf, tabs, key, gen, label, names=FUSED) -> dict:
+def fused_cases(ksf, tabs, key, gen, label, names=FUSED) -> list:
     """Each kernel of the fused key switches (of `names`) vs its plain
-    twin on one table set, on random residues (and a random key with
-    companions); K3, K45, K6f and K2 also vs their former forms
-    (`cluster_case`; K2's is run on `_pad_digits` of its input)."""
+    twin and its former form (`cluster_case`; K2's former form is run on
+    `_pad_digits` of its input) on one table set, on random residues (and
+    a random key with companions); `intt_scale` in its K1 form and its K4
+    form (both elements' P rows of ext, read in place). Returns (entry,
+    case) pairs."""
     n, nd = tabs.basis_qlp.ring_dim, tabs.nd
     mq, mqlp = tabs.basis_ql.moduli, tabs.basis_qlp.moduli
     a = [rand_residues(gen, mq, n) for _ in range(4)]
@@ -569,34 +621,37 @@ def fused_cases(ksf, tabs, key, gen, label, names=FUSED) -> dict:
     ext = rand_residues(gen, mqlp, n, (2,))
     convq = rand_residues(gen, mq, n, (2,))
     keys = (key.bv, key.bv_sh, key.av, key.av_sh)
-    calls = {
-        "tensor_intt": (ksf.tensor_intt, ksf._tensor_intt_ref,
-                        (a[1], a[3])),
-        "intt_scale": (ksf.intt_scale, ksf._intt_scale_ref, (a[2],)),
-        "conv_digits": (ksf.conv_digits, ksf._conv_digits_ref, (y,)),
-        "ntt_keymul_acc": (ksf.ntt_keymul_acc, ksf._ntt_keymul_acc_ref,
-                           (conv, a[0], *keys)),
-        "intt_conv_p": (ksf.intt_conv_p, ksf._intt_conv_p_ref, (ext,)),
-        "ntt_subscale": (ksf.ntt_subscale, ksf._ntt_subscale_ref,
-                         (convq, ext)),
-        "ntt_submul_final": (ksf.ntt_submul_final,
-                             ksf._ntt_submul_final_ref, (convq, ext, *a)),
-    }
+    p_rows = lambda fn: (lambda x, t: fn(x, t, p_rows=True))
+    pad = lambda y, t: ksf.conv_digits_rowmod(ksf._pad_digits(y, t), t)
     work = fused_work(tabs)
-    out = {}
-    for name, (kern, ref, args) in calls.items():
-        if name not in names:
-            continue
-        if name in FORMER:
-            staged = getattr(ksf, FORMER[name])
-            if name == "conv_digits":
-                staged = lambda y, t: ksf.conv_digits_rowmod(
-                    ksf._pad_digits(y, t), t)
-            out.update(cluster_case(name, kern, staged, ref, args, tabs,
-                                    work[name], label))
-        else:
-            out[name] = kernel_case(name, kern, ref, args, tabs, work[name],
-                                    label)
+    # (entry, kernel, former form, twin, inputs, work, label)
+    calls = [
+        ("tensor_intt", ksf.tensor_intt, ksf.tensor_intt_staged,
+         ksf._tensor_intt_ref, (a[1], a[3]), work["tensor_intt"], label),
+        ("intt_scale", ksf.intt_scale, ksf.intt_scale_staged,
+         ksf._intt_scale_ref, (a[2],), work["intt_scale"], label),
+        ("intt_scale", p_rows(ksf.intt_scale),
+         p_rows(ksf.intt_scale_staged), p_rows(ksf._intt_scale_ref),
+         (ext,), work["intt_scale_p"],
+         f"{label}, K4 form: ext's P rows x 2"),
+        ("conv_digits", ksf.conv_digits, pad, ksf._conv_digits_ref, (y,),
+         work["conv_digits"], label),
+        ("ntt_keymul_acc", ksf.ntt_keymul_acc, ksf.ntt_keymul_acc_staged,
+         ksf._ntt_keymul_acc_ref, (conv, a[0], *keys),
+         work["ntt_keymul_acc"], label),
+        ("intt_conv_p", ksf.intt_conv_p, ksf.intt_conv_p_staged,
+         ksf._intt_conv_p_ref, (ext,), work["intt_conv_p"], label),
+        ("ntt_subscale", ksf.ntt_subscale, ksf.ntt_subscale_staged,
+         ksf._ntt_subscale_ref, (convq, ext), work["ntt_subscale"], label),
+        ("ntt_submul_final", ksf.ntt_submul_final,
+         ksf.ntt_submul_final_staged, ksf._ntt_submul_final_ref,
+         (convq, ext, *a), work["ntt_submul_final"], label),
+    ]
+    out = []
+    for name, kern, staged, ref, args, cost, case_label in calls:
+        if name in names:
+            out += cluster_case(name, kern, staged, ref, args, tabs, cost,
+                                case_label).items()
     return out
 
 
@@ -634,7 +689,7 @@ def cluster_shape_cases(ksf, gen, rings, wide, n):
             f"largest 31-bit primes (4 Q + {kp} P), one digit"))
     for tabs, key, label in shapes:
         yield from fused_cases(ksf, tabs, key, gen, label,
-                               tuple(FORMER)).items()
+                               tuple(FORMER))
 
 
 def modown_mean_slots(cc, sk, scale: float) -> np.ndarray:
@@ -1340,12 +1395,18 @@ def main() -> int:
     for basis, label, lead in ntt_shapes:
         for name, case in ntt_cases(ntt, basis, gen, label, lead).items():
             (staged if name in STAGED else cases)[name].append(case)
-    for part in top.parts:
-        cases["mod_matmul_rowmod"].append(rowmod_case(
-            modmatmul, part.switch, part.compl_basis, gen,
-            f"digit {part.start}:{part.end} -> complement"))
-    cases["mod_matmul_rowmod"].append(rowmod_case(
-        modmatmul, top.moddown.switch, top.basis_ql, gen, "P -> Q mod-down"))
+    # kernel k at the hoisted rotation's shapes (digit -> complement, 16 ->
+    # 31 and 15 -> 32, and the mod-down's P -> Q, 16 -> 31), and a batch
+    rowmod_shapes = [(part.switch, part.compl_basis,
+                      f"digit {part.start}:{part.end} -> complement", ())
+                     for part in top.parts]
+    rowmod_shapes += [
+        (top.moddown.switch, top.basis_ql, "P -> Q mod-down", ()),
+        (top.moddown.switch, top.basis_ql, "P -> Q mod-down, batch 2", (2,))]
+    for tab, d_basis, label, lead in rowmod_shapes:
+        for name, case in rowmod_case(modmatmul, tab, d_basis, gen, label,
+                                      lead).items():
+            (staged if name in STAGED else cases)[name].append(case)
     # the fused kernels: level 0, level 1 (digit 1 has 14 towers) and a
     # 31-bit chain in two digits and in one, each with a random key over
     # its own QP moduli
@@ -1360,17 +1421,17 @@ def main() -> int:
              "largest 31-bit primes (4 Q + 2 P)"),
             (ks_fused.make_fused_ks_tables(basis31, 4, 4, 1), key31,
              "largest 31-bit primes (4 Q + 2 P), one digit")):
-        for name, case in fused_cases(ks_fused, tabs, key, gen,
-                                      label).items():
+        for name, case in fused_cases(ks_fused, tabs, key, gen, label):
             (staged if name in STAGED else cases)[name].append(case)
-    # K3, K45, K6f and K2 by level, 44 down to 17 Q_l*P towers in two
-    # digits and in one: their time against the clusters a wave places
+    # K1/K4, K3, K45, K6f and K2 (and K1t, K6) by level, 44 down to 17
+    # Q_l*P towers in two digits and in one: their time against the
+    # clusters a wave places
     for lvl in (3, 11, 15, 23, 30):
         tabs = cc.hybrid_tables(cc.size_ql(lvl)).fused
         for name, case in fused_cases(
                 ks_fused, tabs, key_main, gen,
                 f"level {lvl} ({tabs.kql} Q + {tabs.kp} P)",
-                tuple(FORMER)).items():
+                tuple(FORMER)):
             (staged if name in STAGED else cases)[name].append(case)
     rings = [(1 << log_n, top31) for log_n in (12, 14, 15)]
     if ntt.cluster_geometry(big):
@@ -1381,16 +1442,10 @@ def main() -> int:
     for name, case in cluster_shape_cases(ks_fused, gen, rings, wide31, n):
         (staged if name in STAGED else cases)[name].append(case)
     del key_main, key31
-    # intt_scale's K4 form (both elements' P rows of ext, read in place),
-    # and ntt_subscale with BGV's t = 65537 (K6's t multiply) and with one
-    # and two addends (the final add of an automorphism or KeySwitch, and
-    # of Relinearize), each beside its staged form, at level 0
-    work0 = fused_work(top.fused)
+    # ntt_subscale with BGV's t = 65537 (K6's t multiply) and with one and
+    # two addends (the final add of an automorphism or KeySwitch, and of
+    # Relinearize), each beside its staged form, at level 0
     ext = rand_residues(gen, top.basis_qlp.moduli, n, (2,))
-    cases["intt_scale"].append(kernel_case(
-        "intt_scale", lambda x, t: ks_fused.intt_scale(x, t, p_rows=True),
-        lambda x, t: ks_fused._intt_scale_ref(x, t, p_rows=True), (ext,),
-        top.fused, work0["intt_scale_p"], "K4 form: ext [2, 47, N] P rows"))
     tabs_t = ks_fused.make_fused_ks_tables(top.basis_qlp, cc.size_ql(0),
                                            len(cc.moduli_q), 2,
                                            ns_int=65537)

@@ -47,12 +47,13 @@ SOURCES = {
     "ntt_small": {"ntt_small_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
                   "ntt_small_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _P]},
-    "rowmod": {"mod_matmul_rowmod": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _P]},
+    "rowmod": {"mod_matmul_rowmod": [_P] * 6 + [_I] * 4 + [_P],
+               "mod_matmul_rowmod_eager": [_P] * 5 + [_I] * 4 + [_P]},
     "modmatmul": {"mod_matmul": [_P] * 4 + [_I] * 4 + [_P]},
     "ks_fused": {"tensor_intt": [_P] * 10 + [_I] * 2 + [_P],
                  "tensor_intt_staged": [_P] * 9 + [_I] * 2 + [_P],
                  "intt_scale": [_P] * 7 + [_I] * 5 + [_P],
+                 "intt_scale_staged": [_P] * 7 + [_I] * 5 + [_P],
                  "conv_digits": [_P] * 6 + [_I] * 5 + [_P],
                  "conv_digits_rowmod": [_P] * 5 + [_I] * 4 + [_P],
                  "ntt_keymul_acc": [_P] * 10 + [_I] * 6 + [_P],

@@ -1,6 +1,6 @@
 // The fused HYBRID key switch for Hopper (sm_90a): seven entry points, one
 // per TPU kernel of openfhe_tpu/pke/keyswitch/ks_fused.py (mult_relin_fused
-// and keyswitch_core_fused), plus the former forms of six of them.
+// and keyswitch_core_fused), plus the former forms of all seven.
 //
 //   tensor_intt       replaces _tensor_intt (K1t, pallas_call :366) and
 //                     _tensor_intt_single (:301): c2 = a1*b1 and
@@ -23,13 +23,13 @@
 //                     add of Relinearize, KeySwitch and the automorphisms)
 //   ntt_submul_final  replaces _ntt_submul_final (K6f, :802):
 //                     (ext - NTT(convq)) * P^-1 plus the tensor terms
-//   tensor_intt_staged, ntt_keymul_acc_staged, intt_conv_p_staged,
-//   ntt_subscale_staged, ntt_submul_final_staged:
-//                     K1t, K3, K45, K6 and K6f on the staged NTT passes,
-//                     for rings outside the cluster NTT's 2^4 .. 2^17 and
-//                     as the yardstick on the card; conv_digits_rowmod: K2
-//                     on rowmod_core.cuh over the zero-padded digits, the
-//                     yardstick of conv_digits
+//   tensor_intt_staged, intt_scale_staged, ntt_keymul_acc_staged,
+//   intt_conv_p_staged, ntt_subscale_staged, ntt_submul_final_staged:
+//                     K1t, K1/K4, K3, K45, K6 and K6f on the staged NTT
+//                     passes, for rings outside the cluster NTT's 2^4 ..
+//                     2^17 and as the yardstick on the card;
+//                     conv_digits_rowmod: K2 on rowmod_core.cuh over the
+//                     zero-padded digits, the yardstick of conv_digits
 //
 // The TPU kernels multiply through int8 Karatsuba limbs and float
 // quotients on the MXU; here every product is exact 32-bit modular
@@ -47,7 +47,7 @@
 // the others move 8-65 MB each, against about ten integer operations per
 // word and butterfly stage.
 //
-// Design: K1t, K3, K45, K6 and K6f run on the cluster NTT of
+// Design: K1t, K1/K4, K3, K45, K6 and K6f run on the cluster NTT of
 // ntt_cluster.cuh (a tower per thread-block cluster, the words through
 // device memory once):
 //   * K1t (tensor_intt_cluster) is one launch, a cluster per Q tower: the
@@ -55,19 +55,26 @@
 //     16 words each thread reads first (reduce_wide), writes c2 beside and
 //     hands the words on; N^-1 (B_j/b_i)^-1 is its last multiply. 4
 //     launches become 1.
+//   * K1 and K4 (intt_scale) are one launch of the plain inverse cluster
+//     transform inv_cluster, whose output row r reads input row (r / k) *
+//     in_rows + in_off + r % k (so K4 reads ext's P rows in place) and
+//     whose last multiply is N^-1 times the per-tower constant. The tower
+//     count is a runtime argument: the TPU's tower pairs, and the garbage
+//     row they pad an odd kql with, have no counterpart. 4 launches
+//     become 1.
 //   * K3 (keymul_cluster) is one launch, a cluster per tower of Q_l*P:
 //     the digit loop runs inside the cluster, a digit's own towers read
 //     c2's row in place of the transform, and the key product is the
 //     epilogue of the forward transform's last round, on the 16 words
 //     each thread holds. The two sums stay in registers until the last
 //     digit writes ext; nothing else reaches device memory.
-//   * K45 is the inverse cluster transform of ext's 2 * kp P rows, read
-//     in place, with N^-1 (P/p_i)^-1 t^-1 folded into its last multiply,
+//   * K45 is K4's launch, the inverse cluster transform of ext's 2 * kp
+//     P rows read in place with N^-1 (P/p_i)^-1 t^-1 as its last multiply,
 //     into a [2, kp, N] intermediate that stays in L2 (no block can wait
 //     on another's output, so the conversion is a second launch), then
-//     the conversion kernel pconv: weights in shared memory, 4 columns a
-//     thread with 16-byte loads, lazy Shoup products in [0, 2q) summed in
-//     64 bits and reduced once.
+//     the conversion kernel pconv (pconv_core.cuh, shared with rowmod.cu):
+//     weights in shared memory, 4 columns a thread with 16-byte loads,
+//     lazy Shoup products in [0, 2q) summed in 64 bits and reduced once.
 //   * K6 (subscale_cluster) and K6f (submul_cluster) are one launch each,
 //     a cluster per element row (e, tau) of the output, the two elements
 //     of a tower side by side: the forward transform of convq[e, tau],
@@ -79,23 +86,20 @@
 //   * K2 is pconv too, a digit per blockIdx.y with its own weights: it
 //     reads the digit's rows of y in place (no zero-padded copy) and
 //     writes the digit's own rows as zeros without forming a product.
-// intt_scale (K1, K4) and the former forms are the device-memory stage
-// launches of ntt_core.cuh plus one shared-memory tile pass (one tower,
-// 256 KB, is larger than a block's shared memory), each prologue or
-// epilogue riding the pass that touches the data first (inverse) or last
-// (forward):
-//   * intt_scale is inv_tile, which picks k rows out of every in_rows (so
-//     K4 reads ext's P rows in place), then the inverse stages with
-//     (N^-1 * scale) folded into the last pass. The tower count is a
-//     runtime argument: the TPU's tower pairs, and the garbage row they
-//     pad an odd kql with, have no counterpart.
+// The former forms are the device-memory stage launches of ntt_core.cuh
+// plus one shared-memory tile pass (one tower, 256 KB, is larger than a
+// block's shared memory), each prologue or epilogue riding the pass that
+// touches the data first (inverse) or last (forward):
+//   * intt_scale_staged is inv_tile, which picks k rows out of every
+//     in_rows, then the inverse stages with (N^-1 * scale) folded into the
+//     last pass.
 //   * K1t's staged form: a tile pass forms c2 from a1, b1 and writes it;
 //     the inverse stages follow, the last folding (N^-1 * (B_j/b_i)^-1).
 //   * K3's staged form runs the forward stages over all nd * kqlp rows of
 //     the extended digits, then one tile pass per (tile, tower) that loops
 //     over the digits, takes c2 on own towers, and keeps both key-product
-//     sums in registers (keymul_core.cuh); K45's is intt_scale's K4 form
-//     into the intermediate, then rowmod_core.cuh's conversion.
+//     sums in registers (keymul_core.cuh); K45's is intt_scale_staged's
+//     K4 form into the intermediate, then rowmod_core.cuh's conversion.
 //   * K6's staged form runs the forward stages over both elements' 2 * kql
 //     rows, then one tile pass per (tile, element row) whose epilogue is
 //     the mod-down: an optional Shoup multiply by t, the subtraction from
@@ -109,6 +113,7 @@
 #include "keymul_core.cuh"     // K3's tile pass, shared with sharded.cu
 #include "ntt_cluster.cuh"
 #include "ntt_core.cuh"
+#include "pconv_core.cuh"      // K2's and K45's conversion, and reduce_wide
 #include "rowmod_core.cuh"
 
 namespace {
@@ -367,19 +372,6 @@ KeymulKernel keymul_kernel(int log_n, std::integer_sequence<int, I...>) {
   return kernels[log_n - kMinClusterLogN];
 }
 
-// x mod q for any 64-bit x = hi 2^32 + lo, q < 2^31: hi * (2^32 mod q) by
-// a Shoup multiply (exact for any hi < 2^32) and lo by a Barrett step with
-// m32 = floor(2^32 / q), each in [0, 2q) and then canonical, and their sum.
-// r32, r32_sh, m32: a row of Basis.red64, computed on the host.
-__device__ __forceinline__ uint32_t reduce_wide(uint64_t x, uint32_t q,
-                                                uint32_t r32, uint32_t r32_sh,
-                                                uint32_t m32) {
-  const uint32_t hi = static_cast<uint32_t>(x >> 32);
-  const uint32_t lo = static_cast<uint32_t>(x);
-  return add_q(mul_shoup_q(hi, r32, r32_sh, q),
-               csub(lo - __umulhi(lo, m32) * q, q), q);
-}
-
 // Four words at p (16-byte aligned, read-only in the kernel) as an array.
 struct Words4 {
   uint32_t v[4];
@@ -630,193 +622,30 @@ SubscaleKernel subscale_kernel(int log_n, std::integer_sequence<int, I...>) {
   return kernels[log_n - kMinClusterLogN];
 }
 
-// The first COLS of r0 .. r3 at p (COLS 4 and 2: one 16- or 8-byte store).
-template <int COLS>
-__device__ __forceinline__ void store_cols(uint32_t* p, uint32_t r0,
-                                           uint32_t r1, uint32_t r2,
-                                           uint32_t r3) {
-  if constexpr (COLS == 4)
-    *reinterpret_cast<uint4*>(p) = make_uint4(r0, r1, r2, r3);
-  else if constexpr (COLS == 2)
-    *reinterpret_cast<uint2*>(p) = make_uint2(r0, r1);
-  else
-    *p = r0;
-}
-
-// The conversion of K45 (P -> Q_l) and K2 (each digit -> Q_l*P):
-//   out[b, j, n] = sum_{i < rows_b} y[b a_dim + i, n] * w_b[i, j] mod d_j,
-// y: [>= a_total, N] (batch b's rows b a_dim .. b a_dim + rows_b - 1,
-// rows_b = min(a_dim, a_total - b a_dim)), w_b(_sh) = w(_sh) + b w_stride:
-// [a_dim, d_dim] (w_stride 0: one table for every batch), d: [d_dim],
-// red: [d_dim, 3] (Basis.red64 of d), out: [batch, d_dim, N]. With `own`,
-// batch b's own rows (j in [b a_dim, b a_dim + rows_b), K2's digit rows,
-// whose weights are zero) are written as zeros without a product. What
-// bounds it is integer issue: rows_b * (d_dim - own rows) Shoup products
-// a column. So each thread holds COLS consecutive columns of the batch's
-// rows in registers (16-byte loads) and, for each output row, forms the
-// lazy Shoup products x * w - floor(x * w_sh / 2^32) * d_j in [0, 2 d_j)
-// (exact in 32 bits for d_j < 2^31) and sums them in 64 bits (a_dim <
-// 2^32 of them cannot overflow), then reduces the sum once
-// (reduce_wide). The weights (w, w_sh) and the per-row constants sit in
-// shared memory; blockIdx.z takes an equal share of the batch's converted
-// rows (and of its own rows) so that enough blocks fill the card.
-constexpr int kConvThreads = 128;
-
-template <int MAXA, int COLS>
-__global__ void __launch_bounds__(kConvThreads)
-    pconv(const uint32_t* __restrict__ y, const uint32_t* __restrict__ w,
-          const uint32_t* __restrict__ w_sh,
-          const uint32_t* __restrict__ d, const uint32_t* __restrict__ red,
-          uint32_t* __restrict__ out, int a_dim, int a_total, int d_dim,
-          int n, int w_stride, int own) {
-  extern __shared__ uint4 conv_sm[];
-  uint4* consts = conv_sm;               // [d_dim]: d, 2^32 mod d, its
-                                         // companion, floor(2^32 / d)
-  uint2* sw = reinterpret_cast<uint2*>(conv_sm + d_dim);  // [rows, d_dim]
-  const int b = blockIdx.y;
-  const int rows = min(a_dim, a_total - b * a_dim);
-  const uint32_t* wb = w + static_cast<size_t>(b) * w_stride;
-  const uint32_t* wb_sh = w_sh + static_cast<size_t>(b) * w_stride;
-  for (int x = threadIdx.x; x < rows * d_dim; x += blockDim.x)
-    sw[x] = make_uint2(wb[x], wb_sh[x]);
-  for (int x = threadIdx.x; x < d_dim; x += blockDim.x)
-    consts[x] = make_uint4(d[x], red[3 * x], red[3 * x + 1], red[3 * x + 2]);
-  __syncthreads();
-  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * COLS;
-  if (col >= n) return;
-  const uint32_t* yb = y + static_cast<size_t>(b) * a_dim * n + col;
-  uint32_t* ob = out + static_cast<size_t>(b) * d_dim * n + col;
-  // this block's share of the converted rows k < d_dim - n_own (row j =
-  // k, or k + n_own past the own rows) and of the own rows
-  const int own_lo = b * a_dim, n_own = own ? rows : 0;
-  const int m = d_dim - n_own, splits = gridDim.z, z = blockIdx.z;
-  const int per = (m + splits - 1) / splits;
-  const int per_own = (n_own + splits - 1) / splits;
-  const int k1 = min(m, (z + 1) * per);
-  const int o1 = min(n_own, (z + 1) * per_own);
-  for (int k = z * per_own; k < o1; ++k)
-    store_cols<COLS>(ob + static_cast<size_t>(own_lo + k) * n, 0u, 0u, 0u,
-                     0u);
-  if (z * per >= k1) return;
-  uint32_t x[MAXA][COLS];
-#pragma unroll
-  for (int i = 0; i < MAXA; ++i) {
-    if (i < rows) {
-      const uint32_t* yi = yb + static_cast<size_t>(i) * n;
-      if constexpr (COLS == 4) {
-        const uint4 v = *reinterpret_cast<const uint4*>(yi);
-        x[i][0] = v.x;
-        x[i][1] = v.y;
-        x[i][2] = v.z;
-        x[i][3] = v.w;
-      } else if constexpr (COLS == 2) {
-        const uint2 v = *reinterpret_cast<const uint2*>(yi);
-        x[i][0] = v.x;
-        x[i][1] = v.y;
-      } else {
-        x[i][0] = *yi;
-      }
-    }
-  }
-  for (int k = z * per; k < k1; ++k) {
-    const int j = k < own_lo ? k : k + n_own;
-    const uint4 cj = consts[j];
-    const uint32_t q = cj.x;
-    uint64_t sum[COLS];
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) sum[c] = 0;
-#pragma unroll
-    for (int i = 0; i < MAXA; ++i) {
-      if (i < rows) {
-        const uint2 wi = sw[i * d_dim + j];
-#pragma unroll
-        for (int c = 0; c < COLS; ++c)
-          sum[c] += x[i][c] * wi.x - __umulhi(x[i][c], wi.y) * q;
-      }
-    }
-    uint32_t r[4] = {};
-#pragma unroll
-    for (int c = 0; c < COLS; ++c)
-      r[c] = reduce_wide(sum[c], q, cj.y, cj.z, cj.w);
-    store_cols<COLS>(ob + static_cast<size_t>(j) * n, r[0], r[1], r[2],
-                     r[3]);
-  }
-}
-
-template <int MAXA, int COLS>
-int pconv_launch(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
-                 const uint32_t* d, const uint32_t* red, uint32_t* out,
-                 int batch, int a_dim, int a_total, int d_dim, int n,
-                 int w_stride, int own, cudaStream_t st) {
-  const size_t smem = 16 * static_cast<size_t>(d_dim) +
-                      8 * static_cast<size_t>(a_dim) * d_dim;
-  // as many blocks as fit on the card at once: split the output rows. The
-  // blocks an SM holds depend on smem, so a few sizes are remembered (K2
-  // and K45 alternate in every key switch).
-  struct Resident {
-    size_t smem;
-    int blocks;
-  };
-  static Resident seen[4] = {};
-  Resident* hit = nullptr;
-  for (Resident& r : seen)
-    if (r.blocks && r.smem == smem) hit = &r;
-  if (!hit) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pconv<MAXA, COLS>, kConvThreads, smem);
-    hit = &seen[0];
-    for (Resident& r : seen)
-      if (!r.blocks) {
-        hit = &r;
-        break;
-      }
-    *hit = {smem, sms * (per_sm > 0 ? per_sm : 1)};
-  }
-  const int cols = kConvThreads * COLS;
-  const int blocks = (n + cols - 1) / cols * batch;
-  int splits = hit->blocks / blocks;
-  splits = splits < 1 ? 1 : splits > d_dim ? d_dim : splits;
-  const dim3 grid((n + cols - 1) / cols, batch, splits);
-  pconv<MAXA, COLS><<<grid, kConvThreads, smem, st>>>(
-      y, w, w_sh, d, red, out, a_dim, a_total, d_dim, n, w_stride, own);
-  return 0;
-}
-
-// Checks the shape (every batch has a row, the tables fit 48 KB of shared
-// memory, rows of N a multiple of 4 words on 16-byte boundaries) and
-// launches; returns a CUDA error code, 0 when launched.
-int pconv_run(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
-              const uint32_t* d, const uint32_t* red, uint32_t* out,
-              int batch, int a_dim, int a_total, int d_dim, int n,
-              int w_stride, int own, cudaStream_t st) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(y) |
-                          reinterpret_cast<uintptr_t>(out);
-  if (batch < 1 || batch > 65535 || a_dim < 1 || a_dim > 64 || d_dim < 1 ||
-      a_total > batch * a_dim || a_total <= (batch - 1) * a_dim ||
-      w_stride < 0 || n < 4 || n % 4 != 0 || align % 16 != 0 ||
-      16 * d_dim + 8 * a_dim * d_dim > 48 * 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (a_dim <= 8)
-    return pconv_launch<8, 4>(y, w, w_sh, d, red, out, batch, a_dim, a_total,
-                              d_dim, n, w_stride, own, st);
-  if (a_dim <= 16)
-    return pconv_launch<16, 4>(y, w, w_sh, d, red, out, batch, a_dim,
-                               a_total, d_dim, n, w_stride, own, st);
-  if (a_dim <= 32)
-    return pconv_launch<32, 2>(y, w, w_sh, d, red, out, batch, a_dim,
-                               a_total, d_dim, n, w_stride, own, st);
-  return pconv_launch<64, 1>(y, w, w_sh, d, red, out, batch, a_dim, a_total,
-                             d_dim, n, w_stride, own, st);
-}
-
 int keymul_placeable[kMaxClusterLogN + 1],
     intt_p_placeable[kMaxClusterLogN + 1],
     submul_placeable[kMaxClusterLogN + 1],
     tensor_intt_placeable[kMaxClusterLogN + 1],
     subscale_placeable[kMaxClusterLogN + 1];
+
+// The inverse cluster transform of intt_scale (K1, K4) and of K45's first
+// launch: one launch of inv_cluster over e * k output rows, output row r
+// reading input row (r / k) * in_rows + in_off + r % k, with scale as its
+// last multiply. Refuses rings outside 2^4 .. 2^17, rows outside x and
+// operands off a 16-byte boundary.
+int intt_scale_launch(const void* x, void* out, const void* ipsi,
+                      const void* ipsi_sh, const void* q, const void* scale,
+                      const void* scale_sh, int e, int k, int in_rows,
+                      int in_off, int log_n, cudaStream_t st) {
+  if (int bad = check_cluster(x, out, e * k, k, log_n)) return bad;
+  if (in_off < 0 || in_rows < in_off + k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  return launch_cluster(inv_kernel(log_n, ClusterRings{}),
+                        &intt_p_placeable[log_n], e * k, log_n, st, in(x),
+                        static_cast<uint32_t*>(out), in(ipsi), in(ipsi_sh),
+                        in(q), in(scale), in(scale_sh), k, in_rows, in_off);
+}
 
 }  // namespace
 
@@ -870,12 +699,28 @@ extern "C" int tensor_intt_staged(const void* a1, const void* b1, void* c2,
 
 // x: [e, in_rows, N]; out: [e, k, N] COEFF with out[., tau] from row
 // in_off + tau of each element; ipsi(_sh): [k, N] and q, scale(_sh): [k]
-// of those k towers, with scale = N^-1 * (per-tower constant) mod q.
+// of those k towers, with scale = N^-1 * (per-tower constant) mod q. One
+// launch of inv_cluster (intt_scale_launch, K45's first launch too);
+// refuses rings outside 2^4 .. 2^17 (intt_scale_staged serves them) and
+// operands off a 16-byte boundary.
 extern "C" int intt_scale(const void* x, void* out, const void* ipsi,
                           const void* ipsi_sh, const void* q,
                           const void* scale, const void* scale_sh, int e,
                           int k, int in_rows, int in_off, int log_n,
                           void* stream) {
+  return intt_scale_launch(x, out, ipsi, ipsi_sh, q, scale, scale_sh, e, k,
+                           in_rows, in_off, log_n,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The same function on the staged NTT passes, any ring: inv_tile, which
+// reads the rows in place, then the inverse stages of ntt_core.cuh in
+// place on out; the arguments of intt_scale.
+extern "C" int intt_scale_staged(const void* x, void* out, const void* ipsi,
+                                 const void* ipsi_sh, const void* q,
+                                 const void* scale, const void* scale_sh,
+                                 int e, int k, int in_rows, int in_off,
+                                 int log_n, void* stream) {
   if (int bad = check_shape(e * k, k, log_n)) return bad;
   if (in_off < 0 || in_rows < in_off + k)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -988,8 +833,8 @@ extern "C" int ntt_keymul_acc_staged(const void* conv,
 // COEFF. ipsi(_sh): [kp, N] and qp, scale(_sh): [kp] of the P towers, with
 // scale = N^-1 * (P/p_i)^-1 * t^-1 mod p_i; w, w_sh: [kp, kql]; qq: [kql];
 // red: [kql, 3] (Basis.red64 of Q_l). The inverse cluster transform of
-// ext's P rows, read in place, with the scale as its last multiply, then
-// pconv; refuses rings outside 2^4 .. 2^17 (intt_conv_p_staged serves
+// ext's P rows, read in place, with the scale as its last multiply
+// (intt_scale_launch, K4's launch), then pconv; refuses rings outside 2^4 .. 2^17 (intt_conv_p_staged serves
 // them).
 extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
                            const void* ipsi, const void* ipsi_sh,
@@ -997,15 +842,11 @@ extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
                            const void* scale_sh, const void* w,
                            const void* w_sh, const void* qq, const void* red,
                            int kql, int kp, int log_n, void* stream) {
-  if (int bad = check_cluster(ext, pc, 2 * kp, kp, log_n)) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
   auto* pcp = static_cast<uint32_t*>(pc);
-  if (int bad = launch_cluster(inv_kernel(log_n, ClusterRings{}),
-                               &intt_p_placeable[log_n], 2 * kp, log_n,
-                               st, in(ext), pcp, in(ipsi), in(ipsi_sh),
-                               in(qp), in(scale), in(scale_sh), kp, kql + kp,
-                               kql))
+  if (int bad = intt_scale_launch(ext, pcp, ipsi, ipsi_sh, qp, scale,
+                                  scale_sh, 2, kp, kql + kp, kql, log_n, st))
     return bad;
   if (int bad = pconv_run(pcp, in(w), in(w_sh), in(qq), in(red),
                           static_cast<uint32_t*>(out), 2, kp, 2 * kp, kql,

@@ -1,8 +1,15 @@
-// The row-modulus base-conversion kernel, shared by rowmod.cu (one weight
-// matrix for the whole batch) and ks_fused.cu (one weight matrix per
-// digit, and the P -> Q conversion of the mod-down):
+// The eager row-modulus base-conversion kernel, shared by rowmod.cu
+// (mod_matmul_rowmod_eager: one weight matrix for the whole batch),
+// ks_fused.cu (the former forms of K2 and K45: one weight matrix per
+// digit, and the P -> Q conversion of the mod-down) and sharded.cu:
 //   out[b, j, n] = sum_i y[b, i, n] * W_b[i, j]  mod d_j,
-// with W_b = w + b * w_stride. See rowmod.cu's header for the design.
+// with W_b = w + b * w_stride. One thread per column n keeps its A input
+// words in registers (MAXA is a compile-time bound, so the array is not
+// spilled) and writes its D outputs; W, its companions and d sit in shared
+// memory, read as broadcasts. Each term is one __umulhi-based Shoup
+// multiply reduced at once, so the sum never leaves 32 bits. Loads and
+// stores are coalesced along n. pconv_core.cuh's lazy conversion is the
+// faster form where its shapes allow.
 
 #pragma once
 

@@ -50,7 +50,7 @@ class Basis:
     def red64(self) -> torch.Tensor:
         """[k, 3] per tower: 2^32 mod q, its Shoup companion and
         floor(2^32 / q), with which a kernel reduces a 64-bit word mod q
-        (`reduce_wide` of csrc/ks_fused.cu). Made on the host at first use
+        (`reduce_wide` of csrc/pconv_core.cuh). Made on the host at first use
         and kept with the basis; a slice makes its own."""
         return u32_tensor(np.array([mod_constants(q) for q in self.moduli],
                                    np.uint64).reshape(-1, 3), self.device)

@@ -64,7 +64,7 @@ def _accumulate_converted(y: torch.Tensor, tab: SwitchTables,
                           out_basis: Basis) -> torch.Tensor:
     """sum_i y_i * [B/b_i]_{d_j} mod d_j: the base-conversion kernel."""
     return mod_matmul_rowmod(y, tab.bhat_mod_d, tab.bhat_mod_d_sh,
-                             out_basis.q)
+                             out_basis.q, out_basis.red64)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,15 @@ with Shoup companions. The JAX package's int8 limb form (`balanced_limbs_
 host`, `_recombine`) exists for the TPU's matrix unit and has no
 counterpart here. On a CUDA tensor each wrapper launches its kernel
 (`csrc/rowmod.cu`, `csrc/modmatmul.cu`) or raises; on a CPU tensor it runs
-its plain version.
+its plain version. Kernel k has two entries: the lazy conversion
+`mod_matmul_rowmod` (`csrc/pconv_core.cuh`, which K2 and K45 run too) and
+its former form `mod_matmul_rowmod_eager`, which serves the shapes the
+first does not take and is its yardstick on the card.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,41 +37,90 @@ MAX_DEPTH = 1 << 15
 
 
 def mod_matmul_rowmod(y: torch.Tensor, w: torch.Tensor, w_sh: torch.Tensor,
-                      d: torch.Tensor) -> torch.Tensor:
-    """y [..., A, N] int32, w / w_sh [A, D] int32, d [D, 1] int32 moduli
-    -> [..., D, N] int32."""
+                      d: torch.Tensor, red: torch.Tensor) -> torch.Tensor:
+    """y [..., A, N] int32 words, w / w_sh [A, D] int32 (w canonical mod
+    d_j, with Shoup companions), d [D, 1] int32 moduli below 2^31, red
+    [D, 3] their `Basis.red64` -> [..., D, N] int32, canonical.
+
+    On the card one launch of the lazy conversion (`pconv`) where its
+    shapes allow (`_rowmod_entry`), else of the former form
+    `mod_matmul_rowmod_eager`; a shape neither takes raises."""
     if y.device.type == "cpu":
         return _mod_matmul_rowmod_ref(y, w, d)
-    a_dim, d_dim = w.shape
     if y.device.type != "cuda":
-        raise ValueError(f"mod_matmul_rowmod: no kernel for {y.device}")
-    for name, t in (("w", w), ("w_sh", w_sh), ("d", d)):
-        if t.device != y.device or t.dtype != torch.int32 or \
-                not t.is_contiguous():
-            raise ValueError(f"mod_matmul_rowmod: {name} must be a "
-                             f"contiguous int32 tensor on {y.device}")
-    if y.dtype != torch.int32 or not y.is_contiguous():
-        raise ValueError("mod_matmul_rowmod: y must be contiguous int32")
+        raise ValueError(f"mod_matmul_rowmod: no kernel for device "
+                         f"{y.device}")
+    return _mod_matmul_rowmod_cu(y, w, w_sh, d, red)
+
+
+def mod_matmul_rowmod_eager(y: torch.Tensor, w: torch.Tensor,
+                            w_sh: torch.Tensor,
+                            d: torch.Tensor) -> torch.Tensor:
+    """Kernel k's former form (every term reduced at once, one thread a
+    column) at any shape it takes; CUDA tensors only."""
+    if y.device.type != "cuda":
+        raise ValueError("mod_matmul_rowmod_eager: no kernel for device "
+                         f"{y.device}")
+    return _mod_matmul_rowmod_cu(y, w, w_sh, d, None,
+                                 "mod_matmul_rowmod_eager")
+
+
+def _mod_matmul_rowmod_cu(y, w, w_sh, d, red, entry=None) -> torch.Tensor:
+    """Check the operands, allocate out and launch `entry`, by default
+    `_rowmod_entry`'s choice (red is passed to the lazy form only)."""
+    name = entry or "mod_matmul_rowmod"
+    operands = (("y", y), ("w", w), ("w_sh", w_sh), ("d", d), ("red", red))
+    for arg, t in operands:
+        if t is not None and (t.device != y.device or t.dtype != torch.int32
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be a contiguous int32 "
+                             f"tensor on {y.device}")
+    a_dim, d_dim = w.shape
     if y.dim() < 2 or y.shape[-2] != a_dim or w_sh.shape != w.shape or \
-            d.numel() != d_dim:
-        raise ValueError(f"mod_matmul_rowmod: shapes y {tuple(y.shape)}, "
-                         f"w {tuple(w.shape)}, d {tuple(d.shape)} disagree")
+            d.numel() != d_dim or \
+            (red is not None and tuple(red.shape) != (d_dim, 3)):
+        raise ValueError(f"{name}: shapes y {tuple(y.shape)}, w "
+                         f"{tuple(w.shape)}, d {tuple(d.shape)} disagree")
     n = y.shape[-1]
-    lead = tuple(y.shape[:-2])
-    out = torch.empty(lead + (d_dim, n), dtype=torch.int32, device=y.device)
-    batch = y.numel() // (a_dim * n)
-    _build.launch("rowmod", "mod_matmul_rowmod", y, w, w_sh, d, out, batch,
-                  a_dim, d_dim, n)
+    out = y.new_empty(tuple(y.shape[:-2]) + (d_dim, n))
+    batch = math.prod(y.shape[:-2])
+    entry = entry or _rowmod_entry(y, out, batch, a_dim, d_dim, n)
+    args = (red,) if entry == "mod_matmul_rowmod" else ()
+    _build.launch("rowmod", entry, y, w, w_sh, d, *args, out, batch, a_dim,
+                  d_dim, n)
     return out
+
+
+def _rowmod_entry(y, out, batch, a_dim, d_dim, n) -> str:
+    """The entry of csrc/rowmod.cu for these operands, read from their
+    shapes and addresses before the launch as the kernels check them:
+    `mod_matmul_rowmod` (pconv) for up to 64 input rows whose tables fit
+    48 KB of shared memory (16 D + 8 A D bytes), rows of N a multiple of
+    4 words and y and out on 16-byte boundaries; else
+    `mod_matmul_rowmod_eager` where (2 A + 1) D <= 12 K words; raises where
+    neither kernel takes them."""
+    if not (1 <= batch <= 65535 and 1 <= a_dim <= 64 and d_dim >= 1
+            and n >= 1):
+        raise ValueError(f"mod_matmul_rowmod: no kernel for batch {batch}, "
+                         f"[{a_dim} -> {d_dim}, {n}]")
+    if 16 * d_dim + 8 * a_dim * d_dim <= 48 * 1024 and n % 4 == 0 and \
+            (y.data_ptr() | out.data_ptr()) % 16 == 0:
+        return "mod_matmul_rowmod"
+    if (2 * a_dim + 1) * d_dim <= 12 * 1024:
+        return "mod_matmul_rowmod_eager"
+    raise ValueError(f"mod_matmul_rowmod: no kernel for [{a_dim} -> "
+                     f"{d_dim}, {n}]: tables above both kernels' shared "
+                     "memory")
 
 
 def _mod_matmul_rowmod_ref(y: torch.Tensor, w: torch.Tensor,
                            d: torch.Tensor) -> torch.Tensor:
-    """Plain int64 version of the kernel: one reduced product per input
-    row (each < 2^62, the running sum < 2^63)."""
+    """Plain int64 version of the kernels: one reduced product per input
+    row, the words of y read as unsigned 32-bit integers, as the kernels
+    read them (each product < 2^63 - 2^32, the running sum below 2^63)."""
     q = d.long().view(-1, 1)                          # [D, 1]
     wl = w.long()
-    yl = y.long()
+    yl = y.long() & 0xFFFFFFFF
     acc = torch.zeros(tuple(y.shape[:-2]) + (w.shape[1], y.shape[-1]),
                       dtype=torch.int64, device=y.device)
     for i in range(w.shape[0]):

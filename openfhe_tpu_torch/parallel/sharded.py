@@ -61,7 +61,7 @@ def mult_relin_local(a0, a1, b0, b1, views) -> tuple:
         e0 = e1 = None
         for j in range(v.nd):
             conv = mod_matmul_rowmod(y_pad[j], v.conv_w[j], v.conv_w_sh[j],
-                                     b.q)
+                                     b.q, b.red64)
             s = sf.take_own(ntt_fwd(conv, b), cc2, v, j)
             t0, t1 = mo.mul_mod(s, bv[j], b.q), mo.mul_mod(s, av[j], b.q)
             e0 = t0 if e0 is None else mo.add_mod(e0, t0, b.q)
@@ -73,7 +73,8 @@ def mult_relin_local(a0, a1, b0, b1, views) -> tuple:
         bq, bp = v.q.basis_ql, v.p.basis_p
         pc = mo.mul_mod_shoup(ntt_inv(e[:, v.kql:].contiguous(), bp),
                               v.p.pscale, v.p.pscale_sh, bp.q)
-        s = ntt_fwd(mod_matmul_rowmod(pc, v.pconv_w, v.pconv_w_sh, bq.q), bq)
+        s = ntt_fwd(mod_matmul_rowmod(pc, v.pconv_w, v.pconv_w_sh, bq.q,
+                                      bq.red64), bq)
         d = mo.mul_mod_shoup(mo.sub_mod(e[:, v.q0:v.q0 + bq.k], s, bq.q),
                              v.q.pinv_q, v.q.pinv_q_sh, bq.q)
         outs0.append(mo.add_mod(x0, d[0], bq.q))

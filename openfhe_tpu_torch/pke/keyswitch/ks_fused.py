@@ -44,14 +44,15 @@ Each kernel has a wrapper and its plain twin (`_..._ref`) here. The
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises. K1t, K3, K45, K6 and K6f run on the
 cluster NTT (`csrc/ntt_cluster.cuh`) where `ops.ntt.cluster_geometry`
-takes the ring (2^4 <= N <= 2^17): K1t, K3, K6 and K6f in one launch
-each, K45 in two. Their former forms on the staged NTT passes,
-`tensor_intt_staged`, `ntt_keymul_acc_staged`, `intt_conv_p_staged`,
-`ntt_subscale_staged` and `ntt_submul_final_staged`, serve every other
-ring (the choice reads the ring alone) and are the yardstick the cluster
-forms are held against on the card. K2 reads y's digits in place; its
-former form `conv_digits_rowmod` takes them zero-padded (`_pad_digits`)
-and is its yardstick. K1 (`intt_scale`) still runs on the staged passes.
+takes the ring (2^4 <= N <= 2^17): K1t, K1/K4, K3, K6 and K6f in one
+launch each, K45 in two. Their former forms on the staged NTT passes,
+`tensor_intt_staged`, `intt_scale_staged`, `ntt_keymul_acc_staged`,
+`intt_conv_p_staged`, `ntt_subscale_staged` and
+`ntt_submul_final_staged`, serve every other ring (the choice reads the
+ring alone) and are the yardstick the cluster forms are held against on
+the card. K2 reads y's digits in place; its former form
+`conv_digits_rowmod` takes them zero-padded (`_pad_digits`) and is its
+yardstick.
 """
 
 from __future__ import annotations
@@ -234,24 +235,40 @@ def intt_scale(x: torch.Tensor, tabs: FusedKSTables,
       K4 (p_rows True):  x [E, kql + kp, N] EVAL (ext) ->
          INTT(x[:, kql:]) * (P/p_i)^-1 * t^-1 [E, kp, N] COEFF, the P rows
          read in place.
+
+    On the card one launch of the inverse cluster transform (K45's first
+    launch), or the staged passes for rings it does not take; x must lie
+    on a 16-byte boundary (a contiguous tensor of whole rows does).
     """
     if x.device.type == "cpu":
         return _intt_scale_ref(x, tabs, p_rows)
+    entry = ("intt_scale" if cluster_geometry(tabs.basis_qlp.ring_dim)
+             else "intt_scale_staged")
+    return _intt_scale_cu(x, tabs, p_rows, entry)
+
+
+def intt_scale_staged(x: torch.Tensor, tabs: FusedKSTables,
+                      p_rows: bool = False) -> torch.Tensor:
+    """K1 / K4 on the staged NTT passes, any ring; CUDA tensors only."""
+    return _intt_scale_cu(x, tabs, p_rows, "intt_scale_staged")
+
+
+def _intt_scale_cu(x, tabs: FusedKSTables, p_rows: bool, entry: str):
     kql, kp = tabs.kql, tabs.kp
     if p_rows:
         lead = tuple(x.shape[:-2])
-        _check("intt_scale", tabs, x=(x, lead + (kql + kp,)))
+        _check(entry, tabs, x=(x, lead + (kql + kp,)))
         k, in_rows, in_off = kp, kql + kp, kql
         basis, scale, scale_sh = (tabs.basis_p, tabs.k45_scale,
                                   tabs.k45_scale_sh)
     else:
         lead = ()
-        _check("intt_scale", tabs, x=(x, (kql,)))
+        _check(entry, tabs, x=(x, (kql,)))
         k, in_rows, in_off = kql, kql, 0
         basis, scale, scale_sh = (tabs.basis_ql, tabs.k1_scale,
                                   tabs.k1_scale_sh)
     out = x.new_empty(lead + (k, x.shape[-1]))
-    _build.launch("ks_fused", "intt_scale", x, out, basis.ipsi_br,
+    _build.launch("ks_fused", entry, x, out, basis.ipsi_br,
                   basis.ipsi_br_sh, basis.q, scale, scale_sh, math.prod(lead),
                   k, in_rows, in_off, _log_n(tabs))
     return out

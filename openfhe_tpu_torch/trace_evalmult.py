@@ -9,9 +9,13 @@ default; the fused mult chain of `pke/keyswitch/ks_fused.py`),
 1), both through the general fused chain, `keyswitch_core_fused`;
 `rescale` (ModReduce of a fresh EvalMult product: per element one inverse
 NTT of the dropped tower and one forward NTT of the other 30, plain int64
-torch around them, `lattice/rns_tools.drop_last_and_scale`), `encrypt`
-(public-key Encrypt of an encoded plaintext) or `decrypt` (Decrypt with
-the CKKS decode on the host). Several ops, comma-separated, share one
+torch around them, `lattice/rns_tools.drop_last_and_scale`),
+`fastrotation` (EvalFastRotationPrecompute of a fresh ciphertext and one
+EvalFastRotation by 1 on its digits: the hoisted rotation of
+`pke/keyswitch/hybrid.py`, its conversions kernel k, its NTTs kernels a
+and b, its key product and mod-down's arithmetic plain int64 torch),
+`encrypt` (public-key Encrypt of an encoded plaintext) or `decrypt`
+(Decrypt with the CKKS decode on the host). Several ops, comma-separated, share one
 context and are traced one after another. `--op
 ginx` instead builds a BinFHE STD128 GINX context and traces 2 calls of
 EvalBinGate(AND) over a batch of 256 gates (a = i % 2, b = (i // 2) % 2),
@@ -25,8 +29,9 @@ traces the limb-sharded EvalMult of `parallel/sharded_fused.py` at level 3
 on one card when there is one), inputs sharded beforehand. Prints the
 device time of every kernel name (summed over the calls, divided by
 their number) with its launches per call, the share taken by the port's
-own kernels (`csrc/`) against the plain torch ops around them, and the
-device's busy share of the wall time measured with CUDA events. Needs a
+own kernels (`csrc/`) against the plain torch ops around them (the
+plain-torch time and share of the busy time), and the device's busy
+share of the wall time measured with CUDA events. Needs a
 CUDA card; exits non-zero without one.
 """
 
@@ -43,14 +48,15 @@ import numpy as np
 import torch
 
 CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "rescale": 5,
-         "encrypt": 5, "decrypt": 5, "ginx": 2, "lmkcdey": 2, "sharded": 5}
+         "fastrotation": 5, "encrypt": 5, "decrypt": 5, "ginx": 2,
+         "lmkcdey": 2, "sharded": 5}
 SHARDED_LEVEL = 3
 SHARDED_LIMB = 4
 GATE_BATCH = 256
 LMK_BATCH = 64
 # kernel function names of csrc/ (ntt_core.cuh, ntt_cluster.cuh,
-# rowmod_core.cuh, keymul_core.cuh, ks_fused.cu, ntt_small.cu,
-# modmatmul.cu, blind_rotate.cu)
+# rowmod_core.cuh, pconv_core.cuh, keymul_core.cuh, ks_fused.cu,
+# ntt_small.cu, modmatmul.cu, blind_rotate.cu)
 OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "fwd_cluster",
        "inv_cluster", "rowmod",
        "tensor_intt_tile", "keymul_tile", "subscale_tile", "submul_tile",
@@ -126,6 +132,8 @@ def _trace(name: str, op, calls: int) -> int:
         "device_busy_share": busy_ms / wall_ms,
         "own_kernels_ms": own_ms,
         "own_kernel_launches": sum(launches[n] for n in own) // calls,
+        "plain_torch_ms": busy_ms - own_ms,
+        "plain_torch_share": (busy_ms - own_ms) / busy_ms,
         "kernel_launches": sum(launches.values()) // calls,
         "device": torch.cuda.get_device_name(0)}))
     return 0
@@ -220,6 +228,9 @@ def _ckks_op(name: str):
     if name == "decrypt":
         return lambda: cc.Decrypt(kp.secret_key, a)
     cc.EvalRotateKeyGen(kp.secret_key, [1])
+    if name == "fastrotation":
+        return lambda: cc.EvalFastRotation(
+            a, 1, 0, cc.EvalFastRotationPrecompute(a))
     return lambda: cc.EvalRotate(a, 1)
 
 

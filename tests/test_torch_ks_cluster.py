@@ -33,6 +33,7 @@ from openfhe_tpu.lattice import basis as jbasis  # noqa: E402
 from openfhe_tpu.ops import ntt as jntt  # noqa: E402
 from openfhe_tpu.pke.keyswitch import ks_fused as jks  # noqa: E402
 from openfhe_tpu_torch import _build  # noqa: E402
+from openfhe_tpu_torch.lattice import rns_tools as rt  # noqa: E402
 from openfhe_tpu_torch.lattice.basis import make_basis  # noqa: E402
 from openfhe_tpu_torch.math import modops as mo  # noqa: E402
 from openfhe_tpu_torch.math import nbtheory  # noqa: E402
@@ -332,19 +333,42 @@ def test_models_on_31_bit_primes_match_jax_ntt_and_twins(log_w):
     np.testing.assert_array_equal(k45, conv)
 
 
-@pytest.mark.parametrize("a_dim,digits", [(16, 1), (64, 1), (16, 2)],
-                         ids=["P16", "P64", "digits-16+14"])
+@pytest.mark.parametrize("a_dim,digits", [(16, 1), (64, 1), (16, 2),
+                                          (16, 0)],
+                         ids=["P16", "P64", "digits-16+14",
+                              "k-16-to-31-batch2"])
 def test_conversion_arithmetic_worst_case(a_dim, digits):
     """pconv's lazy products and 64-bit sum at the largest 31-bit primes,
     every input word and weight q - 1 (and the real weights: the mod-down's
     of a P of a_dim towers, or K2's per-digit ones at two digits of 16 and
     14 rows, own rows zero): equal to the plain conversion, with sums past
-    2^32, so a 32-bit sum would overflow."""
+    2^32, so a 32-bit sum would overflow. Kernel k (digits 0:
+    `mod_matmul_rowmod`, one table for a batch of 2, w_stride 0) takes any
+    32-bit word: every input word 2^32 - 1, at its 16 -> 31 shape (the
+    mod-down's P -> Q, a digit's -> complement) with weights d - 1 and the
+    real [B/b_i]_{d_j}."""
     n = 8
     mods = _top31(a_dim + 31, 1 << 16)
     mp, mq = mods[:a_dim], mods[a_dim:]
     d = np.array(mq, np.uint64)
     red = mo.to_u32(make_basis(mq, n).red64)
+    if digits == 0:
+        y = np.full((2 * a_dim, n), (1 << 32) - 1, np.uint64)
+        tab = rt.make_switch_tables(mp, mq)
+        for w in (np.broadcast_to(d - 1, (a_dim, len(mq))).copy(),
+                  mo.to_u32(tab.bhat_mod_d).astype(np.uint64)):
+            ws = np.stack([w, w])
+            got, total = model_pconv(y, ws, companion(ws, d), d, red, a_dim,
+                                     2 * a_dim, splits=2)
+            want = _mod_matmul_rowmod_ref(
+                mo.u32_tensor(y.reshape(2, a_dim, n)), mo.u32_tensor(w),
+                mo.u32_tensor(d))
+            np.testing.assert_array_equal(got, mo.to_u32(want))
+            exact = (w.astype(object).T @ y[:a_dim].astype(object)) \
+                % d.astype(object)[:, None]
+            np.testing.assert_array_equal(got[1], exact.astype(np.uint64))
+            assert total.max() > MASK
+        return
     if digits == 1:
         # K45: both elements through the P -> Q weights
         y = np.broadcast_to(np.array(mp, np.uint64)[:, None] - 1,

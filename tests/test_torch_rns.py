@@ -70,7 +70,7 @@ def test_switch_crt_basis_approx_matches_jax(bases, split):
     y = _rand(rng, from_m)
     want = np.asarray(jrt._accumulate_converted(jnp.asarray(y), jtab, jout))
     got = mod_matmul_rowmod(u32_tensor(y), tab.bhat_mod_d, tab.bhat_mod_d_sh,
-                            tout.q)
+                            tout.q, tout.red64)
     np.testing.assert_array_equal(to_u32(got), want)
 
 
