@@ -97,13 +97,21 @@ is not beside it. Phases, none of which catches its own failure:
    repeats when there are fewer cards than shards; the placement is
    printed): kernel l (`mod_matmul`) against its plain version at the
    sharded NTT's stage shapes (the Q basis at limb 2 and 4, the 31-bit
-   primes), kernels n, o and p against theirs on the shards of level 1 at
-   limb 2, level 3 at limb 4 and the 31-bit chain at limb 2; then, with
-   the counters reset just before and read just after, the sharded NTT at
-   limb 2 and 4 (word-equal to `ntt.cu`, 2L launches of `mod_matmul`),
-   the sharded EvalMult at level 1 / limb 2 and level 3 / limb 4 (word-
-   equal to the single-card fused EvalMult, each of its six kernels once
-   per shard and nothing else), the portable body at level 1 / limb 2,
+   primes), kernels n, o and p against theirs on every shard of level 1
+   at limb 2, level 3 at limb 4, the 31-bit chain at limb 2 and its level
+   of 1 Q tower padded to 2 (whose second digit covers no row of y); n
+   (`conv_digits_rows`: K2's `pconv` reading the gathered y in place) and
+   p (`ntt_keymul_acc_rows`: K3's `keymul_cluster` from the shard's first
+   global row) also against their former forms (`conv_digits_rows_rowmod`
+   over the zero-padded digits, `ntt_keymul_acc_rows_staged` on the
+   staged NTT passes), one launch of the entry a call and none of the
+   former, timed as the fused kernels are (`ms` device time, `call_ms` a
+   call); then, with the counters reset just before and read just after,
+   the sharded NTT at limb 2 and 4 (word-equal to `ntt.cu`, 2L launches
+   of `mod_matmul`), the sharded EvalMult at level 1 / limb 2 and level 3
+   / limb 4 (word-equal to the single-card fused EvalMult, each of its six
+   kernels once per shard, the former forms never, nothing else), the
+   portable body at level 1 / limb 2,
    the two-level chain (level 3, in-region rescale, level 4 padded to 28
    rows: real rows equal to Rescale and EvalMult, the pad row zero), a dp 2
    x limb 2 mesh with a batch of two pairs and, where two cards are
@@ -131,10 +139,10 @@ conversion counts only its nonzero weights, a key product skips the NTT
 of the digit's own rows (and reads only the extended digits' other
 rows). A term of kernel l's modular matmul counts MATMUL_TERM_OPS: the
 62-bit product (two 32-bit multiplies) and its 64-bit sum (two adds). A
-conversion on pconv (k, K2, K45's second launch) counts LAZY_TERM_OPS a
-term (the lazy Shoup product and its 64-bit sum) and REDUCE_WIDE_OPS an
-output word (its one reduction); the eager conversion's and the key
-product's terms count ROWMOD_TERM_OPS.
+conversion on pconv (k, K2, K45's second launch, the sharded n) counts
+LAZY_TERM_OPS a term (the lazy Shoup product and its 64-bit sum) and
+REDUCE_WIDE_OPS an output word (its one reduction); the eager
+conversion's and the key product's terms count ROWMOD_TERM_OPS.
 """
 
 from __future__ import annotations
@@ -175,9 +183,10 @@ STAGED = ("ntt_fwd_staged", "ntt_inv_staged", "tensor_intt_staged",
           "intt_scale_staged", "ntt_keymul_acc_staged", "intt_conv_p_staged",
           "ntt_subscale_staged", "ntt_submul_final_staged",
           "conv_digits_rowmod", "mod_matmul_rowmod_eager")
-# the fused kernels on the cluster NTT
+# the kernels on the cluster NTT
 FUSED_CLUSTER = ("tensor_intt", "intt_scale", "ntt_keymul_acc",
-                 "intt_conv_p", "ntt_subscale", "ntt_submul_final")
+                 "intt_conv_p", "ntt_subscale", "ntt_submul_final",
+                 "ntt_keymul_acc_rows")
 # the kernels held beside their former forms (`cluster_case`,
 # `rowmod_case`)
 FORMER = {"tensor_intt": "tensor_intt_staged",
@@ -187,7 +196,9 @@ FORMER = {"tensor_intt": "tensor_intt_staged",
           "ntt_subscale": "ntt_subscale_staged",
           "ntt_submul_final": "ntt_submul_final_staged",
           "conv_digits": "conv_digits_rowmod",
-          "mod_matmul_rowmod": "mod_matmul_rowmod_eager"}
+          "mod_matmul_rowmod": "mod_matmul_rowmod_eager",
+          "conv_digits_rows": "conv_digits_rows_rowmod",
+          "ntt_keymul_acc_rows": "ntt_keymul_acc_rows_staged"}
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
 BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
@@ -203,8 +214,12 @@ MULT_KERNELS = 6
 RELIN_KERNELS = 6
 KS_CHAIN = ("intt_scale", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
             "ntt_subscale")
+# the sharded n's and p's former forms (csrc/sharded.cu: n on
+# rowmod_core.cuh over the zero-padded digits, p on the staged NTT
+# passes): their yardsticks (`shard_cases`); no launch on the path
+SHARDED_STAGED = ("conv_digits_rows_rowmod", "ntt_keymul_acc_rows_staged")
 SHARDED = ("mod_matmul", "conv_digits_rows", "conv_p_to_q_rows",
-           "ntt_keymul_acc_rows")
+           "ntt_keymul_acc_rows") + SHARDED_STAGED
 # the kernels of one sharded EvalMult, each once per shard
 SHARDED_CHAIN = ("tensor_intt", "conv_digits_rows", "ntt_keymul_acc_rows",
                  "intt_scale", "conv_p_to_q_rows", "ntt_submul_final")
@@ -265,10 +280,14 @@ WHERE = {
     "mod_matmul": ("csrc/modmatmul.cu", "openfhe_tpu/ops/modmatmul.py:138"),
     "conv_digits_rows": ("csrc/sharded.cu",
                          "openfhe_tpu/parallel/sharded_fused.py:318"),
+    "conv_digits_rows_rowmod": ("csrc/sharded.cu",
+                                "openfhe_tpu/parallel/sharded_fused.py:318"),
     "conv_p_to_q_rows": ("csrc/sharded.cu",
                          "openfhe_tpu/parallel/sharded_fused.py:348"),
     "ntt_keymul_acc_rows": ("csrc/sharded.cu",
                             "openfhe_tpu/parallel/sharded_fused.py:396"),
+    "ntt_keymul_acc_rows_staged": (
+        "csrc/sharded.cu", "openfhe_tpu/parallel/sharded_fused.py:396"),
 }
 # kernel m's cases: (N, towers, rows, what the shape is)
 SMALL_CASES = ((1024, 1, 1536, "the per-step loop's digits: 256 x d2 6"),
@@ -568,8 +587,9 @@ def kernel_case(name, kern, ref, args, tabs, work, label,
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
-    """A fused kernel against its plain twin and its former form `staged`
+def cluster_case(name, kern, staged, ref, args, tabs, work, label,
+                 shape=None) -> dict:
+    """A kernel against its plain twin and its former form `staged`
     (entry FORMER[name]), word for word; each call of kern must launch its
     entry once and the former one never. `ms` is device time (`device_ms`)
     and `call_ms` a call, each beside the former form's (`staged_ms`,
@@ -590,8 +610,8 @@ def cluster_case(name, kern, staged, ref, args, tabs, work, label) -> dict:
     b_ms, b_by = bound(*work)
     staged_ms = device_ms(lambda: staged(*args, tabs))
     staged_call_ms = cuda_ms(lambda: staged(*args, tabs))
-    common = dict(shape=[tabs.kql, tabs.kp, tabs.nd,
-                         tabs.basis_qlp.ring_dim],
+    common = dict(shape=shape or [tabs.kql, tabs.kp, tabs.nd,
+                                  tabs.basis_qlp.ring_dim],
                   moduli=label, plain_ms=cuda_ms(lambda: ref(*args, tabs)),
                   bound_ms=b_ms, bound_by=b_by)
     return {name: dict(common, max_abs_err=err,
@@ -1072,50 +1092,67 @@ def own_pairs(v) -> int:
 
 def shard_work(v) -> dict:
     """(bytes, operations) of kernels n, o, p on one shard's views: the
-    conversions count their nonzero weights, the key product the NTTs of
-    its non-own (row, digit) pairs and the own rows it reads from c2."""
+    conversions count their nonzero weights (n as `pconv` computes: a
+    digit's rows with a weight, into its output rows with one), the key
+    product as K3's (`fused_work`): the NTTs of its non-own (row, digit)
+    pairs, the own rows it reads from c2, the twiddles of the rows that
+    transform at least once."""
     n = v.basis_qlp.ring_dim
     rows, nd, kp = v.basis_qlp.k, v.nd, v.pconv_w.shape[0]
     own = own_pairs(v)
     ntt = (nd * rows - own) * n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
+    nz = v.conv_w != 0                          # [nd, alpha, rows]
+    tw_rows = rows if nd > 1 else rows - own
     return {
-        "conv_digits_rows": (WORD * n * nd * (v.alpha + rows),
-                             n * ROWMOD_TERM_OPS * int((v.conv_w != 0).sum())),
+        "conv_digits_rows": (WORD * n * (v.kql + nd * rows),
+                             sum(pconv_ops(n * int(nz[j].any(0).sum()),
+                                           int(nz[j].any(1).sum()))
+                                 for j in range(nd))),
         "conv_p_to_q_rows": (WORD * n * 2 * (kp + v.q.kql),
                              2 * n * ROWMOD_TERM_OPS
                              * int((v.pconv_w != 0).sum())),
-        "ntt_keymul_acc_rows": (WORD * n * (nd * rows + 4 * nd * rows
-                                            + 4 * rows),
+        "ntt_keymul_acc_rows": (WORD * n * (5 * nd * rows + 2 * rows
+                                            + 2 * tw_rows),
                                 ntt + 2 * nd * rows * n * ROWMOD_TERM_OPS),
     }
 
 
-def shard_cases(sf, st, limb, shards, gen, label) -> dict:
-    """Kernels n, o, p vs their plain twins on shards of one table set,
-    on random words (the key is the table set's)."""
+def shard_cases(sf, st, limb, gen, label) -> dict:
+    """Kernels n, o, p vs their plain twins on every shard of one table
+    set, on random words (the key is the table set's); n and p also
+    against their former forms (`cluster_case`: n's on `_pad_digits` of
+    its input, the pad included), one launch of the entry a call."""
+    from openfhe_tpu_torch.pke.keyswitch import ks_fused
     out = {name: [] for name in SHARDED[1:]}
     f = st.fused
     n = f.basis_qlp.ring_dim
-    for idx in shards:
+    pad = lambda y, v: sf.conv_digits_rows_rowmod(
+        ks_fused._pad_digits(y, v), v)
+    for idx in range(limb):
         v = sf.shard_view(st, limb, idx, f.basis_qlp.device)
         rows = v.basis_qlp.k
-        y_pad = rand_residues(gen, [2 ** 31 - 1] * f.alpha, n, (f.nd,))
+        y = rand_residues(gen, [2 ** 31 - 1] * f.kql, n)
         pc = rand_residues(gen, f.basis_p.moduli, n, (2,))
         conv = rand_residues(gen, v.basis_qlp.moduli, n, (f.nd,))
         c2 = rand_residues(gen, f.basis_ql.moduli, n)
         where = (f"{label}, shard {idx} of {limb} (Q_l*P rows {v.tau0}-"
                  f"{v.tau0 + rows - 1}, {own_pairs(v)} own)")
         work = shard_work(v)
-        for name, kern, ref, args in (
-                ("conv_digits_rows", sf.conv_digits_rows,
-                 sf._conv_digits_rows_ref, (y_pad,)),
-                ("conv_p_to_q_rows", sf.conv_p_to_q_rows,
-                 sf._conv_p_to_q_rows_ref, (pc,)),
+        shape = [v.q.kql, rows, f.nd, n]
+        for name, kern, former, ref, args in (
+                ("conv_digits_rows", sf.conv_digits_rows, pad,
+                 sf._conv_digits_rows_ref, (y,)),
                 ("ntt_keymul_acc_rows", sf.ntt_keymul_acc_rows,
-                 sf._ntt_keymul_acc_rows_ref, (conv, c2))):
-            out[name].append(kernel_case(
-                name, kern, ref, args, v, work[name], where,
-                shape=[v.q.kql, rows, f.nd, n]))
+                 sf.ntt_keymul_acc_rows_staged, sf._ntt_keymul_acc_rows_ref,
+                 (conv, c2))):
+            for entry, case in cluster_case(name, kern, former, ref, args, v,
+                                            work[name], where,
+                                            shape).items():
+                out[entry].append(case)
+        out["conv_p_to_q_rows"].append(kernel_case(
+            "conv_p_to_q_rows", sf.conv_p_to_q_rows,
+            sf._conv_p_to_q_rows_ref, (pc,), v, work["conv_p_to_q_rows"],
+            where, shape=shape))
     return out
 
 
@@ -1143,21 +1180,25 @@ def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
             cases["mod_matmul"].append(matmul_case(
                 modmatmul, t["wr"], x.contiguous(), t["q"],
                 f"{label}, stage 1 of a shard at limb {limb}"))
-    # kernels n, o, p on the shards of three table sets
+    # kernels n, o, p on every shard of four table sets; the last a padded
+    # level whose second digit covers no rows of y (n writes it as zeros)
     key31 = rand_key(gen, top31, n)
     st = {lvl: sf.make_sharded_fused_tables(cc, cc.size_ql(lvl))
           for lvl in (1, 3)}
-    st31 = sf.make_sharded_fused_tables_basis(
-        make_basis(top31[:4], n, device=cc.device),
-        make_basis(top31[4:], n, device=cc.device), 4, 2, key31)
-    for tabs, limb, shards, label in (
-            (st[1], 2, (0, 1), "level 1 (30 Q + 16 P)"),
-            (st[3], 4, (0, 3), "level 3 (28 Q + 16 P)"),
-            (st31, 2, (0, 1), "largest 31-bit primes (4 Q + 2 P)")):
-        for name, rows in shard_cases(sf, tabs, limb, shards, gen,
-                                      label).items():
+    b31q = make_basis(top31[:4], n, device=cc.device)
+    b31p = make_basis(top31[4:], n, device=cc.device)
+    st31 = sf.make_sharded_fused_tables_basis(b31q, b31p, 4, 2, key31)
+    st31_pad = sf.make_sharded_fused_tables_basis(b31q, b31p, 1, 2, key31,
+                                                  pad_to=2)
+    for tabs, limb, label in (
+            (st[1], 2, "level 1 (30 Q + 16 P)"),
+            (st[3], 4, "level 3 (28 Q + 16 P)"),
+            (st31, 2, "largest 31-bit primes (4 Q + 2 P)"),
+            (st31_pad, 2, "largest 31-bit primes, 1 Q padded to 2 + 2 P, "
+                          "digit 1 empty")):
+        for name, rows in shard_cases(sf, tabs, limb, gen, label).items():
             cases[name] += rows
-    del key31, st31
+    del key31, st31, st31_pad
     kernel_s = time.perf_counter() - t_phase
 
     # the path, counted
@@ -1259,8 +1300,11 @@ def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
         want_l = {k: 2 * limb * (k == "mod_matmul") for k in names}
         require(got == want_l, f"sharded NTT launches {got}, expected "
                 f"{want_l}")
-    require(all(launches[k] > 0 for k in SHARDED),
+    require(all(launches[k] > 0 for k in SHARDED
+                if k not in SHARDED_STAGED),
             f"a kernel was not launched on the sharded path: {launches}")
+    require(not any(launches[k] for k in SHARDED_STAGED),
+            f"the sharded path ran a former form: {launches}")
 
     b = cc.basis_q
     times = {
@@ -1288,10 +1332,15 @@ def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
     for name, rows in cases.items():
         for case in rows:
+            extra = "" if "staged_ms" not in case else (
+                f"(call {case['call_ms']:.4f})  {case['former']} "
+                f"{case['staged_ms']:.4f} ms (call "
+                f"{case['staged_call_ms']:.4f})  ")
             print(f"  {name:20s} {str(case['shape']):22s} {case['moduli']} "
-                  f"kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f}"
-                  f" ms  bound {case['bound_ms']:.4f} ms "
-                  f"({case['bound_by']})  max_abs_err {case['max_abs_err']}")
+                  f"kernel {case['ms']:.4f} ms  {extra}plain "
+                  f"{case['plain_ms']:.4f} ms  bound {case['bound_ms']:.4f}"
+                  f" ms ({case['bound_by']})  max_abs_err "
+                  f"{case['max_abs_err']}")
     phase_s = time.perf_counter() - t_phase
     print(f"sharded phase: {phase_s:.1f} s ({kernel_s:.1f} s kernel cases)")
     return dict(cases=cases, launches=launches, per_mult=per3,
@@ -1794,7 +1843,8 @@ def main() -> int:
                                       "cluster")}
                if name in ("ntt_fwd", "ntt_inv") + tuple(FORMER) else {}),
             **({"former": FORMER[name]} if name in FORMER else {}),
-            **({"call_ms": head["call_ms"]} if name in STAGED else {}),
+            **({"call_ms": head["call_ms"]}
+               if name in STAGED + SHARDED_STAGED else {}),
             **({"call_ms": head["call_ms"]} if name in BLIND else {}),
             cases=rows))
     print(json.dumps({"kernels": kernels, "card": card, **times,

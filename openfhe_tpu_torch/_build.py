@@ -67,9 +67,11 @@ SOURCES = {
     "blind_rotate": {"blind_rotate_cggi": [_P] * 14 + [_I] * 6 + [_P],
                      "blind_rotate_dm": [_P] * 13 + [_I] * 6 + [_P],
                      "blind_rotate_lmkcdey": [_P] * 14 + [_I] * 6 + [_P]},
-    "sharded": {"conv_digits_rows": [_P] * 5 + [_I] * 4 + [_P],
+    "sharded": {"conv_digits_rows": [_P] * 6 + [_I] * 7 + [_P],
+                "conv_digits_rows_rowmod": [_P] * 5 + [_I] * 4 + [_P],
                 "conv_p_to_q_rows": [_P] * 5 + [_I] * 4 + [_P],
-                "ntt_keymul_acc_rows": [_P] * 11 + [_I] * 6 + [_P]},
+                "ntt_keymul_acc_rows": [_P] * 10 + [_I] * 6 + [_P],
+                "ntt_keymul_acc_rows_staged": [_P] * 11 + [_I] * 6 + [_P]},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

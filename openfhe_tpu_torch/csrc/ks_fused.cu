@@ -62,12 +62,13 @@
 //     count is a runtime argument: the TPU's tower pairs, and the garbage
 //     row they pad an odd kql with, have no counterpart. 4 launches
 //     become 1.
-//   * K3 (keymul_cluster) is one launch, a cluster per tower of Q_l*P:
-//     the digit loop runs inside the cluster, a digit's own towers read
-//     c2's row in place of the transform, and the key product is the
-//     epilogue of the forward transform's last round, on the 16 words
-//     each thread holds. The two sums stay in registers until the last
-//     digit writes ext; nothing else reaches device memory.
+//   * K3 (keymul_cluster, keymul_cluster.cuh, which sharded.cu's p
+//     launches on a shard's rows too) is one launch, a cluster per tower
+//     of Q_l*P: the digit loop runs inside the cluster, a digit's own
+//     towers read c2's row in place of the transform, and the key product
+//     is the epilogue of the forward transform's last round, on the 16
+//     words each thread holds. The two sums stay in registers until the
+//     last digit writes ext; nothing else reaches device memory.
 //   * K45 is K4's launch, the inverse cluster transform of ext's 2 * kp
 //     P rows read in place with N^-1 (P/p_i)^-1 t^-1 as its last multiply,
 //     into a [2, kp, N] intermediate that stays in L2 (no block can wait
@@ -110,6 +111,7 @@
 // The key is indexed in place (key_row), not copied. There is no bucket
 // padding: tower counts are runtime arguments.
 
+#include "keymul_cluster.cuh"  // K3's cluster kernel, shared with sharded.cu
 #include "keymul_core.cuh"     // K3's tile pass, shared with sharded.cu
 #include "ntt_cluster.cuh"
 #include "ntt_core.cuh"
@@ -276,100 +278,6 @@ void intt_scale_run(const uint32_t* x, int in_rows, int in_off,
       x + (static_cast<size_t>(in_off) << log_n), in_rows, out, ipsi,
       ipsi_sh, qs, c, c_sh, k, log_n, log_tile, log_tile == log_n);
   inv_stages(out, ipsi, ipsi_sh, qs, c, c_sh, rows, k, log_n, st);
-}
-
-// K3 on the cluster NTT: cluster c takes tower tau = rows - 1 - c of
-// Q_l*P (the P towers, which transform every digit, start first). For
-// each digit j, s_j is c2's row on the digit's own towers (tau < kql and
-// j = tau / alpha), read at the words the transform would leave in each
-// thread, else the forward transform of conv[j, tau]; the epilogue
-// multiplies the thread's 16 words by the key rows' words at the same
-// indices and adds them into the two sums, which stay in registers (128 a
-// thread, so one block an SM) until the last digit writes ext. The own
-// digit comes last. `own` depends on tau alone, so every block of a
-// cluster takes the same branches and meets the same cluster barriers.
-// conv: [nd, rows, N] COEFF; c2: [kql, N] EVAL; bv, bv_sh, av, av_sh:
-// [>= nd, key_rows, N]; ext: [2, rows, N]; psi(_sh): [rows, N]; qs: [rows].
-template <int LOG_N>
-__global__ void __launch_bounds__(Geometry<LOG_N>::kThreads, 1)
-    keymul_cluster(const uint32_t* conv, const uint32_t* c2,
-                   const uint32_t* __restrict__ bv,
-                   const uint32_t* __restrict__ bv_sh,
-                   const uint32_t* __restrict__ av,
-                   const uint32_t* __restrict__ av_sh, uint32_t* ext,
-                   const uint32_t* __restrict__ psi,
-                   const uint32_t* __restrict__ psi_sh,
-                   const uint32_t* __restrict__ qs, int nd, int alpha,
-                   int kql, int rows, int key_rows, int key_shift) {
-  using G = Geometry<LOG_N>;
-  extern __shared__ __align__(16) uint32_t tile[];
-  const uint32_t rank = blockIdx.x & ((1u << G::kLogC) - 1);
-  const int tau = rows - 1 - static_cast<int>(blockIdx.x >> G::kLogC);
-  const uint32_t q = qs[tau];
-  const size_t tw0 = static_cast<size_t>(tau) << LOG_N;
-  const int krow = tau < kql ? tau : tau + key_shift;
-  const uint32_t x0 = fwd_out_word<LOG_N>(rank, threadIdx.x);
-  const uint32_t* key[4] = {bv, bv_sh, av, av_sh};
-  const int own_digit = tau < kql ? tau / alpha : nd;     // nd: none
-  uint32_t acc[2][kR];
-  for (int i = 0; i < nd; ++i) {
-    const int j = own_digit < nd ? (own_digit + 1 + i) % nd : i;
-    const bool own = j == own_digit;
-    const bool first = i == 0, last = i == nd - 1;
-    const size_t kb = ((static_cast<size_t>(j) * key_rows + krow) << LOG_N) +
-                      x0;
-    // the key product on the thread's words a, row words x .. x + kR - 1
-    auto keymul = [&](const uint32_t (&a)[kR], uint32_t x) {
-#pragma unroll
-      for (int v = 0; v < kR / 4; ++v) {
-        uint4 kw[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          kw[k] = __ldg(reinterpret_cast<const uint4*>(key[k] + kb) + v);
-        const uint32_t w[2][4] = {{kw[0].x, kw[0].y, kw[0].z, kw[0].w},
-                                  {kw[2].x, kw[2].y, kw[2].z, kw[2].w}};
-        const uint32_t w_sh[2][4] = {{kw[1].x, kw[1].y, kw[1].z, kw[1].w},
-                                     {kw[3].x, kw[3].y, kw[3].z, kw[3].w}};
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int l = 0; l < 4; ++l) {
-            const int s = 4 * v + l;
-            const uint32_t r = mul_shoup_q(a[s], w[e][l], w_sh[e][l], q);
-            acc[e][s] = first ? r : add_q(acc[e][s], r, q);
-          }
-      }
-      if (last) {
-        store_words(ext + tw0 + x, acc[0]);
-        store_words(ext + (static_cast<size_t>(rows + tau) << LOG_N) + x,
-                    acc[1]);
-      }
-    };
-    if (own) {
-      uint32_t a[kR];
-      load_words(a, c2 + tw0 + x0);
-      keymul(a, x0);
-    } else {
-      fwd_cluster_row<LOG_N>(
-          conv + ((static_cast<size_t>(j) * rows + tau) << LOG_N),
-          psi + tw0, psi_sh + tw0, q, tile, keymul);
-      if constexpr (G::kLogC == 0)
-        __syncthreads();     // the next digit's transform rewrites the tile
-    }
-  }
-}
-
-using KeymulKernel = void (*)(const uint32_t*, const uint32_t*,
-                              const uint32_t*, const uint32_t*,
-                              const uint32_t*, const uint32_t*, uint32_t*,
-                              const uint32_t*, const uint32_t*,
-                              const uint32_t*, int, int, int, int, int, int);
-
-template <int... I>
-KeymulKernel keymul_kernel(int log_n, std::integer_sequence<int, I...>) {
-  static const KeymulKernel kernels[] = {
-      keymul_cluster<kMinClusterLogN + I>...};
-  return kernels[log_n - kMinClusterLogN];
 }
 
 // Four words at p (16-byte aligned, read-only in the kernel) as an array.
@@ -622,8 +530,7 @@ SubscaleKernel subscale_kernel(int log_n, std::integer_sequence<int, I...>) {
   return kernels[log_n - kMinClusterLogN];
 }
 
-int keymul_placeable[kMaxClusterLogN + 1],
-    intt_p_placeable[kMaxClusterLogN + 1],
+int intt_p_placeable[kMaxClusterLogN + 1],
     submul_placeable[kMaxClusterLogN + 1],
     tensor_intt_placeable[kMaxClusterLogN + 1],
     subscale_placeable[kMaxClusterLogN + 1];
@@ -748,7 +655,7 @@ extern "C" int conv_digits(const void* y, const void* w, const void* w_sh,
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
   if (int bad = pconv_run(in(y), in(w), in(w_sh), in(q), in(red),
                           static_cast<uint32_t*>(out), nd, alpha, kql, kqlp,
-                          n, alpha * kqlp, 1,
+                          n, alpha * kqlp, 0, kql,
                           static_cast<cudaStream_t>(stream)))
     return bad;
   return static_cast<int>(cudaGetLastError());
@@ -784,23 +691,14 @@ extern "C" int ntt_keymul_acc(const void* conv, const void* c2,
                               const void* q, int nd, int alpha, int kql,
                               int kp, int k_q_full, int log_n,
                               void* stream) {
-  const int rows = kql + kp;
-  if (int bad = check_cluster(conv, ext, rows, rows, log_n)) return bad;
-  const uintptr_t align =
-      reinterpret_cast<uintptr_t>(c2) | reinterpret_cast<uintptr_t>(bv) |
-      reinterpret_cast<uintptr_t>(bv_sh) | reinterpret_cast<uintptr_t>(av) |
-      reinterpret_cast<uintptr_t>(av_sh);
-  if (k_q_full < kql || kp < 0 || nd < 1 || alpha < 1 ||
-      nd * alpha < kql || align % 16 != 0)
+  if (k_q_full < kql || kp < 0 || nd * alpha < kql)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  return launch_cluster(keymul_kernel(log_n, ClusterRings{}),
-                        &keymul_placeable[log_n], rows, log_n,
-                        static_cast<cudaStream_t>(stream), in(conv), in(c2),
-                        in(bv), in(bv_sh), in(av), in(av_sh),
-                        static_cast<uint32_t*>(ext), in(psi), in(psi_sh),
-                        in(q), nd, alpha, kql, rows, k_q_full + kp,
-                        k_q_full - kql);
+  // all Q_l*P towers from row 0, own rows below kql; the key skips the Q
+  // towers above the level
+  return keymul_launch(conv, c2, bv, bv_sh, av, av_sh, ext, psi, psi_sh, q,
+                       nd, alpha, 0, kql, kql, kql + kp, k_q_full + kp,
+                       k_q_full - kql, log_n,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // conv: [nd, kqlp, N] COEFF; c2: [kql, N] EVAL; bv, bv_sh, av, av_sh:
@@ -850,7 +748,7 @@ extern "C" int intt_conv_p(const void* ext, void* pc, void* out,
     return bad;
   if (int bad = pconv_run(pcp, in(w), in(w_sh), in(qq), in(red),
                           static_cast<uint32_t*>(out), 2, kp, 2 * kp, kql,
-                          1 << log_n, 0, 0, st))
+                          1 << log_n, 0, 0, 0, st))
     return bad;
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,12 @@
 // The lazy RNS base conversion, shared by ks_fused.cu (K2 over the
-// digits read in place, K45's P -> Q_l conversion) and rowmod.cu (kernel
-// k, one weight table for the whole batch):
+// digits read in place, K45's P -> Q_l conversion), sharded.cu (kernel n:
+// K2 onto one shard's rows) and rowmod.cu (kernel k, one weight table for
+// the whole batch):
 //   out[b, j, n] = sum_{i < rows_b} y[b a_dim + i, n] * w_b[i, j] mod d_j.
 // See pconv's comment below for the design, and reduce_wide, with which it
-// (and ks_fused.cu's tensor products) reduces a 64-bit word.
+// (and ks_fused.cu's tensor products) reduces a 64-bit word. Each
+// translation unit that includes this header gets its own resident-blocks
+// cache (pconv_launch).
 
 #pragma once
 
@@ -37,15 +40,19 @@ __device__ __forceinline__ void store_cols(uint32_t* p, uint32_t r0,
     *p = r0;
 }
 
-// The conversion of K45 (P -> Q_l), K2 (each digit -> Q_l*P) and kernel k
-// (mod_matmul_rowmod: a batch of inputs over one table):
+// The conversion of K45 (P -> Q_l), K2 (each digit -> Q_l*P), kernel n
+// (each digit -> a shard's Q_l*P rows) and kernel k (mod_matmul_rowmod: a
+// batch of inputs over one table):
 //   out[b, j, n] = sum_{i < rows_b} y[b a_dim + i, n] * w_b[i, j] mod d_j,
 // y: [>= a_total, N] (batch b's rows b a_dim .. b a_dim + rows_b - 1,
-// rows_b = min(a_dim, a_total - b a_dim)), w_b(_sh) = w(_sh) + b w_stride:
-// [a_dim, d_dim] (w_stride 0: one table for every batch), d: [d_dim],
-// red: [d_dim, 3] (Basis.red64 of d), out: [batch, d_dim, N]. With `own`,
-// batch b's own rows (j in [b a_dim, b a_dim + rows_b), K2's digit rows,
-// whose weights are zero) are written as zeros without a product. What
+// rows_b = min(a_dim, a_total - b a_dim), or none: a batch past a_total
+// is all zeros), w_b(_sh) = w(_sh) + b w_stride: [a_dim, d_dim] (w_stride
+// 0: one table for every batch), d: [d_dim], red: [d_dim, 3] (Basis.red64
+// of d), out: [batch, d_dim, N]. Output row j is global row d_off + j.
+// Batch b's own rows, the global rows [b a_dim, min((b + 1) a_dim,
+// own_end)) that the output holds (K2's and n's digit rows, whose weights
+// are zero), are written as zeros without a product; own_end 0: none
+// (K45, kernel k). What
 // bounds it is integer issue: rows_b * (d_dim - own rows) Shoup products
 // a column. So each thread holds COLS consecutive columns of the batch's
 // rows in registers (16-byte loads) and, for each output row, forms the
@@ -63,13 +70,13 @@ __global__ void __launch_bounds__(kConvThreads)
           const uint32_t* __restrict__ w_sh,
           const uint32_t* __restrict__ d, const uint32_t* __restrict__ red,
           uint32_t* __restrict__ out, int a_dim, int a_total, int d_dim,
-          int n, int w_stride, int own) {
+          int n, int w_stride, int d_off, int own_end) {
   extern __shared__ uint4 conv_sm[];
   uint4* consts = conv_sm;               // [d_dim]: d, 2^32 mod d, its
                                          // companion, floor(2^32 / d)
   uint2* sw = reinterpret_cast<uint2*>(conv_sm + d_dim);  // [rows, d_dim]
   const int b = blockIdx.y;
-  const int rows = min(a_dim, a_total - b * a_dim);
+  const int rows = max(0, min(a_dim, a_total - b * a_dim));
   const uint32_t* wb = w + static_cast<size_t>(b) * w_stride;
   const uint32_t* wb_sh = w_sh + static_cast<size_t>(b) * w_stride;
   for (int x = threadIdx.x; x < rows * d_dim; x += blockDim.x)
@@ -82,8 +89,11 @@ __global__ void __launch_bounds__(kConvThreads)
   const uint32_t* yb = y + static_cast<size_t>(b) * a_dim * n + col;
   uint32_t* ob = out + static_cast<size_t>(b) * d_dim * n + col;
   // this block's share of the converted rows k < d_dim - n_own (row j =
-  // k, or k + n_own past the own rows) and of the own rows
-  const int own_lo = b * a_dim, n_own = own ? rows : 0;
+  // k, or k + n_own past the own rows [own_lo, own_lo + n_own), in output
+  // rows) and of the own rows
+  const int own_lo = max(b * a_dim, d_off) - d_off;
+  const int n_own = max(0, min(min((b + 1) * a_dim, own_end),
+                               d_off + d_dim) - d_off - own_lo);
   const int m = d_dim - n_own, splits = gridDim.z, z = blockIdx.z;
   const int per = (m + splits - 1) / splits;
   const int per_own = (n_own + splits - 1) / splits;
@@ -142,7 +152,7 @@ template <int MAXA, int COLS>
 int pconv_launch(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
                  const uint32_t* d, const uint32_t* red, uint32_t* out,
                  int batch, int a_dim, int a_total, int d_dim, int n,
-                 int w_stride, int own, cudaStream_t st) {
+                 int w_stride, int d_off, int own_end, cudaStream_t st) {
   const size_t smem = 16 * static_cast<size_t>(d_dim) +
                       8 * static_cast<size_t>(a_dim) * d_dim;
   // as many blocks as fit on the card at once: split the output rows. The
@@ -177,35 +187,40 @@ int pconv_launch(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
   splits = splits < 1 ? 1 : splits > d_dim ? d_dim : splits;
   const dim3 grid((n + cols - 1) / cols, batch, splits);
   pconv<MAXA, COLS><<<grid, kConvThreads, smem, st>>>(
-      y, w, w_sh, d, red, out, a_dim, a_total, d_dim, n, w_stride, own);
+      y, w, w_sh, d, red, out, a_dim, a_total, d_dim, n, w_stride, d_off,
+      own_end);
   return 0;
 }
 
-// Checks the shape (every batch has a row, the tables fit 48 KB of shared
-// memory, rows of N a multiple of 4 words on 16-byte boundaries) and
-// launches; returns a CUDA error code, 0 when launched.
+// Checks the shape (the batches hold the a_total rows, own rows among
+// them, the tables fit 48 KB of shared memory, rows of N a multiple of 4
+// words on 16-byte boundaries) and launches; returns a CUDA error code, 0
+// when launched.
 int pconv_run(const uint32_t* y, const uint32_t* w, const uint32_t* w_sh,
               const uint32_t* d, const uint32_t* red, uint32_t* out,
               int batch, int a_dim, int a_total, int d_dim, int n,
-              int w_stride, int own, cudaStream_t st) {
+              int w_stride, int d_off, int own_end, cudaStream_t st) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(y) |
                           reinterpret_cast<uintptr_t>(out);
   if (batch < 1 || batch > 65535 || a_dim < 1 || a_dim > 64 || d_dim < 1 ||
-      a_total > batch * a_dim || a_total <= (batch - 1) * a_dim ||
-      w_stride < 0 || n < 4 || n % 4 != 0 || align % 16 != 0 ||
+      a_total < 1 || a_total > batch * a_dim || w_stride < 0 || d_off < 0 ||
+      own_end < 0 || own_end > a_total || n < 4 || n % 4 != 0 ||
+      align % 16 != 0 ||
       16 * d_dim + 8 * a_dim * d_dim > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a_dim <= 8)
     return pconv_launch<8, 4>(y, w, w_sh, d, red, out, batch, a_dim, a_total,
-                              d_dim, n, w_stride, own, st);
+                              d_dim, n, w_stride, d_off, own_end, st);
   if (a_dim <= 16)
     return pconv_launch<16, 4>(y, w, w_sh, d, red, out, batch, a_dim,
-                               a_total, d_dim, n, w_stride, own, st);
+                               a_total, d_dim, n, w_stride, d_off, own_end,
+                               st);
   if (a_dim <= 32)
     return pconv_launch<32, 2>(y, w, w_sh, d, red, out, batch, a_dim,
-                               a_total, d_dim, n, w_stride, own, st);
+                               a_total, d_dim, n, w_stride, d_off, own_end,
+                               st);
   return pconv_launch<64, 1>(y, w, w_sh, d, red, out, batch, a_dim, a_total,
-                             d_dim, n, w_stride, own, st);
+                             d_dim, n, w_stride, d_off, own_end, st);
 }
 
 }  // namespace

@@ -29,9 +29,8 @@
 //   mod_matmul_rowmod_eager  the former form (rowmod_core.cuh): one thread
 //                            per column, 4-byte loads, each product reduced
 //                            at once with a compare so the sum never
-//                            leaves 32 bits; serves the shapes pconv
-//                            refuses ((2A + 1) * D <= 12 K words) and is
-//                            its yardstick on the card.
+//                            leaves 32 bits; its yardstick on the card,
+//                            which no wrapper falls back to.
 
 #include "pconv_core.cuh"
 #include "rowmod_core.cuh"
@@ -48,7 +47,7 @@ extern "C" int mod_matmul_rowmod(const void* y, const void* w,
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
   if (int bad = pconv_run(in(y), in(w), in(w_sh), in(d), in(red),
                           static_cast<uint32_t*>(out), batch, a_dim,
-                          batch * a_dim, d_dim, n, 0, 0,
+                          batch * a_dim, d_dim, n, 0, 0, 0,
                           static_cast<cudaStream_t>(stream)))
     return bad;
   return static_cast<int>(cudaGetLastError());

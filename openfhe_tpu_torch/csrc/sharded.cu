@@ -14,21 +14,40 @@
 //   ntt_keymul_acc_rows  replaces _ntt_keymul_acc_sharded (p, :396): K3 on
 //                        the shard's Q_l*P rows, a row being a digit's own
 //                        by its global tower index (tau0 + local row)
+//   conv_digits_rows_rowmod, ntt_keymul_acc_rows_staged: the former forms
+//                        of n and p, their yardsticks on the card
 //
 // The TPU kernels multiply int8 limbs on the MXU (the pair-layout weight
 // stacks, an SMEM own-mask); here the weights are canonical residues with
 // Shoup companions, and the device code is the unsharded kernels' own:
-// rowmod_core.cuh's conversion with the shard's weight columns, and
-// keymul_core.cuh's stages and tile pass with a global row offset.
+//   * p is one launch of K3's keymul_cluster (keymul_cluster.cuh) over the
+//     shard's rows, a tower per thread-block cluster with the digit loop
+//     and the key product inside, given the shard's first global row tau0
+//     and the level's real Q tower count (own rows by global row, c2 read
+//     at the global row). No scratch: the words cross device memory once.
+//   * n is one launch of K2's pconv (pconv_core.cuh), a digit per
+//     blockIdx.y with the shard's weight columns: it reads the gathered y
+//     in place (no zero-padded copy) and writes the own rows of each
+//     digit that fall in the shard's output rows (d_off = tau0) as zeros
+//     without a product. A digit past the gathered rows (a padded level
+//     whose real chain has fewer digits) has no rows: its output is zeros.
+//   * o is still rowmod_core.cuh's eager conversion on the shard's weight
+//     columns.
+// The former forms: p's is the forward device-memory stages over all
+// nd * rows rows into scratch, then keymul_core.cuh's tile pass with the
+// same row rule; n's is rowmod_core.cuh's conversion over the digits
+// zero-padded to alpha rows.
 //
-// What bounds them on an H100: device-memory bytes, as for the unsharded
+// What bounds them on an H100: device-memory bytes for p and o, the
+// conversion's 32-bit integer operations for n, as for the unsharded
 // kernels (ks_fused.cu's header): at the main path's shard shapes (level
 // 1, limb 2: 15 Q and 23 Q_l*P rows a shard, N = 2^16) p reads its key
-// rows and companions (48 MB), n and o move 16-20 MB each, at a few integer
-// operations per word and butterfly stage. The row ranges are runtime
-// arguments: one build serves every limb count and level.
+// rows and companions (48 MB), n and o move 16-20 MB each. The row ranges
+// are runtime arguments: one build serves every limb count and level.
 
+#include "keymul_cluster.cuh"
 #include "keymul_core.cuh"
+#include "pconv_core.cuh"
 #include "rowmod_core.cuh"
 
 namespace {
@@ -39,13 +58,37 @@ inline const uint32_t* in(const void* p) {
 
 }  // namespace
 
-// y: [nd, alpha, N] (every digit's rows, zero-padded to alpha); w, w_sh:
-// [nd, alpha, rows], the digit weights of the shard's Q_l*P rows (zero on
-// own rows and past the level's real towers); q: [rows]; out: [nd, rows, N].
+// y: [kql, N] COEFF, the gathered y (digit j's rows j * alpha ..
+// min((j + 1) * alpha, kql) - 1, read in place); w, w_sh: [nd, alpha,
+// rows], the digit weights of the shard's Q_l*P rows (zero on own rows and
+// past the level's real towers); q: [rows]; red: [rows, 3] (Basis.red64 of
+// the shard's towers); out: [nd, rows, N]. The shard's first row is global
+// row tau0; own rows lie below own_end (the level's real Q tower count).
+// One launch of pconv; refuses what pconv_run refuses (more than 64 rows a
+// digit, tables above 48 KB, N not a multiple of 4, y or out off a 16-byte
+// boundary).
 extern "C" int conv_digits_rows(const void* y, const void* w,
-                                const void* w_sh, const void* q, void* out,
-                                int nd, int alpha, int rows, int n,
-                                void* stream) {
+                                const void* w_sh, const void* q,
+                                const void* red, void* out, int nd,
+                                int alpha, int kql, int rows, int tau0,
+                                int own_end, int n, void* stream) {
+  if (static_cast<long long>(alpha) * rows > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int bad = pconv_run(in(y), in(w), in(w_sh), in(q), in(red),
+                          static_cast<uint32_t*>(out), nd, alpha, kql, rows,
+                          n, alpha * rows, tau0, own_end,
+                          static_cast<cudaStream_t>(stream)))
+    return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y: [nd, alpha, N] (every digit's rows, zero-padded to alpha); w, w_sh:
+// [nd, alpha, rows]; q: [rows]; out: [nd, rows, N]. n's former form:
+// rowmod_core.cuh's conversion, every product of the padded rows formed.
+extern "C" int conv_digits_rows_rowmod(const void* y, const void* w,
+                                       const void* w_sh, const void* q,
+                                       void* out, int nd, int alpha,
+                                       int rows, int n, void* stream) {
   if (int bad = rowmod_run(in(y), in(w), in(w_sh), in(q),
                            static_cast<uint32_t*>(out), nd, alpha, rows, n,
                            static_cast<size_t>(alpha) * rows,
@@ -69,17 +112,32 @@ extern "C" int conv_p_to_q_rows(const void* x, const void* w,
 
 // conv: [nd, rows, N] COEFF, the shard's rows of every extended digit; c2:
 // [>= own_end, N] EVAL, the gathered c2 of all Q_l rows; bv, bv_sh, av,
-// av_sh: [nd, rows, N], the shard's key rows; scratch: [nd, rows, N]; ext:
-// [2, rows, N]; psi(_sh): [rows, N] and q: [rows] of the shard's towers.
-// Local row tau is global Q_l*P row tau0 + tau; own_end is the level's
-// real Q tower count (the rows past it, padding and P, are never own).
+// av_sh: [nd, rows, N], the shard's key rows; ext: [2, rows, N];
+// psi(_sh): [rows, N] and q: [rows] of the shard's towers. Local row tau
+// is global Q_l*P row tau0 + tau; own_end is the level's real Q tower
+// count (the rows past it, padding and P, are never own). One launch of
+// keymul_cluster; refuses rings outside 2^4 .. 2^17 and operands off a
+// 16-byte boundary.
 extern "C" int ntt_keymul_acc_rows(const void* conv, const void* c2,
                                    const void* bv, const void* bv_sh,
                                    const void* av, const void* av_sh,
-                                   void* scratch, void* ext, const void* psi,
+                                   void* ext, const void* psi,
                                    const void* psi_sh, const void* q, int nd,
                                    int alpha, int rows, int tau0, int own_end,
                                    int log_n, void* stream) {
+  return keymul_launch(conv, c2, bv, bv_sh, av, av_sh, ext, psi, psi_sh, q,
+                       nd, alpha, tau0, own_end, rows, rows, rows, 0, log_n,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// p's former form, any ring: the arguments of ntt_keymul_acc_rows with
+// scratch ([nd, rows, N]) before ext. The forward device-memory stages of
+// ntt_core.cuh over all nd * rows rows into scratch, then keymul_tile.
+extern "C" int ntt_keymul_acc_rows_staged(
+    const void* conv, const void* c2, const void* bv, const void* bv_sh,
+    const void* av, const void* av_sh, void* scratch, void* ext,
+    const void* psi, const void* psi_sh, const void* q, int nd, int alpha,
+    int rows, int tau0, int own_end, int log_n, void* stream) {
   if (int bad = keymul_run(in(conv), in(c2), in(bv), in(bv_sh), in(av),
                            in(av_sh), static_cast<uint32_t*>(scratch),
                            static_cast<uint32_t*>(ext), in(psi), in(psi_sh),

@@ -14,9 +14,9 @@ host`, `_recombine`) exists for the TPU's matrix unit and has no
 counterpart here. On a CUDA tensor each wrapper launches its kernel
 (`csrc/rowmod.cu`, `csrc/modmatmul.cu`) or raises; on a CPU tensor it runs
 its plain version. Kernel k has two entries: the lazy conversion
-`mod_matmul_rowmod` (`csrc/pconv_core.cuh`, which K2 and K45 run too) and
-its former form `mod_matmul_rowmod_eager`, which serves the shapes the
-first does not take and is its yardstick on the card.
+`mod_matmul_rowmod` (`csrc/pconv_core.cuh`, which K2, K45 and the sharded
+n run too) and its former form `mod_matmul_rowmod_eager`, its yardstick
+on the card, which no wrapper falls back to.
 """
 
 from __future__ import annotations
@@ -42,15 +42,16 @@ def mod_matmul_rowmod(y: torch.Tensor, w: torch.Tensor, w_sh: torch.Tensor,
     d_j, with Shoup companions), d [D, 1] int32 moduli below 2^31, red
     [D, 3] their `Basis.red64` -> [..., D, N] int32, canonical.
 
-    On the card one launch of the lazy conversion (`pconv`) where its
-    shapes allow (`_rowmod_entry`), else of the former form
-    `mod_matmul_rowmod_eager`; a shape neither takes raises."""
+    On the card one launch of the lazy conversion (`pconv`); a launch
+    it refuses (more than 64 input rows, tables above 48 KB of shared
+    memory, N not a multiple of 4, y or out off a 16-byte boundary)
+    raises."""
     if y.device.type == "cpu":
         return _mod_matmul_rowmod_ref(y, w, d)
     if y.device.type != "cuda":
         raise ValueError(f"mod_matmul_rowmod: no kernel for device "
                          f"{y.device}")
-    return _mod_matmul_rowmod_cu(y, w, w_sh, d, red)
+    return _mod_matmul_rowmod_cu(y, w, w_sh, d, red, "mod_matmul_rowmod")
 
 
 def mod_matmul_rowmod_eager(y: torch.Tensor, w: torch.Tensor,
@@ -65,52 +66,28 @@ def mod_matmul_rowmod_eager(y: torch.Tensor, w: torch.Tensor,
                                  "mod_matmul_rowmod_eager")
 
 
-def _mod_matmul_rowmod_cu(y, w, w_sh, d, red, entry=None) -> torch.Tensor:
-    """Check the operands, allocate out and launch `entry`, by default
-    `_rowmod_entry`'s choice (red is passed to the lazy form only)."""
-    name = entry or "mod_matmul_rowmod"
+def _mod_matmul_rowmod_cu(y, w, w_sh, d, red, entry) -> torch.Tensor:
+    """Check the operands, allocate out and launch `entry` (red is passed
+    to the lazy form only); the entry checks its own limits."""
     operands = (("y", y), ("w", w), ("w_sh", w_sh), ("d", d), ("red", red))
     for arg, t in operands:
         if t is not None and (t.device != y.device or t.dtype != torch.int32
                               or not t.is_contiguous()):
-            raise ValueError(f"{name}: {arg} must be a contiguous int32 "
+            raise ValueError(f"{entry}: {arg} must be a contiguous int32 "
                              f"tensor on {y.device}")
     a_dim, d_dim = w.shape
     if y.dim() < 2 or y.shape[-2] != a_dim or w_sh.shape != w.shape or \
             d.numel() != d_dim or \
             (red is not None and tuple(red.shape) != (d_dim, 3)):
-        raise ValueError(f"{name}: shapes y {tuple(y.shape)}, w "
+        raise ValueError(f"{entry}: shapes y {tuple(y.shape)}, w "
                          f"{tuple(w.shape)}, d {tuple(d.shape)} disagree")
     n = y.shape[-1]
     out = y.new_empty(tuple(y.shape[:-2]) + (d_dim, n))
     batch = math.prod(y.shape[:-2])
-    entry = entry or _rowmod_entry(y, out, batch, a_dim, d_dim, n)
     args = (red,) if entry == "mod_matmul_rowmod" else ()
     _build.launch("rowmod", entry, y, w, w_sh, d, *args, out, batch, a_dim,
                   d_dim, n)
     return out
-
-
-def _rowmod_entry(y, out, batch, a_dim, d_dim, n) -> str:
-    """The entry of csrc/rowmod.cu for these operands, read from their
-    shapes and addresses before the launch as the kernels check them:
-    `mod_matmul_rowmod` (pconv) for up to 64 input rows whose tables fit
-    48 KB of shared memory (16 D + 8 A D bytes), rows of N a multiple of
-    4 words and y and out on 16-byte boundaries; else
-    `mod_matmul_rowmod_eager` where (2 A + 1) D <= 12 K words; raises where
-    neither kernel takes them."""
-    if not (1 <= batch <= 65535 and 1 <= a_dim <= 64 and d_dim >= 1
-            and n >= 1):
-        raise ValueError(f"mod_matmul_rowmod: no kernel for batch {batch}, "
-                         f"[{a_dim} -> {d_dim}, {n}]")
-    if 16 * d_dim + 8 * a_dim * d_dim <= 48 * 1024 and n % 4 == 0 and \
-            (y.data_ptr() | out.data_ptr()) % 16 == 0:
-        return "mod_matmul_rowmod"
-    if (2 * a_dim + 1) * d_dim <= 12 * 1024:
-        return "mod_matmul_rowmod_eager"
-    raise ValueError(f"mod_matmul_rowmod: no kernel for [{a_dim} -> "
-                     f"{d_dim}, {n}]: tables above both kernels' shared "
-                     "memory")
 
 
 def _mod_matmul_rowmod_ref(y: torch.Tensor, w: torch.Tensor,

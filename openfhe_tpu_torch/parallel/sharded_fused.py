@@ -18,7 +18,12 @@ points are `all_gather`s:
 One EvalMult over L shards is 6L launches: each of the six kernels once
 per shard. Rows n, o and p are this module's wrappers (kernels of
 `csrc/sharded.cu`, each with its plain twin for CPU tensors); K1t, K4 and
-K6f are `pke/keyswitch/ks_fused.py`'s on per-shard table views.
+K6f are `pke/keyswitch/ks_fused.py`'s on per-shard table views. n is K2's
+conversion (`pconv`) reading the gathered y in place, p K3's cluster
+kernel with the shard's first global row; their former forms,
+`conv_digits_rows_rowmod` (over the zero-padded digits) and
+`ntt_keymul_acc_rows_staged` (the staged NTT passes), are the yardsticks
+they are held against on the card.
 
 Tables (`ShardedFusedTables`) are the fused chain's canonical residues
 with Shoup companions at one level (no int8 limb stacks), optionally
@@ -75,6 +80,7 @@ class ShardTables:
     q: FusedKSTables         # the shard's Q rows: K1t, K6f (kp = 0)
     p: FusedKSTables         # the P rows of the gathered ext: K4
     basis_qlp: Basis         # the shard's Q_l*P rows: p's NTT, n's moduli
+    red: torch.Tensor        # [kqlp_loc, 3] Basis.red64 of those rows (n)
     conv_w: torch.Tensor     # [nd, alpha, kqlp_loc] digit weights (n)
     conv_w_sh: torch.Tensor
     pconv_w: torch.Tensor    # [kp, kql_loc] P -> Q weights (o)
@@ -192,6 +198,7 @@ def shard_view(st: ShardedFusedTables, limb: int, idx: int,
             k45_scale=on(f.k45_scale), k45_scale_sh=on(f.k45_scale_sh),
             kql=kql, kp=kp, nd=f.nd, alpha=f.alpha, k_q_full=k_full),
         basis_qlp=qlp.slice(tau0, tau0 + rows),
+        red=cut(f.basis_qlp.red64, tau0, rows),
         conv_w=on(f.conv_w[:, :, tau0:tau0 + rows]),
         conv_w_sh=on(f.conv_w_sh[:, :, tau0:tau0 + rows]),
         pconv_w=on(f.pconv_w[:, q0:q0 + kql_loc]),
@@ -220,23 +227,46 @@ def _log_n(v: ShardTables) -> int:
     return v.basis_qlp.ring_dim.bit_length() - 1
 
 
-def conv_digits_rows(y_pad: torch.Tensor, v: ShardTables) -> torch.Tensor:
-    """n: y_pad [nd, alpha, N] COEFF (the gathered y, each digit's rows
-    zero-padded) -> [nd, kqlp_loc, N] COEFF, every digit extended to the
-    shard's Q_l*P rows (zero on the digit's own rows). The JAX kernel's
-    rows are tau-major (tau, j); these are digit-major."""
-    if y_pad.device.type == "cpu":
-        return _conv_digits_rows_ref(y_pad, v)
+def conv_digits_rows(y: torch.Tensor, v: ShardTables) -> torch.Tensor:
+    """n: y [kql, N] COEFF (the gathered y) -> [nd, kqlp_loc, N] COEFF,
+    every digit j (rows j * alpha .. min((j + 1) * alpha, kql) - 1 of y)
+    extended to the shard's Q_l*P rows (zero on the digit's own rows). On
+    the card one launch of the conversion kernel, which reads y in place;
+    it raises on what the kernel refuses. The JAX kernel's rows are
+    tau-major (tau, j); these are digit-major."""
+    if y.device.type == "cpu":
+        return _conv_digits_rows_ref(y, v)
+    return _conv_digits_rows_cu(y, v)
+
+
+def _conv_digits_rows_cu(y, v: ShardTables) -> torch.Tensor:
     nd, alpha, rows = v.conv_w.shape
-    ks_fused._check("conv_digits_rows", v, y_pad=(y_pad, (nd, alpha)))
+    ks_fused._check("conv_digits_rows", v, y=(y, (v.kql,)))
+    n = y.shape[-1]
+    out = y.new_empty((nd, rows, n))
+    _build.launch("sharded", "conv_digits_rows", y, v.conv_w, v.conv_w_sh,
+                  v.basis_qlp.q, v.red, out, nd, alpha, v.kql, rows, v.tau0,
+                  v.kql_real, n)
+    return out
+
+
+def conv_digits_rows_rowmod(y_pad: torch.Tensor,
+                            v: ShardTables) -> torch.Tensor:
+    """n's former form: y_pad [nd, alpha, N] (`ks_fused._pad_digits` of
+    y) -> the output of `conv_digits_rows`, by rowmod_core.cuh's
+    conversion over the padded rows; CUDA tensors only."""
+    nd, alpha, rows = v.conv_w.shape
+    ks_fused._check("conv_digits_rows_rowmod", v,
+                    y_pad=(y_pad, (nd, alpha)))
     n = y_pad.shape[-1]
     out = y_pad.new_empty((nd, rows, n))
-    _build.launch("sharded", "conv_digits_rows", y_pad, v.conv_w,
+    _build.launch("sharded", "conv_digits_rows_rowmod", y_pad, v.conv_w,
                   v.conv_w_sh, v.basis_qlp.q, out, nd, alpha, rows, n)
     return out
 
 
-def _conv_digits_rows_ref(y_pad, v: ShardTables):
+def _conv_digits_rows_ref(y, v: ShardTables):
+    y_pad = ks_fused._pad_digits(y, v)
     return torch.stack([_mod_matmul_rowmod_ref(y_pad[j], v.conv_w[j],
                                                v.basis_qlp.q)
                         for j in range(v.nd)])
@@ -265,20 +295,32 @@ def ntt_keymul_acc_rows(conv: torch.Tensor, c2: torch.Tensor,
     """p: conv [nd, kqlp_loc, N] COEFF (n's output) and c2 [kql, N] EVAL
     (gathered, all Q rows) -> ext [2, kqlp_loc, N] EVAL over the shard's
     Q_l*P rows: sum_j s_j * (bv_j, av_j), s_j = c2 on digit j's own rows
-    (by global row), else the NTT of conv[j]."""
+    (by global row), else the NTT of conv[j]. On the card one launch of
+    the cluster kernel; it raises on what the kernel refuses (rings
+    outside 2^4 .. 2^17, operands off a 16-byte boundary)."""
     if conv.device.type == "cpu":
         return _ntt_keymul_acc_rows_ref(conv, c2, v)
+    return _ntt_keymul_acc_rows_cu(conv, c2, v, "ntt_keymul_acc_rows")
+
+
+def ntt_keymul_acc_rows_staged(conv: torch.Tensor, c2: torch.Tensor,
+                               v: ShardTables) -> torch.Tensor:
+    """p's former form on the staged NTT passes (any ring); CUDA tensors
+    only."""
+    return _ntt_keymul_acc_rows_cu(conv, c2, v, "ntt_keymul_acc_rows_staged")
+
+
+def _ntt_keymul_acc_rows_cu(conv, c2, v: ShardTables, entry: str):
     nd, rows = v.nd, v.basis_qlp.k
-    ks_fused._check("ntt_keymul_acc_rows", v, conv=(conv, (nd, rows)),
-                    c2=(c2, (v.kql,)),
+    ks_fused._check(entry, v, conv=(conv, (nd, rows)), c2=(c2, (v.kql,)),
                     **{f"key{i}": (k, (nd, rows))
                        for i, k in enumerate(v.keys)})
-    scratch = torch.empty_like(conv)
     ext = conv.new_empty((2, rows, conv.shape[-1]))
+    scratch = (torch.empty_like(conv),) if entry.endswith("_staged") else ()
     b = v.basis_qlp
-    _build.launch("sharded", "ntt_keymul_acc_rows", conv, c2, *v.keys,
-                  scratch, ext, b.psi_br, b.psi_br_sh, b.q, nd, v.alpha,
-                  rows, v.tau0, v.kql_real, _log_n(v))
+    _build.launch("sharded", entry, conv, c2, *v.keys, *scratch, ext,
+                  b.psi_br, b.psi_br_sh, b.q, nd, v.alpha, rows, v.tau0,
+                  v.kql_real, _log_n(v))
     return ext
 
 
@@ -319,9 +361,8 @@ def mult_relin_fused_local(a0, a1, b0, b1, views) -> tuple:
            for x1, y1, v in zip(a1, b1, views)]
     c2 = all_gather([c for c, _ in c2y])
     y = all_gather([y for _, y in c2y])
-    ext = [ntt_keymul_acc_rows(
-        conv_digits_rows(ks_fused._pad_digits(yy, v), v), cc, v)
-        for yy, cc, v in zip(y, c2, views)]
+    ext = [ntt_keymul_acc_rows(conv_digits_rows(yy, v), cc, v)
+           for yy, cc, v in zip(y, c2, views)]
     ext_all = all_gather(ext, 1)                             # [2, kqlp, N]
     outs = []
     for e, x0, x1, y0, y1, v in zip(ext_all, a0, a1, b0, b1, views):

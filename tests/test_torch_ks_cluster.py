@@ -72,10 +72,14 @@ def fwd_out_word(rank, log_n, log_w):
     return (rank << log_w) + round_base(tid, 0, log_w)
 
 
-def model_keymul(conv, c2, key, psi, q, kql, alpha, key_shift, log_w):
-    """keymul_cluster: conv [nd, rows, N], c2 [kql, N], key (bv, bv_sh, av,
-    av_sh) each [>= nd, key_rows, N], psi [rows, N], q [rows] -> ext [2,
-    rows, N]."""
+def model_keymul(conv, c2, key, psi, q, kql, alpha, key_shift, log_w,
+                 tau0=0, own_end=None):
+    """keymul_cluster: conv [nd, rows, N], c2 [>= own_end, N], key (bv,
+    bv_sh, av, av_sh) each [>= nd, key_rows, N], psi [rows, N], q [rows]
+    -> ext [2, rows, N]. Local row tau is global row g = tau0 + tau, digit
+    g // alpha's own when g < own_end (default kql: K3); its key row is
+    tau below kql, tau + key_shift from there on."""
+    own_end = kql if own_end is None else own_end
     nd, rows, n = conv.shape
     log_n = n.bit_length() - 1
     c = _geometry(log_n, log_w)[0]
@@ -83,15 +87,16 @@ def model_keymul(conv, c2, key, psi, q, kql, alpha, key_shift, log_w):
     written = np.zeros((rows, n), bool)
     for cluster in range(rows):
         tau = rows - 1 - cluster                 # the P towers first
+        g = tau0 + tau
         qt = q[tau]
         krow = tau if tau < kql else tau + key_shift
-        own_digit = tau // alpha if tau < kql else nd
+        own_digit = g // alpha if g < own_end else nd
         order = ([(own_digit + 1 + i) % nd for i in range(nd)]
                  if own_digit < nd else list(range(nd)))
         acc = {}
         for i, j in enumerate(order):
             own = j == own_digit
-            assert own == (j * alpha <= tau < min((j + 1) * alpha, kql))
+            assert own == (j * alpha <= g < min((j + 1) * alpha, own_end))
 
             def keymul(rank, a, idx, i=i, j=j):
                 assert (idx[:, 0] == fwd_out_word(rank, log_n, log_w)).all()
@@ -109,7 +114,7 @@ def model_keymul(conv, c2, key, psi, q, kql, alpha, key_shift, log_w):
                 for rank in range(c):
                     idx = fwd_out_word(rank, log_n, log_w)[:, None] \
                         + np.arange(R)
-                    keymul(rank, c2[tau][idx][None], idx)
+                    keymul(rank, c2[g][idx][None], idx)
             else:
                 model_fwd(conv[j, tau][None].astype(np.int64),
                           psi[tau][None].astype(np.int64),
@@ -134,15 +139,20 @@ def reduce_wide(x, q, red):
     return csub((shoup(hi, r32, r32_sh, q) + t_lo) & MASK, q)
 
 
-def model_pconv(y, w, w_sh, d, red, a_dim, a_total, own=False, splits=1):
+def model_pconv(y, w, w_sh, d, red, a_dim, a_total, own=False, splits=1,
+                d_off=0, own_end=None):
     """pconv: y [>= a_total, N] (batch b's rows b a_dim .. b a_dim + rows_b
-    - 1, rows_b = min(a_dim, a_total - b a_dim)), w and w_sh [batch, a_dim,
-    d] (one table a batch), d [d], red [d, 3] -> [batch, d, N] and the
-    64-bit sums: lazy Shoup products, summed, reduced once by
-    reduce_wide; with `own` batch b's own rows [b a_dim, b a_dim + rows_b)
-    are zero. Block z of `splits` takes its share of the converted rows
+    - 1, rows_b = min(a_dim, a_total - b a_dim), none past a_total), w and
+    w_sh [batch, a_dim, d] (one table a batch), d [d], red [d, 3] ->
+    [batch, d, N] and the 64-bit sums: lazy Shoup products, summed,
+    reduced once by reduce_wide. Output row j is global row d_off + j;
+    batch b's own rows, the global rows [b a_dim, min((b + 1) a_dim,
+    own_end)) the output holds, are zero (own_end: a_total with `own`, K2,
+    else 0). Block z of `splits` takes its share of the converted rows
     (and of the own rows), as the kernel's blockIdx.z does; every row is
     written exactly once."""
+    if own_end is None:
+        own_end = a_total if own else 0
     batch, d_dim = w.shape[0], len(d)
     n = y.shape[-1]
     y = y.astype(np.uint64)
@@ -151,10 +161,11 @@ def model_pconv(y, w, w_sh, d, red, a_dim, a_total, own=False, splits=1):
     total = np.zeros((batch, d_dim, n), np.uint64)
     written = np.zeros((batch, d_dim), int)
     for b in range(batch):
-        rows = min(a_dim, a_total - b * a_dim)
-        assert rows >= 1
+        rows = max(0, min(a_dim, a_total - b * a_dim))
         x = y[b * a_dim:b * a_dim + rows]
-        own_lo, n_own = b * a_dim, rows if own else 0
+        own_lo = max(b * a_dim, d_off) - d_off
+        n_own = max(0, min((b + 1) * a_dim, own_end, d_off + d_dim)
+                    - d_off - own_lo)
         m = d_dim - n_own
         per, per_own = -(-m // splits), -(-n_own // splits)
         for z in range(splits):
@@ -170,6 +181,21 @@ def model_pconv(y, w, w_sh, d, red, a_dim, a_total, own=False, splits=1):
                 written[b, j] += 1
     assert (written == 1).all()
     return out, total
+
+
+def pconv_run_refuses(y_addr, out_addr, batch, a_dim, a_total, d_dim, n,
+                      w_stride=0, d_off=0, own_end=0):
+    """Whether pconv_run (csrc/pconv_core.cuh) refuses a launch: batches
+    that do not hold the a_total rows (an empty last batch is taken), more
+    than 64 rows a batch, own rows past a_total, tables above 48 KB of
+    shared memory, N not a multiple of 4, y or out off a 16-byte
+    boundary."""
+    return not (1 <= batch <= 65535 and 1 <= a_dim <= 64 and d_dim >= 1
+                and 1 <= a_total <= batch * a_dim and w_stride >= 0
+                and d_off >= 0 and 0 <= own_end <= a_total
+                and n >= 4 and n % 4 == 0
+                and (y_addr | out_addr) % 16 == 0
+                and 16 * d_dim + 8 * a_dim * d_dim <= 48 * 1024)
 
 
 def model_intt_conv_p(ext, tabs, log_w):

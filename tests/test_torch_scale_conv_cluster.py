@@ -27,8 +27,9 @@ arguments, and held word for word (tolerance 0):
   version and exact integer sums on words up to 2^32 - 1 (the kernels read
   them unsigned).
 
-Then the wrappers' choice of entry by shape before the launch, and the
-entries' registration against their C signatures.
+Then the wrappers' choice of entry by shape before the launch (and
+kernel k's refusals: it launches `pconv` or raises), and the entries'
+registration against their C signatures.
 """
 
 import re
@@ -53,7 +54,7 @@ from openfhe_tpu_torch.math import nbtheory  # noqa: E402
 from openfhe_tpu_torch.ops import modmatmul  # noqa: E402
 from openfhe_tpu_torch.pke.keyswitch import ks_fused  # noqa: E402
 from test_torch_ks_cluster import (_rand, _top31,  # noqa: E402
-                                   model_pconv)
+                                   model_pconv, pconv_run_refuses)
 from test_torch_ntt_cluster import _kara_moduli, model_inv  # noqa: E402
 
 N = 1 << 12
@@ -217,10 +218,11 @@ def test_pconv_rowmod_matches_jax_and_twin(chain31, which, batch, splits):
 def test_entries_chosen_by_shape_before_the_launch(monkeypatch):
     """intt_scale launches its cluster entry for 2^4 <= N <= 2^17 and
     intt_scale_staged otherwise, with K1's and K4's (e, k, in_rows,
-    in_off); mod_matmul_rowmod launches pconv's entry (with red) where its
-    table fits 48 KB, N % 4 == 0 and y and out lie on 16-byte boundaries,
-    else the eager entry where its table fits, else raises before any
-    launch. The former forms take CUDA tensors only."""
+    in_off); mod_matmul_rowmod launches pconv's entry (with red) at any
+    shape, and raises where the entry refuses it (the launch below models
+    pconv_run's checks: tables above 48 KB, N % 4 != 0, y or out off a
+    16-byte boundary, more than 64 input rows), never falling back to the
+    eager entry. The former forms take CUDA tensors only."""
     cpu = lambda *s: torch.zeros(s, dtype=torch.int32)
     tabs = ks_fused.make_fused_ks_tables(make_basis(_top31(3), N), 2, 2, 2)
     with pytest.raises(ValueError, match="no kernel for device cpu"):
@@ -229,8 +231,17 @@ def test_entries_chosen_by_shape_before_the_launch(monkeypatch):
         modmatmul.mod_matmul_rowmod_eager(cpu(2, 8), cpu(2, 3), cpu(2, 3),
                                           cpu(3, 1))
     calls = []
-    monkeypatch.setattr(_build, "launch",
-                        lambda src, fn, *args: calls.append((src, fn, args)))
+
+    def launch(src, fn, *args):
+        calls.append((src, fn, args))
+        if fn == "mod_matmul_rowmod":     # pconv_run's refusal, modelled
+            y, out = args[0], args[5]
+            batch, a_dim, d_dim, n = args[-4:]
+            _build.record_launch(int(pconv_run_refuses(
+                y.data_ptr(), out.data_ptr(), batch, a_dim, batch * a_dim,
+                d_dim, n)), fn)
+    monkeypatch.setattr(_build, "launch", launch)
+    monkeypatch.setattr(_build, "LAUNCHES", type(_build.LAUNCHES)())
     monkeypatch.setattr(ks_fused, "_check", lambda *a, **k: None)
     for log_n in (3, 4, 12, 16, 17, 18):
         n = 1 << log_n
@@ -251,36 +262,39 @@ def test_entries_chosen_by_shape_before_the_launch(monkeypatch):
             assert calls[1][2][2] is tabs.basis_p.ipsi_br
 
     def rowmod(a_dim, d_dim, n, lead=(), shift=0):
-        """The entry mod_matmul_rowmod picks for CPU operands (shift words
-        off y's 16-byte boundary), or the error it raises."""
+        """The entry mod_matmul_rowmod launches for CPU operands (shift
+        words off y's 16-byte boundary), or the error raised when that
+        entry refuses them: always the lazy entry, once."""
         batch = int(np.prod(lead, dtype=int))
         y = cpu(batch * a_dim * n + shift)[shift:].view(lead + (a_dim, n))
         w, d, red = cpu(a_dim, d_dim), cpu(d_dim, 1), cpu(d_dim, 3)
         calls.clear()
         try:
-            modmatmul._mod_matmul_rowmod_cu(y, w, w, d, red)
-        except ValueError as err:
-            assert not calls
-            return str(err)
+            modmatmul._mod_matmul_rowmod_cu(y, w, w, d, red,
+                                            "mod_matmul_rowmod")
+        except RuntimeError as err:
+            found = str(err)
+        else:
+            found = None
         (src, fn, args), = calls
-        lazy = fn == "mod_matmul_rowmod"
-        # y, w, w_sh, d, red (the lazy form only), out, then the ints
-        assert src == "rowmod" and len(args) == 9 + lazy
-        assert all(a is b for a, b in zip(args, (y, w, w, d)))
-        assert args[4] is red if lazy else args[4] is not red
+        # y, w, w_sh, d, red, out, then the ints
+        assert (src, fn) == ("rowmod", "mod_matmul_rowmod")
+        assert len(args) == 10
+        assert all(a is b for a, b in zip(args, (y, w, w, d, red)))
         assert args[-4:] == (batch, a_dim, d_dim, n)
-        return fn
+        return found or fn
 
-    lazy, eager = "mod_matmul_rowmod", "mod_matmul_rowmod_eager"
+    lazy = "mod_matmul_rowmod"
+    refused = "mod_matmul_rowmod: CUDA launch failed with error 1"
     assert rowmod(16, 31, 64) == lazy          # digit -> complement
     assert rowmod(15, 32, 64, (2,)) == lazy    # a batch of 2
     assert rowmod(64, 47, 64) == lazy          # 16 D + 8 A D = 24816 bytes
-    assert rowmod(16, 31, 64, shift=1) == eager
+    assert rowmod(16, 31, 64, shift=1) == refused   # y off 16 bytes
     assert rowmod(16, 31, 64, shift=4) == lazy
-    assert rowmod(16, 31, 6) == eager          # N % 4 != 0
-    assert rowmod(60, 100, 64) == eager        # 49600 bytes; (2A+1) D 12100
-    assert "no kernel" in rowmod(64, 200, 64)  # neither table fits
-    assert "no kernel" in rowmod(65, 8, 64)    # more than 64 input rows
+    assert rowmod(16, 31, 6) == refused        # N % 4 != 0
+    assert rowmod(60, 100, 64) == refused      # 49600 bytes of tables
+    assert rowmod(64, 200, 64) == refused      # 103600 bytes of tables
+    assert rowmod(65, 8, 64) == refused        # more than 64 input rows
 
 
 def _c_signature(source: str, fn: str) -> list:
