@@ -95,22 +95,30 @@ is not beside it. Phases, none of which catches its own failure:
 6. the limb-sharded path (`openfhe_tpu_torch/parallel/`), on the phase-4
    context and eval key, on meshes built from the visible cards (a card
    repeats when there are fewer cards than shards; the placement is
-   printed): kernel l (`mod_matmul`) against its plain version at the
-   sharded NTT's stage shapes (the Q basis at limb 2 and 4, the 31-bit
-   primes), kernels n, o and p against theirs on every shard of level 1
-   at limb 2, level 3 at limb 4, the 31-bit chain at limb 2 and its level
-   of 1 Q tower padded to 2 (whose second digit covers no row of y); n
-   (`conv_digits_rows`: K2's `pconv` reading the gathered y in place) and
-   p (`ntt_keymul_acc_rows`: K3's `keymul_cluster` from the shard's first
-   global row) also against their former forms (`conv_digits_rows_rowmod`
-   over the zero-padded digits, `ntt_keymul_acc_rows_staged` on the
-   staged NTT passes), one launch of the entry a call and none of the
-   former, timed as the fused kernels are (`ms` device time, `call_ms` a
-   call); then, with the counters reset just before and read just after,
+   printed): kernel l (`mod_matmul`: the int8 tensor cores on byte
+   limbs, `mma.sync` m16n8k32 u8) against its plain version and its former
+   form (`mod_matmul_simt`, the CUDA cores) at the sharded NTT's stage
+   shapes (the Q basis at limb 2 and 4, the 31-bit primes) and at its
+   edge (A = 2^15, D = 16, B = 8, every word 2^31 - 2 at q = 2^31 - 1,
+   where its int32 limb-pair sums reach 255 * 255 * 2^15); kernels n, o
+   and p against theirs on every shard of level 1 at limb 2, level 3 at
+   limb 4, the 31-bit chain at limb 2 and its level of 1 Q tower padded to
+   2 (whose second digit covers no row of y); n (`conv_digits_rows`: K2's
+   `pconv` reading the gathered y in place), o (`conv_p_to_q_rows`: K45's
+   `pconv` on the shard's weight columns, both elements over one table)
+   and p (`ntt_keymul_acc_rows`: K3's `keymul_cluster` from the shard's
+   first global row) also against their former forms
+   (`conv_digits_rows_rowmod` over the zero-padded digits,
+   `conv_p_to_q_rows_rowmod` the eager conversion,
+   `ntt_keymul_acc_rows_staged` on the staged NTT passes); each kernel of
+   the phase one launch of its entry a call and none of the former, timed
+   as the fused kernels are (`ms` device time, `call_ms` a call); then,
+   with the counters reset just before and read just after,
    the sharded NTT at limb 2 and 4 (word-equal to `ntt.cu`, 2L launches
-   of `mod_matmul`), the sharded EvalMult at level 1 / limb 2 and level 3
-   / limb 4 (word-equal to the single-card fused EvalMult, each of its six
-   kernels once per shard, the former forms never, nothing else), the
+   of `mod_matmul`, none of `mod_matmul_simt`), the sharded EvalMult at
+   level 1 / limb 2 and level 3 / limb 4 (word-equal to the single-card
+   fused EvalMult, each of its six kernels once per shard, the former
+   forms never, nothing else), the
    portable body at level 1 / limb 2,
    the two-level chain (level 3, in-region rescale, level 4 padded to 28
    rows: real rows equal to Rescale and EvalMult, the pad row zero), a dp 2
@@ -137,11 +145,15 @@ is a floor, never above what the card can do. The card's tensor cores do
 no 32-bit integer products. Operations count what the function needs: a
 conversion counts only its nonzero weights, a key product skips the NTT
 of the digit's own rows (and reads only the extended digits' other
-rows). A term of kernel l's modular matmul counts MATMUL_TERM_OPS: the
-62-bit product (two 32-bit multiplies) and its 64-bit sum (two adds). A
-conversion on pconv (k, K2, K45's second launch, the sharded n) counts
-LAZY_TERM_OPS a term (the lazy Shoup product and its 64-bit sum) and
-REDUCE_WIDE_OPS an output word (its one reduction); the eager
+rows). Kernel l's modular matmul runs on the int8 tensor cores, whose
+products are a third term of its bound: 2 x 16 byte-limb products a term
+at INT8_TC_OPS_PER_S (the H100's dense int8 rate), beside its bytes and
+its epilogue's MATMUL_EPILOGUE_OPS 32-bit operations an output word; its
+former form on the CUDA cores counts MATMUL_TERM_OPS a term (the 62-bit
+product, two 32-bit multiplies, and its 64-bit sum, two adds). A
+conversion on pconv (k, K2, K45's second launch, the sharded n and o)
+counts LAZY_TERM_OPS a term (the lazy Shoup product and its 64-bit sum)
+and REDUCE_WIDE_OPS an output word (its one reduction); the eager
 conversion's and the key product's terms count ROWMOD_TERM_OPS.
 """
 
@@ -168,6 +180,12 @@ LAZY_TERM_OPS = 5      # pconv's term: mul.hi, mul, mad + 64-bit add 2
 REDUCE_WIDE_OPS = 11   # a 64-bit sum reduced once: Shoup multiply 5,
                        # Barrett step 4 (mul.hi, mad, csub 2), add_mod 2
 MATMUL_TERM_OPS = 4    # 62-bit product 2 + 64-bit sum 2
+INT8_TC_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate of an H100
+LIMB_PAIRS = 16        # kernel l's byte-limb products a term
+MATMUL_EPILOGUE_OPS = 141   # kernel l, an output word: 16 sums into 7
+                            # groups (9 64-bit adds, 18), each group's
+                            # reduce_wide (77) and lazy Shoup product into
+                            # the 64-bit sum (35), the sum's reduce_wide
 MULMOD_OPS = 10        # a 64-bit product reduced mod q
 CENTRE_OPS = 3         # compare, select, subtract
 DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
@@ -188,7 +206,7 @@ FUSED_CLUSTER = ("tensor_intt", "intt_scale", "ntt_keymul_acc",
                  "intt_conv_p", "ntt_subscale", "ntt_submul_final",
                  "ntt_keymul_acc_rows")
 # the kernels held beside their former forms (`cluster_case`,
-# `rowmod_case`)
+# `rowmod_case`, `matmul_case`)
 FORMER = {"tensor_intt": "tensor_intt_staged",
           "intt_scale": "intt_scale_staged",
           "ntt_keymul_acc": "ntt_keymul_acc_staged",
@@ -197,7 +215,9 @@ FORMER = {"tensor_intt": "tensor_intt_staged",
           "ntt_submul_final": "ntt_submul_final_staged",
           "conv_digits": "conv_digits_rowmod",
           "mod_matmul_rowmod": "mod_matmul_rowmod_eager",
+          "mod_matmul": "mod_matmul_simt",
           "conv_digits_rows": "conv_digits_rows_rowmod",
+          "conv_p_to_q_rows": "conv_p_to_q_rows_rowmod",
           "ntt_keymul_acc_rows": "ntt_keymul_acc_rows_staged"}
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
 BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
@@ -214,10 +234,12 @@ MULT_KERNELS = 6
 RELIN_KERNELS = 6
 KS_CHAIN = ("intt_scale", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
             "ntt_subscale")
-# the sharded n's and p's former forms (csrc/sharded.cu: n on
-# rowmod_core.cuh over the zero-padded digits, p on the staged NTT
-# passes): their yardsticks (`shard_cases`); no launch on the path
-SHARDED_STAGED = ("conv_digits_rows_rowmod", "ntt_keymul_acc_rows_staged")
+# the former forms of l (csrc/modmatmul.cu: the CUDA cores) and of the
+# sharded n, o and p (csrc/sharded.cu: n and o on rowmod_core.cuh, n over
+# the zero-padded digits, p on the staged NTT passes): their yardsticks
+# (`matmul_case`, `shard_cases`); no launch on the path
+SHARDED_STAGED = ("mod_matmul_simt", "conv_digits_rows_rowmod",
+                  "conv_p_to_q_rows_rowmod", "ntt_keymul_acc_rows_staged")
 SHARDED = ("mod_matmul", "conv_digits_rows", "conv_p_to_q_rows",
            "ntt_keymul_acc_rows") + SHARDED_STAGED
 # the kernels of one sharded EvalMult, each once per shard
@@ -278,12 +300,16 @@ WHERE = {
                              "openfhe_tpu/ops/ntt_small.py:157, "
                              "openfhe_tpu/binfhe/rgsw.py:571"),
     "mod_matmul": ("csrc/modmatmul.cu", "openfhe_tpu/ops/modmatmul.py:138"),
+    "mod_matmul_simt": ("csrc/modmatmul.cu",
+                        "openfhe_tpu/ops/modmatmul.py:138"),
     "conv_digits_rows": ("csrc/sharded.cu",
                          "openfhe_tpu/parallel/sharded_fused.py:318"),
     "conv_digits_rows_rowmod": ("csrc/sharded.cu",
                                 "openfhe_tpu/parallel/sharded_fused.py:318"),
     "conv_p_to_q_rows": ("csrc/sharded.cu",
                          "openfhe_tpu/parallel/sharded_fused.py:348"),
+    "conv_p_to_q_rows_rowmod": ("csrc/sharded.cu",
+                                "openfhe_tpu/parallel/sharded_fused.py:348"),
     "ntt_keymul_acc_rows": ("csrc/sharded.cu",
                             "openfhe_tpu/parallel/sharded_fused.py:396"),
     "ntt_keymul_acc_rows_staged": (
@@ -410,10 +436,13 @@ def int32_rate() -> tuple:
     return INT32_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6, mhz, sms
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, tc_ops: float = 0):
+    """(ms, what bounds it): the largest of the bytes at HBM_BYTES_PER_S,
+    the 32-bit integer operations at INT32_OPS_PER_S and the int8
+    tensor-core operations at INT8_TC_OPS_PER_S."""
     require(INT32_OPS_PER_S is not None, "the integer rate is not set")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = max(ops / INT32_OPS_PER_S, tc_ops / INT8_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -566,25 +595,6 @@ def fused_work(tabs, adds: int = 0) -> dict:
                              ntt(2 * kql) + kql * n * (3 * MULMOD_OPS + 12)
                              + 2 * kql * n * (SHOUP_OPS + 5)),
     }
-
-
-def kernel_case(name, kern, ref, args, tabs, work, label,
-                shape=None) -> dict:
-    """kern(*args, tabs) vs ref(*args, tabs): word-equal or raise; both
-    timed."""
-    got, want = kern(*args, tabs), ref(*args, tabs)
-    torch.cuda.synchronize()
-    if isinstance(got, tuple):
-        got, want = torch.stack(got), torch.stack(want)
-    err = max_abs_err(got, want)
-    require(err == 0, f"{name} {label} differs from its plain version "
-            f"(max abs err {err})")
-    b_ms, b_by = bound(*work)
-    shape = shape or [tabs.kql, tabs.kp, tabs.nd, tabs.basis_qlp.ring_dim]
-    return dict(shape=shape, moduli=label, max_abs_err=err,
-                ms=cuda_ms(lambda: kern(*args, tabs)),
-                plain_ms=cuda_ms(lambda: ref(*args, tabs)),
-                bound_ms=b_ms, bound_by=b_by)
 
 
 def cluster_case(name, kern, staged, ref, args, tabs, work, label,
@@ -1066,21 +1076,46 @@ def binfhe_phase(names) -> dict:
 
 
 def matmul_case(mm, w, x, q, label) -> dict:
-    """Kernel l vs its plain version (float64 limb products) at one
-    stage's shapes, both timed."""
-    got, want = mm.mod_matmul(w, x, q), mm._mod_matmul_ref(w, x, q)
+    """Kernel l (`mod_matmul`, the int8 tensor cores) against its plain
+    version and its former form `mod_matmul_simt`, word for word; each
+    call must launch the entry once and the former form never. `ms` is
+    device time (`device_ms`) and `call_ms` a call, each beside the former
+    form's in this run. l's bound takes the largest of its bytes, its
+    LIMB_PAIRS byte-limb products a term on the tensor cores and its
+    epilogue's MATMUL_EPILOGUE_OPS an output word; the former form's is
+    its own, MATMUL_TERM_OPS 32-bit operations a term. Returns the case of
+    each entry."""
+    name, former = "mod_matmul", FORMER["mod_matmul"]
+    kern = lambda: mm.mod_matmul(w, x, q)
+    simt = lambda: mm.mod_matmul_simt(w, x, q)
+    ref = lambda: mm._mod_matmul_ref(w, x, q)
+    got, per = count_launches(kern, (name, former))
+    want, by_simt = ref(), simt()
     torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    require(err == 0, f"mod_matmul {label} differs from its plain version "
-            f"(max abs err {err})")
+    err, err_simt = max_abs_err(got, want), max_abs_err(by_simt, want)
+    require(err == 0 and err_simt == 0,
+            f"{name} {label} differs from its plain version (max abs err: "
+            f"{name} {err}, {former} {err_simt})")
+    require(per == {name: 1, former: 0},
+            f"{name} {label} launched {per}, expected one launch of {name}")
     k, d_dim, a_dim = w.shape
     b_dim = x.shape[2]
-    b_ms, b_by = bound(WORD * (w.numel() + x.numel() + k * d_dim * b_dim + k),
-                       k * d_dim * a_dim * b_dim * MATMUL_TERM_OPS)
-    return dict(shape=[k, d_dim, a_dim, b_dim], moduli=label,
-                max_abs_err=err, ms=cuda_ms(lambda: mm.mod_matmul(w, x, q)),
-                plain_ms=cuda_ms(lambda: mm._mod_matmul_ref(w, x, q)),
-                bound_ms=b_ms, bound_by=b_by)
+    nbytes = WORD * (w.numel() + x.numel() + k * d_dim * b_dim + k)
+    terms = k * d_dim * a_dim * b_dim
+    b_ms, b_by = bound(nbytes, k * d_dim * b_dim * MATMUL_EPILOGUE_OPS,
+                       2 * LIMB_PAIRS * terms)
+    s_ms, s_by = bound(nbytes, terms * MATMUL_TERM_OPS)
+    simt_ms, simt_call_ms = device_ms(simt), cuda_ms(simt)
+    common = dict(shape=[k, d_dim, a_dim, b_dim], moduli=label,
+                  plain_ms=cuda_ms(ref))
+    return {name: dict(common, max_abs_err=err, ms=device_ms(kern),
+                       call_ms=cuda_ms(kern), staged_ms=simt_ms,
+                       staged_call_ms=simt_call_ms, former=former,
+                       launches_per_call=per[name], cluster=None,
+                       bound_ms=b_ms, bound_by=b_by),
+            former: dict(common, max_abs_err=err_simt, ms=simt_ms,
+                         call_ms=simt_call_ms, bound_ms=s_ms,
+                         bound_by=s_by)}
 
 
 def own_pairs(v) -> int:
@@ -1092,8 +1127,9 @@ def own_pairs(v) -> int:
 
 def shard_work(v) -> dict:
     """(bytes, operations) of kernels n, o, p on one shard's views: the
-    conversions count their nonzero weights (n as `pconv` computes: a
-    digit's rows with a weight, into its output rows with one), the key
+    conversions count their nonzero weights as `pconv` computes (n: a
+    digit's rows with a weight, into its output rows with one; o: the P
+    rows with a weight, into the Q rows with one), the key
     product as K3's (`fused_work`): the NTTs of its non-own (row, digit)
     pairs, the own rows it reads from c2, the twiddles of the rows that
     transform at least once."""
@@ -1102,6 +1138,7 @@ def shard_work(v) -> dict:
     own = own_pairs(v)
     ntt = (nd * rows - own) * n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
     nz = v.conv_w != 0                          # [nd, alpha, rows]
+    nzp = v.pconv_w != 0                        # [kp, kql_loc]
     tw_rows = rows if nd > 1 else rows - own
     return {
         "conv_digits_rows": (WORD * n * (v.kql + nd * rows),
@@ -1109,8 +1146,8 @@ def shard_work(v) -> dict:
                                            int(nz[j].any(1).sum()))
                                  for j in range(nd))),
         "conv_p_to_q_rows": (WORD * n * 2 * (kp + v.q.kql),
-                             2 * n * ROWMOD_TERM_OPS
-                             * int((v.pconv_w != 0).sum())),
+                             pconv_ops(2 * n * int(nzp.any(0).sum()),
+                                       int(nzp.any(1).sum()))),
         "ntt_keymul_acc_rows": (WORD * n * (5 * nd * rows + 2 * rows
                                             + 2 * tw_rows),
                                 ntt + 2 * nd * rows * n * ROWMOD_TERM_OPS),
@@ -1118,12 +1155,12 @@ def shard_work(v) -> dict:
 
 
 def shard_cases(sf, st, limb, gen, label) -> dict:
-    """Kernels n, o, p vs their plain twins on every shard of one table
-    set, on random words (the key is the table set's); n and p also
-    against their former forms (`cluster_case`: n's on `_pad_digits` of
-    its input, the pad included), one launch of the entry a call."""
+    """Kernels n, o, p vs their plain twins and their former forms
+    (`cluster_case`: n's on `_pad_digits` of its input, the pad included)
+    on every shard of one table set, on random words (the key is the table
+    set's), one launch of the entry a call."""
     from openfhe_tpu_torch.pke.keyswitch import ks_fused
-    out = {name: [] for name in SHARDED[1:]}
+    out = {name: [] for name in SHARDED if "mod_matmul" not in name}
     f = st.fused
     n = f.basis_qlp.ring_dim
     pad = lambda y, v: sf.conv_digits_rows_rowmod(
@@ -1142,6 +1179,9 @@ def shard_cases(sf, st, limb, gen, label) -> dict:
         for name, kern, former, ref, args in (
                 ("conv_digits_rows", sf.conv_digits_rows, pad,
                  sf._conv_digits_rows_ref, (y,)),
+                ("conv_p_to_q_rows", sf.conv_p_to_q_rows,
+                 sf.conv_p_to_q_rows_rowmod, sf._conv_p_to_q_rows_ref,
+                 (pc,)),
                 ("ntt_keymul_acc_rows", sf.ntt_keymul_acc_rows,
                  sf.ntt_keymul_acc_rows_staged, sf._ntt_keymul_acc_rows_ref,
                  (conv, c2))):
@@ -1149,10 +1189,6 @@ def shard_cases(sf, st, limb, gen, label) -> dict:
                                             work[name], where,
                                             shape).items():
                 out[entry].append(case)
-        out["conv_p_to_q_rows"].append(kernel_case(
-            "conv_p_to_q_rows", sf.conv_p_to_q_rows,
-            sf._conv_p_to_q_rows_ref, (pc,), v, work["conv_p_to_q_rows"],
-            where, shape=shape))
     return out
 
 
@@ -1171,15 +1207,28 @@ def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
     n = cc.ring_dim
     r, c = ntt4step.split(n)
     cases = {name: [] for name in SHARDED}
-    # kernel l at the sharded NTT's stage-1 shapes [k, R, R] x [k, R, C/L]
+    # kernel l at the sharded NTT's stage-1 shapes [k, R, R] x [k, R, C/L],
+    # then at its edge: A = 2^15, every word q - 1 at q = 2^31 - 1 (prime),
+    # whose bytes 254, 255, 255, 127 bring the limb-pair sums to 255^2 A
+    m31 = 2 ** 31 - 1
+    full = lambda *shape: torch.full(shape, m31 - 1, dtype=torch.int32,
+                                     device=cc.device)
+    mm_inputs = []
     for moduli, label, limbs in ((cc.moduli_q, "Q (31 towers)", LIMBS),
                                  (top31, "largest 31-bit primes", (2,))):
         t = ntt4step.dev_tables(tuple(moduli), n, str(cc.device))
         for limb in limbs:
             x = rand_residues(gen, moduli, c // limb, (r,)).transpose(0, 1)
-            cases["mod_matmul"].append(matmul_case(
-                modmatmul, t["wr"], x.contiguous(), t["q"],
-                f"{label}, stage 1 of a shard at limb {limb}"))
+            mm_inputs.append((t["wr"], x.contiguous(), t["q"],
+                              f"{label}, stage 1 of a shard at limb {limb}"))
+    mm_inputs.append((full(1, 16, 1 << 15), full(1, 1 << 15, 8),
+                      torch.tensor([[m31]], dtype=torch.int32,
+                                   device=cc.device),
+                      "edge: A = 2^15, every word 2^31 - 2 (q = 2^31 - 1)"))
+    for args in mm_inputs:
+        for name, case in matmul_case(modmatmul, *args).items():
+            cases[name].append(case)
+    del mm_inputs
     # kernels n, o, p on every shard of four table sets; the last a padded
     # level whose second digit covers no rows of y (n writes it as zeros)
     key31 = rand_key(gen, top31, n)

@@ -49,7 +49,8 @@ SOURCES = {
                                     _P]},
     "rowmod": {"mod_matmul_rowmod": [_P] * 6 + [_I] * 4 + [_P],
                "mod_matmul_rowmod_eager": [_P] * 5 + [_I] * 4 + [_P]},
-    "modmatmul": {"mod_matmul": [_P] * 4 + [_I] * 4 + [_P]},
+    "modmatmul": {"mod_matmul": [_P] * 5 + [_I] * 4 + [_P],
+                  "mod_matmul_simt": [_P] * 4 + [_I] * 4 + [_P]},
     "ks_fused": {"tensor_intt": [_P] * 10 + [_I] * 2 + [_P],
                  "tensor_intt_staged": [_P] * 9 + [_I] * 2 + [_P],
                  "intt_scale": [_P] * 7 + [_I] * 5 + [_P],
@@ -69,7 +70,8 @@ SOURCES = {
                      "blind_rotate_lmkcdey": [_P] * 14 + [_I] * 6 + [_P]},
     "sharded": {"conv_digits_rows": [_P] * 6 + [_I] * 7 + [_P],
                 "conv_digits_rows_rowmod": [_P] * 5 + [_I] * 4 + [_P],
-                "conv_p_to_q_rows": [_P] * 5 + [_I] * 4 + [_P],
+                "conv_p_to_q_rows": [_P] * 6 + [_I] * 4 + [_P],
+                "conv_p_to_q_rows_rowmod": [_P] * 5 + [_I] * 4 + [_P],
                 "ntt_keymul_acc_rows": [_P] * 10 + [_I] * 6 + [_P],
                 "ntt_keymul_acc_rows_staged": [_P] * 11 + [_I] * 6 + [_P]},
 }

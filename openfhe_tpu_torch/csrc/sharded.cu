@@ -14,8 +14,9 @@
 //   ntt_keymul_acc_rows  replaces _ntt_keymul_acc_sharded (p, :396): K3 on
 //                        the shard's Q_l*P rows, a row being a digit's own
 //                        by its global tower index (tau0 + local row)
-//   conv_digits_rows_rowmod, ntt_keymul_acc_rows_staged: the former forms
-//                        of n and p, their yardsticks on the card
+//   conv_digits_rows_rowmod, conv_p_to_q_rows_rowmod,
+//   ntt_keymul_acc_rows_staged: the former forms of n, o and p, their
+//                        yardsticks on the card
 //
 // The TPU kernels multiply int8 limbs on the MXU (the pair-layout weight
 // stacks, an SMEM own-mask); here the weights are canonical residues with
@@ -31,19 +32,28 @@
 //     digit that fall in the shard's output rows (d_off = tau0) as zeros
 //     without a product. A digit past the gathered rows (a padded level
 //     whose real chain has fewer digits) has no rows: its output is zeros.
-//   * o is still rowmod_core.cuh's eager conversion on the shard's weight
-//     columns.
+//   * o is one launch of K45's conversion, pconv with one weight table for
+//     both elements (w_stride 0, no own rows), on the shard's weight
+//     columns and Q moduli with their Basis.red64 rows: each thread holds 4
+//     columns of an element's kp rows, forms the lazy Shoup products, sums
+//     them in 64 bits and reduces once, and blockIdx.z splits the shard's
+//     Q rows so that a shard's few rows still fill the card.
 // The former forms: p's is the forward device-memory stages over all
 // nd * rows rows into scratch, then keymul_core.cuh's tile pass with the
-// same row rule; n's is rowmod_core.cuh's conversion over the digits
+// same row rule; n's and o's are rowmod_core.cuh's eager conversion (one
+// thread a column, every product reduced at once), n's over the digits
 // zero-padded to alpha rows.
 //
 // What bounds them on an H100: device-memory bytes for p and o, the
 // conversion's 32-bit integer operations for n, as for the unsharded
 // kernels (ks_fused.cu's header): at the main path's shard shapes (level
 // 1, limb 2: 15 Q and 23 Q_l*P rows a shard, N = 2^16) p reads its key
-// rows and companions (48 MB), n and o move 16-20 MB each. The row ranges
-// are runtime arguments: one build serves every limb count and level.
+// rows and companions (48 MB), n and o move 16-20 MB each. o does 16 lazy
+// products an output word; at 7 Q rows a shard (limb 4) its byte and
+// operation bounds are within a factor of two, so what the design buys is
+// the lazy sum (5 operations a term, not the eager 7) and enough blocks in
+// flight. The row ranges are runtime arguments: one build serves every
+// limb count and level.
 
 #include "keymul_cluster.cuh"
 #include "keymul_core.cuh"
@@ -97,12 +107,31 @@ extern "C" int conv_digits_rows_rowmod(const void* y, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: [e, kp, N] COEFF (the scaled P rows); w, w_sh: [kp, rows], the P -> Q
-// weights of the shard's Q rows; q: [rows]; out: [e, rows, N].
+// x: [e, kp, N] COEFF (the scaled P rows, read in place); w, w_sh: [kp,
+// rows], the P -> Q weights of the shard's Q rows; q: [rows]; red: [rows,
+// 3] (Basis.red64 of the shard's Q towers); out: [e, rows, N]. One launch
+// of pconv (batch e, one table); refuses what pconv_run refuses (more than
+// 64 P rows, tables above 48 KB, N not a multiple of 4, x or out off a
+// 16-byte boundary).
 extern "C" int conv_p_to_q_rows(const void* x, const void* w,
-                                const void* w_sh, const void* q, void* out,
-                                int e, int kp, int rows, int n,
-                                void* stream) {
+                                const void* w_sh, const void* q,
+                                const void* red, void* out, int e, int kp,
+                                int rows, int n, void* stream) {
+  if (static_cast<long long>(e) * kp > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (int bad = pconv_run(in(x), in(w), in(w_sh), in(q), in(red),
+                          static_cast<uint32_t*>(out), e, kp, e * kp, rows,
+                          n, 0, 0, 0, static_cast<cudaStream_t>(stream)))
+    return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The arguments of conv_p_to_q_rows without red. o's former form:
+// rowmod_core.cuh's eager conversion.
+extern "C" int conv_p_to_q_rows_rowmod(const void* x, const void* w,
+                                       const void* w_sh, const void* q,
+                                       void* out, int e, int kp, int rows,
+                                       int n, void* stream) {
   if (int bad = rowmod_run(in(x), in(w), in(w_sh), in(q),
                            static_cast<uint32_t*>(out), e, kp, rows, n, 0,
                            static_cast<cudaStream_t>(stream)))

@@ -20,8 +20,10 @@ per shard. Rows n, o and p are this module's wrappers (kernels of
 `csrc/sharded.cu`, each with its plain twin for CPU tensors); K1t, K4 and
 K6f are `pke/keyswitch/ks_fused.py`'s on per-shard table views. n is K2's
 conversion (`pconv`) reading the gathered y in place, p K3's cluster
-kernel with the shard's first global row; their former forms,
-`conv_digits_rows_rowmod` (over the zero-padded digits) and
+kernel with the shard's first global row, o K45's conversion (`pconv`)
+on the shard's weight columns; their former forms,
+`conv_digits_rows_rowmod` (over the zero-padded digits),
+`conv_p_to_q_rows_rowmod` (the eager conversion) and
 `ntt_keymul_acc_rows_staged` (the staged NTT passes), are the yardsticks
 they are held against on the card.
 
@@ -207,6 +209,7 @@ def shard_view(st: ShardedFusedTables, limb: int, idx: int,
                                           st.key.av_sh)),
         q0=q0, tau0=tau0, kql=kql, kql_real=st.kql_real, nd=f.nd,
         alpha=f.alpha)
+    view.q.basis_ql.red64     # o's reduction constants, made with the view
     st.views[cache_key] = view
     return view
 
@@ -274,15 +277,33 @@ def _conv_digits_rows_ref(y, v: ShardTables):
 
 def conv_p_to_q_rows(pc: torch.Tensor, v: ShardTables) -> torch.Tensor:
     """o: pc [2, kp, N] COEFF (INTT(ext's P rows) * (P/p_i)^-1) ->
-    [2, kql_loc, N] COEFF, the P -> Q conversion onto the shard's Q rows."""
+    [2, kql_loc, N] COEFF, the P -> Q conversion onto the shard's Q rows.
+    On the card one launch of K45's conversion kernel (`pconv`, one
+    table for both elements) with the Q rows' `Basis.red64`, which the
+    view's basis keeps; it raises on what the kernel refuses (more than 64
+    P rows, tables above 48 KB, N not a multiple of 4, pc or out off a
+    16-byte boundary)."""
     if pc.device.type == "cpu":
         return _conv_p_to_q_rows_ref(pc, v)
+    return _conv_p_to_q_rows_cu(pc, v, "conv_p_to_q_rows")
+
+
+def conv_p_to_q_rows_rowmod(pc: torch.Tensor,
+                            v: ShardTables) -> torch.Tensor:
+    """o's former form, rowmod_core.cuh's eager conversion; CUDA tensors
+    only."""
+    return _conv_p_to_q_rows_cu(pc, v, "conv_p_to_q_rows_rowmod")
+
+
+def _conv_p_to_q_rows_cu(pc, v: ShardTables, entry: str) -> torch.Tensor:
     kp, rows = v.pconv_w.shape
-    ks_fused._check("conv_p_to_q_rows", v, pc=(pc, (2, kp)))
+    ks_fused._check(entry, v, pc=(pc, (2, kp)))
     n = pc.shape[-1]
     out = pc.new_empty((2, rows, n))
-    _build.launch("sharded", "conv_p_to_q_rows", pc, v.pconv_w,
-                  v.pconv_w_sh, v.q.basis_ql.q, out, 2, kp, rows, n)
+    bq = v.q.basis_ql
+    red = (bq.red64,) if entry == "conv_p_to_q_rows" else ()
+    _build.launch("sharded", entry, pc, v.pconv_w, v.pconv_w_sh, bq.q, *red,
+                  out, 2, kp, rows, n)
     return out
 
 

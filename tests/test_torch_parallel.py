@@ -14,6 +14,7 @@ tests run them; its modular matmul through `mod_matmul_jnp`.
 
 import ast
 import os
+import re
 import types
 
 import numpy as np
@@ -41,7 +42,7 @@ from openfhe_tpu.pke import parameters as jprm  # noqa: E402
 from openfhe_tpu.pke.keyswitch import hybrid as jhybrid  # noqa: E402
 from openfhe_tpu.pke.keyswitch import ks_fused as jks  # noqa: E402
 
-from openfhe_tpu_torch import convert  # noqa: E402
+from openfhe_tpu_torch import _build, convert  # noqa: E402
 from openfhe_tpu_torch import parallel as par  # noqa: E402
 from openfhe_tpu_torch.lattice.basis import make_basis  # noqa: E402
 from openfhe_tpu_torch.math.modops import to_u32, u32_tensor  # noqa: E402
@@ -49,6 +50,9 @@ from openfhe_tpu_torch.ops import modmatmul, ntt, ntt4step  # noqa: E402
 from openfhe_tpu_torch.parallel import ntt_sharded as ns  # noqa: E402
 from openfhe_tpu_torch.parallel import sharded as shd  # noqa: E402
 from openfhe_tpu_torch.parallel import sharded_fused as sf  # noqa: E402
+
+from test_torch_ks_cluster import MASK, U32, reduce_wide  # noqa: E402
+from test_torch_scale_conv_cluster import _c_signature  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(ring_dim=1 << 13, mult_depth=7, scaling_mod_size=26,
@@ -58,6 +62,14 @@ ROWS = ("limb", None)
 # a 31-bit prime (= 1 mod 2^14) within the JAX package's int8-limb range
 # (|w| <= 127 * (2^24 + 2^16 + 2^8 + 1))
 Q31 = previous_prime(2_139_000_000, 1 << 14)
+M31 = (1 << 31) - 1     # the largest 31-bit prime
+
+
+def L_EDGE(q):
+    """Kernel l's edge: w [1, 16, 2^15] and x [1, 2^15, 8], every word
+    q - 1."""
+    return (np.full((1, 16, 1 << 15), q - 1, np.uint32),
+            np.full((1, 1 << 15, 8), q - 1, np.uint32))
 
 
 def _rand(rng, moduli, n, lead=()):
@@ -158,6 +170,270 @@ def test_mod_matmul_twin_matches_jax():
     lo, hi = torch.bmm(wl, xl & 0xFFFF), torch.bmm(wl, xl >> 16)
     exact = (hi % q[:, :, None] * 65536 + lo) % q[:, :, None]
     assert torch.equal(got.long(), exact)
+
+
+# kernel l on the int8 tensor cores (csrc/modmatmul.cu `mod_matmul_tc`): a
+# numpy model of its scheme, then of its block schedule down to the lanes
+# of mma.sync.m16n8k32.row.col.s32.u8.u8.s32
+
+# the kernel's tile, read from its source: the model follows it
+L_GEOM = {name: int(v) for name, v in re.findall(
+    r"constexpr int (kTc\w+) = (\d+);",
+    open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "openfhe_tpu_torch", "csrc", "modmatmul.cu")).read())}
+L_TILE_K, L_ROW_WORDS = 32, 12
+L_LANES = np.arange(32)
+L_G, L_TQ = L_LANES // 4, L_LANES % 4
+
+
+def model_l(w, x, q, consts):
+    """mod_matmul's arithmetic: w [k, D, A], x [k, A, B] uint32 words,
+    consts [k, 17] (`limb_consts`) -> [k, D, B] and the 16 limb-pair sums
+    [4, 4, k, D, B]: unsigned byte limbs, each pair's sum exact in s32
+    (asserted below 2^31), grouped by s = i + j, each group reduced by
+    reduce_wide, times 2^(8 s) mod q by a lazy Shoup product (in [0, 2q)),
+    summed in 64 bits, reduced once."""
+    byte = lambda v, i: ((v.astype(np.uint64) >> np.uint64(8 * i))
+                         & np.uint64(255)).astype(np.float64)
+    # float64 products are exact: every sum <= 255 * 255 * 2^15 < 2^53
+    sums = np.array([[np.matmul(byte(w, i), byte(x, j)) for j in range(4)]
+                     for i in range(4)]).astype(np.int64)
+    assert sums.min() >= 0 and sums.max() < 1 << 31
+    c = consts.astype(np.uint64)[:, :, None, None]     # [k, 17, 1, 1]
+    qq = q.astype(np.uint64).reshape(-1, 1, 1)
+    red = (c[:, 14], c[:, 15], c[:, 16])
+    total = np.zeros(sums.shape[2:], np.uint64)
+    for s in range(7):
+        grp = sum(sums[i, s - i] for i in range(4) if 0 <= s - i < 4)
+        r = reduce_wide(grp.astype(np.uint64), qq, red)
+        total += (r * c[:, s] - ((r * c[:, 7 + s]) >> U32) * qq) & MASK
+    return reduce_wide(total, qq, red), sums
+
+
+def byte_perm(x, y, sel):
+    """__byte_perm(x, y, sel): byte n of the result is byte (sel >> 4n) &
+    7 of the 8 bytes y:x (x's at 0-3)."""
+    both = (np.uint64(y) << U32) | np.uint64(x)
+    return sum(((both >> np.uint64(8 * ((sel >> (4 * n)) & 7)))
+                & np.uint64(255)) << np.uint64(8 * n) for n in range(4))
+
+
+def byte_planes(v):
+    """csrc/modmatmul.cu `byte_planes`: 4 words of consecutive a -> their
+    4 limb planes, a byte of each word in each (a's lowest at byte 0)."""
+    t0, t1 = byte_perm(v[0], v[1], 0x5140), byte_perm(v[0], v[1], 0x7362)
+    t2, t3 = byte_perm(v[2], v[3], 0x5140), byte_perm(v[2], v[3], 0x7362)
+    return [byte_perm(t0, t2, 0x5410), byte_perm(t0, t2, 0x7632),
+            byte_perm(t1, t3, 0x5410), byte_perm(t1, t3, 0x7632)]
+
+
+def mma_m16n8k32(a, b, c):
+    """PTX mma.m16n8k32.row.col.s32.u8.u8.s32 on the warp's registers: a
+    [32, 4], b [32, 2] words of 4 bytes, c [32, 4] s32. Byte e of A
+    register r of lane (g, t) is A[g + 8 (r % 2), 4 t + e + 16 (r / 2)];
+    byte e of B register r is B[4 t + e + 16 r, g]; C register r is
+    C[g + 8 (r / 2), 2 t + r % 2]."""
+    A, B = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+    for e in range(4):
+        for r in range(4):
+            A[L_G + 8 * (r % 2), 4 * L_TQ + e + 16 * (r // 2)] = (
+                a[:, r] >> (8 * e)) & 255
+        for r in range(2):
+            B[4 * L_TQ + e + 16 * r, L_G] = (b[:, r] >> (8 * e)) & 255
+    prod = A @ B
+    return c + np.stack([prod[L_G + 8 * (r // 2), 2 * L_TQ + r % 2]
+                         for r in range(4)], 1)
+
+
+def model_l_schedule(w, x, geom=None):
+    """mod_matmul_tc's 16 limb-pair sums [4, 4, k, D, B] by its schedule
+    at the tile `geom` (the kernel's constants, L_GEOM): per tower and
+    kTcTileD x kTcTileB tile, each K step's words staged as
+    `tc_load`/`tc_store` do (W's groups of 4 words, X's 4 words of a
+    column, zero outside), split by
+    `byte_planes` into shared memory [4, kTcTileD, 12] / [4, kTcTileB, 12]
+    words; each warp loads its fragments at the kernel's indices (A: rows
+    wd + g (+ 8), words tq (+ 4); B: rows wb + 8 f + g, words tq (+ 4))
+    and runs 16 kTcFrags mma; the s32 sums land at row g + 8 (r / 2),
+    column 2 tq + r % 2 of fragment f."""
+    geom = geom or L_GEOM
+    tile_d, tile_b, warps_b = (geom[n] for n in ("kTcTileD", "kTcTileB",
+                                                 "kTcWarpsB"))
+    warps_d = tile_d // 16
+    frags, warps = tile_b // (8 * warps_b), warps_d * warps_b
+    nthreads = 32 * warps
+    k, d_dim, a_dim = w.shape
+    b_dim = x.shape[2]
+    sums = np.zeros((4, 4, k, d_dim, b_dim), np.int64)
+    threads = np.arange(nthreads)
+    for t, d0, b0 in np.ndindex(k, -(-d_dim // tile_d), -(-b_dim // tile_b)):
+        d0, b0 = d0 * tile_d, b0 * tile_b
+        acc = np.zeros((warps, 4, 4, frags, 32, 4), np.int64)
+        for a0 in range(0, a_dim, L_TILE_K):
+            sw = np.zeros((4, tile_d, L_ROW_WORDS), np.int64)
+            sx = np.zeros((4, tile_b, L_ROW_WORDS), np.int64)
+            word = lambda m, r, c, rows, cols: np.where(
+                (r < rows) & (c < cols),
+                m[np.minimum(r, rows - 1), np.minimum(c, cols - 1)], 0)
+            for u in range(tile_d * 8 // nthreads):
+                gi = threads + nthreads * u
+                d, a = d0 + gi // 8, a0 + 4 * (gi % 8)
+                v = [word(w[t], d, a + e, d_dim, a_dim) for e in range(4)]
+                for l, pl in enumerate(byte_planes(v)):
+                    sw[l, gi // 8, gi % 8] = pl
+            b, a = b0 + threads % tile_b, a0 + 4 * (threads // tile_b)
+            v = [word(x[t], a + e, b, a_dim, b_dim) for e in range(4)]
+            for l, pl in enumerate(byte_planes(v)):
+                sx[l, threads % tile_b, threads // tile_b] = pl
+            for warp in range(warps):
+                wd = 16 * (warp % warps_d)
+                wb = 8 * frags * (warp // warps_d)
+                fa = [np.stack([sw[l, wd + L_G, L_TQ],
+                                sw[l, wd + L_G + 8, L_TQ],
+                                sw[l, wd + L_G, L_TQ + 4],
+                                sw[l, wd + L_G + 8, L_TQ + 4]], 1)
+                      for l in range(4)]
+                fb = [[np.stack([sx[l, wb + 8 * f + L_G, L_TQ],
+                                 sx[l, wb + 8 * f + L_G, L_TQ + 4]], 1)
+                       for f in range(frags)] for l in range(4)]
+                for i, j, f in np.ndindex(4, 4, frags):
+                    acc[warp, i, j, f] = mma_m16n8k32(
+                        fa[i], fb[j][f], acc[warp, i, j, f])
+        for warp, f, r in np.ndindex(warps, frags, 4):
+            d = d0 + 16 * (warp % warps_d) + L_G + 8 * (r // 2)
+            b = b0 + 8 * frags * (warp // warps_d) + 8 * f + 2 * L_TQ + r % 2
+            keep = (d < d_dim) & (b < b_dim)
+            sums[:, :, t, d[keep], b[keep]] = np.moveaxis(
+                acc[warp, :, :, f, keep, r], 0, -1)
+    return sums
+
+
+@pytest.fixture(scope="module")
+def l_cases():
+    """Kernel l's inputs (seeded words) and JAX's mod_matmul_jnp on them:
+    a 26-bit and the 31-bit prime Q31 at [2, 64, 64] x [2, 64, 96] (a
+    partial column tile); and the edge, A = 2^15 at D = 16, B = 8 with
+    every word q - 1, where sum_a (q - 1)^2 = A mod q: at Q31 (JAX's limb
+    range) and at 2^31 - 1, whose words 2^31 - 2 have three bytes of 255
+    and bring the limb-pair sums to their largest, 255 * 255 * 2^15 (JAX's
+    signed limbs do not take it)."""
+    moduli = [first_prime(26, 1 << 13), Q31]
+    rng = np.random.default_rng(11)
+    w = _rand(rng, moduli, 64, (64,)).transpose(1, 0, 2).copy()
+    x = _rand(rng, moduli, 96, (64,)).transpose(1, 0, 2).copy()
+    x[:, 0, 0] = w[:, 0, 0] = np.array(moduli) - 1
+    out = {}
+    for name, ww, xx, mods in (
+            ("random", w, x, moduli),
+            ("edge-Q31", *L_EDGE(Q31), [Q31]),
+            ("edge-2^31-1", *L_EDGE(M31), [M31])):
+        want = None
+        if name != "edge-2^31-1":
+            limbs = np.moveaxis(jmm.balanced_limbs_host(
+                ww.astype(np.int64)), 0, 1)
+            want = np.asarray(jmm.mod_matmul_jnp(
+                jnp.asarray(limbs), jnp.asarray(xx),
+                jmm.make_mod_matmul_consts(mods)))
+        out[name] = dict(w=ww, x=xx, moduli=mods, jax=want)
+    return out
+
+
+@pytest.mark.parametrize("name", ["random", "edge-Q31", "edge-2^31-1"])
+def test_mod_matmul_model_matches_jax_and_twin(l_cases, name):
+    """The tensor-core scheme (model_l, with the wrapper's constants) ==
+    JAX's mod_matmul_jnp (where its limbs take the words) == the port's
+    twin, word for word; at the edge every limb-pair sum stays below 2^31
+    (model_l asserts it), reaching 255 * 255 * 2^15 at 2^31 - 1, and every
+    output is A mod q = 2^15."""
+    c = l_cases[name]
+    q = torch.tensor(c["moduli"], dtype=torch.int64).view(-1, 1).int()
+    consts = to_u32(modmatmul.limb_consts(q))
+    got, sums = model_l(c["w"], c["x"], np.array(c["moduli"]), consts)
+    if c["jax"] is not None:
+        np.testing.assert_array_equal(got, c["jax"])
+    twin = modmatmul.mod_matmul(u32_tensor(c["w"]), u32_tensor(c["x"]), q)
+    _eq(twin, got)
+    if name.startswith("edge"):
+        assert (got == 1 << 15).all()
+    if name == "edge-2^31-1":
+        assert sums.max() == 255 * 255 << 15
+
+
+def test_mod_matmul_schedule_gives_the_limb_sums(l_cases):
+    """The kernel's staging, byte planes and fragment indices (a partial
+    column tile, two K steps) give model_l's 16 limb-pair sums; a shape
+    with ragged D, A and B (zero-filled) too."""
+    c = l_cases["random"]
+    q = np.array(c["moduli"])
+    consts = to_u32(modmatmul.limb_consts(torch.tensor(
+        c["moduli"], dtype=torch.int64).view(-1, 1).int()))
+    _, sums = model_l(c["w"], c["x"], q, consts)
+    np.testing.assert_array_equal(model_l_schedule(c["w"], c["x"]), sums)
+    w, x = c["w"][:, :50, :37], c["x"][:, :37, :70]
+    _, sums = model_l(w, x, q, consts)
+    np.testing.assert_array_equal(model_l_schedule(w, x), sums)
+
+
+def test_limb_consts_are_the_limb_weights():
+    """limb_consts: 2^(8 s) mod q for s = 0..6, their Shoup companions and
+    q's red64 row, per tower; cached for the same moduli tensor and made
+    anew after an in-place write."""
+    moduli = [first_prime(26, 1 << 13), Q31, M31]
+    q = torch.tensor(moduli, dtype=torch.int64).view(-1, 1).int()
+    got = to_u32(modmatmul.limb_consts(q)).astype(object)
+    for row, m in zip(got, moduli):
+        pw = [pow(2, 8 * s, m) for s in range(7)]
+        assert list(row[:7]) == pw
+        assert list(row[7:14]) == [(p << 32) // m for p in pw]
+        assert list(row[14:]) == [(1 << 32) % m, (((1 << 32) % m) << 32)
+                                  // m, (1 << 32) // m]
+    assert modmatmul.limb_consts(q) is modmatmul.limb_consts(q)
+    q[2] = Q31
+    assert to_u32(modmatmul.limb_consts(q))[2, 0] == 1
+    np.testing.assert_array_equal(to_u32(modmatmul.limb_consts(q))[2],
+                                  got[1].astype(np.uint32))
+
+
+def test_mod_matmul_wrappers_launch_one_entry_or_raise(monkeypatch):
+    """Off the CPU, mod_matmul launches `mod_matmul` once with (w, x, q,
+    limb_consts(q), out, k, D, A, B) and its former form `mod_matmul_simt`
+    the same without the constants; a depth above 2^15 raises before a
+    launch, and the former form takes no CPU tensor."""
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda src, fn, *args: calls.append((src, fn, args)))
+    q = torch.tensor([Q31, 12289], dtype=torch.int32).view(-1, 1)
+    w = torch.zeros((2, 48, 40), dtype=torch.int32)
+    x = torch.zeros((2, 40, 24), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        modmatmul.mod_matmul_simt(w, x, q)
+    for entry, consts in (("mod_matmul", (modmatmul.limb_consts(q),)),
+                          ("mod_matmul_simt", ())):
+        calls.clear()
+        out = modmatmul._mod_matmul_cu(w, x, q, entry)
+        (src, fn, args), = calls
+        assert (src, fn) == ("modmatmul", entry)
+        assert args[:3] == (w, x, q) and args[3:3 + len(consts)] == consts
+        assert args[3 + len(consts)] is out
+        assert args[4 + len(consts):] == (2, 48, 40, 24)
+        assert tuple(out.shape) == (2, 48, 24)
+    calls.clear()
+    deep = torch.zeros((2, 4, (1 << 15) + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="depth 32769 above 32768"):
+        modmatmul._mod_matmul_cu(deep, deep.transpose(1, 2).contiguous(), q,
+                                 "mod_matmul")
+    assert not calls
+
+
+@pytest.mark.parametrize("fn", ["mod_matmul", "mod_matmul_simt"])
+def test_mod_matmul_entries_are_registered_with_their_c_signatures(fn):
+    """The tensor-core entry takes the constants after q; the former form
+    does not."""
+    p, i = _build._P, _build._I
+    want = {"mod_matmul": [p] * 5 + [i] * 4 + [p],
+            "mod_matmul_simt": [p] * 4 + [i] * 4 + [p]}
+    assert _build.SOURCES["modmatmul"][fn] == _c_signature("modmatmul", fn)
+    assert _build.SOURCES["modmatmul"][fn] == want[fn]
 
 
 def test_4step_tables_match_jax():
