@@ -125,7 +125,42 @@ is not beside it. Phases, none of which catches its own failure:
    x limb 2 mesh with a batch of two pairs and, where two cards are
    visible, shards on distinct cards; the decryption of the rescaled level-3
    product within MULT_TOL; times beside the single-card ops;
-7. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+7. the leveled CKKS layer, counted only over its fused runs: (a), (b)
+   and each chain of (c) from its context's creation to its last fused
+   op, the counts summed; every oracle (the unfused chain, the CPU plain
+   path, the kernel cases) runs outside those windows:
+   (a) FLEXIBLEAUTO at the main path's widths (N=2^16, depth 30, 26/27-bit
+   moduli, 2 digits, HEStd_128_classic; 31 Q + 16 P towers), KeyGen,
+   EvalMultKeyGen, rotation keys -1 ... -7, MERGE fresh encryptions filling
+   all 32768 slots: (a)1 EvalSub, EvalNegate, EvalAdd / EvalSub / EvalMult
+   with a scalar and with a plaintext, EvalSquare, EvalMultAndRelinearize,
+   EvalLinearWSum of 4, EvalMerge of 8, an add of a [level 1, degree 2]
+   and a [level 0, degree 1] operand (FLEXIBLE's scalar-multiply bring)
+   and Compress, each word-equal (with level, degree and scale) three
+   ways: the fused chains on the card, the unfused chain on the card
+   (`unfused_view`: every level's tables without the fused ones) and the
+   port's plain path on the CPU (`cpu_twin`); (a)2
+   `examples/function_evaluation.py`'s two calls, EvalLogistic and EvalSin
+   over [-1, 1] at degree 32 from level 0, and (a)3 EvalLogistic over
+   [-8, 8] at degree 119 from level 0 and from the deepest level where its
+   result keeps LEVEL_SPARE_BITS above its scale (printed), each fused
+   word-equal to unfused, each printed with its wall (CUDA events), its
+   launches by kernel and its host share (the encodes of constant vectors,
+   `MakeCKKSPackedPlaintext`: an FFT and a CRT on the host, an upload and
+   one `ntt_fwd`); every kernel of rows a-h and j must have been launched
+   and no former form; (b) FIXEDAUTO at the same widths, depth 6: the add
+   of a [level 1, degree 2] and a [level 0, degree 1] operand (the x1
+   plaintext multiply), word-equal to the CPU plain path; (c) the chains
+   the kernels had not run on, FLEXIBLEAUTOEXT at depth 10 (a 20-bit
+   extension tower on top: the JAX package has no 19-bit prime = 1 mod 2N
+   from N=2^13 on, `pke/parameters._ext_prime`) and COMPOSITESCALINGAUTO
+   at depth 8 with 50-bit scales over two 25-28-bit towers a level: an
+   EvalMult-and-Rescale chain to the last level and a scalar add, fused
+   word-equal to unfused, and each kernel of the fused key switches
+   against its plain version and former form on the chain's level-0
+   tables (`fused_cases`). Every decryption within the limits of the note
+   below;
+8. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 
 bound_ms is the least time the card could take for a call: the larger of
 its bytes (each input read once, each output written once) at 3.35 TB/s
@@ -159,8 +194,11 @@ conversion's and the key product's terms count ROWMOD_TERM_OPS.
 
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -373,6 +411,53 @@ SUM_BATCH = 64
 SUM_TOL = 2e-2
 REPS = 20
 SPIN_CYCLES = 2_000_000   # about 1 ms at the H100's clock
+
+# phase 7: the leveled CKKS layer (FLEXIBLEAUTO at the main path's widths)
+LEVELED_SEED = 17
+MERGE = 8                 # EvalMerge of 8 (rotation keys -1 ... -7)
+WSUM = (0.5, -1.25, 2.0, -0.75)
+FUNC_DEGREE = 32          # examples/function_evaluation.py's two calls
+LOGISTIC_WIDE = (-8.0, 8.0, 119)
+LEVEL_SPARE_BITS = 10     # above the result's scale at its level
+# (c): technique, depth, other parameters
+CHAINS = (("FLEXIBLEAUTOEXT", 10, {}),
+          ("COMPOSITESCALINGAUTO", 8, dict(scaling_mod_size=50,
+                                           first_mod_size=56)))
+CHAIN_SPREAD = 0.03       # the chain's factor y ~ U(0.97, 1.03)
+CHAIN_ADD = 0.0625
+# Phase 7's noise note. Its inputs are fresh encryptions of |z| <= Z_MAX
+# at 2^26 scales, whose slot error reaches about 1.5e-2 (6 std of 2.5e-3,
+# see above), so the ops that keep a fresh error unscaled are held to
+# 3e-2, twice it. The rest follow the same error through what the op does
+# to it: EvalSub adds two (sqrt 2), EvalLinearWSum 4 weighs four by WSUM
+# (norm 2.5), a product by |z| <= 1/4 shrinks it (EvalMult by a
+# plaintext, EvalMultAndRelinearize), EvalSquare doubles that, the x1
+# multiply of (b) adds z^2 y + z's. A function's result carries the input
+# error times the function's slope (sin 1, the logistic 1/4) plus the
+# series' own rescale roundings, on top of the Chebyshev interpolant's
+# error, which `cheb_error` computes in numpy at the call's degree (below
+# 1e-14 at degree 32 on [-1, 1] and at degree 119 on [-8, 8]). Each limit
+# is about twice the error of one CPU run of the port's plain path at the
+# same parameters and seeds (a scratch run, not a test; it measured
+# EvalSub 2.3e-2, the single fresh errors 1.5e-2, EvalMult scalar 1.1e-2,
+# EvalMult plaintext 3.4e-3, EvalSquare 6.7e-3, EvalMultAndRelinearize
+# 4.3e-3, EvalLinearWSum 4.1e-2, EvalMerge 3.8e-3, the bring 1.5e-2,
+# Compress 4.4e-3, the degree-32 logistic 4.1e-3 and sine 1.3e-2, the
+# degree-119 logistic 6.3e-3 from level 0 and 6.8e-3 from level 21, (b)
+# 2.6e-2, the FLEXIBLEAUTOEXT chain 5.7e-3 and the composite chain, at
+# 2^50 scales, 1.9e-9).
+LEVELED_LIMITS = {
+    "EvalSub": 4e-2, "EvalNegate": 3e-2, "EvalAdd scalar": 3e-2,
+    "EvalSub scalar": 3e-2, "EvalMult scalar": 2.5e-2,
+    "EvalAdd plaintext": 3e-2, "EvalSub plaintext": 3e-2,
+    "EvalMult plaintext": 1e-2, "EvalSquare": 1.5e-2,
+    "EvalMultAndRelinearize": 1e-2, "EvalLinearWSum 4": 8e-2,
+    f"EvalMerge {MERGE}": 1e-2, "EvalAdd (1, 2) + (0, 1)": 3e-2,
+    "Compress": 1e-2, "FIXEDAUTO x1": 5e-2, "FLEXIBLEAUTOEXT": 1.5e-2,
+    "COMPOSITESCALINGAUTO": 1e-8}
+# the noise allowance of each function call, added to `cheb_error`
+FUNC_NOISE = {"EvalLogistic": 1e-2, "EvalSin": 3e-2,
+              "EvalLogistic wide": 1.5e-2}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1397,6 +1482,339 @@ def sharded_phase(cc, ct_a, ct_b, ct_c, sk, dec_ab, top31, gen, names,
                 mult_err=mult_err, times=times, seconds=phase_s)
 
 
+def unfused_view(cc):
+    """The same context (keys, caches, generator shared) with every level's
+    hybrid tables stripped of their fused ones, as phase 4 builds its
+    oracle: EvalMult and every key switch run the unfused chain."""
+    view = copy.copy(cc)
+    tables = cc.hybrid_tables
+    view.hybrid_tables = lambda size_ql: dataclasses.replace(
+        tables(size_ql), fused=None)
+    return view
+
+
+def cpu_twin(cc, seed):
+    """The port's plain path: a CPU context of cc's parameters with cc's
+    eval keys (without companions), and a function moving ciphertexts."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch.pke.keys import EvalKey
+    cpu = fhe.GenCryptoContext(dataclasses.replace(cc.params), seed=seed,
+                               device="cpu")
+    on_cpu_key = lambda ek: EvalKey(bv=ek.bv.cpu(), av=ek.av.cpu(),
+                                    key_tag=ek.key_tag)
+    for tag, ek in cc.eval_mult_keys.items():
+        cpu.eval_mult_keys[tag] = on_cpu_key(ek)
+    for tag, keys in cc.eval_automorphism_keys.items():
+        cpu.InsertEvalAutomorphismKey(
+            {g: on_cpu_key(ek) for g, ek in keys.items()}, tag)
+    on_cpu = lambda ct: dataclasses.replace(
+        ct, elements=tuple(e.cpu() for e in ct.elements))
+    return cpu, on_cpu
+
+
+def same_ct(x, y) -> bool:
+    """Equal words and equal level, noise degree and scale."""
+    return same_words(x, y) and (x.level, x.noise_deg, x.scale) == (
+        y.level, y.noise_deg, y.scale)
+
+
+def leveled_ops(cc, cts, pt_w) -> dict:
+    """(a)1's ops on one context: cts are MERGE fresh ciphertexts, pt_w a
+    plaintext at level 0."""
+    x, y = cts[0], cts[1]
+    resc = cc.Rescale(cc.EvalMult(x, y))
+    return {
+        "EvalSub": cc.EvalSub(x, y),
+        "EvalNegate": cc.EvalNegate(x),
+        "EvalAdd scalar": cc.EvalAdd(x, 0.25),
+        "EvalSub scalar": cc.EvalSub(x, 0.125),
+        "EvalMult scalar": cc.EvalMult(x, -0.75),
+        "EvalAdd plaintext": cc.EvalAdd(x, pt_w),
+        "EvalSub plaintext": cc.EvalSub(x, pt_w),
+        "EvalMult plaintext": cc.EvalMult(x, pt_w),
+        "EvalSquare": cc.EvalSquare(x),
+        "EvalMultAndRelinearize": cc.EvalMultAndRelinearize(x, y),
+        "EvalLinearWSum 4": cc.EvalLinearWSum(cts[:4], list(WSUM)),
+        f"EvalMerge {MERGE}": cc.EvalMerge(cts),
+        "EvalAdd (1, 2) + (0, 1)": cc.EvalAdd(cc.EvalSquare(resc), x),
+        "Compress": cc.Compress(cc.EvalMult(x, y), 3),
+    }
+
+
+def leveled_want(zs, w) -> dict:
+    """What each op of `leveled_ops` computes, on the slot vectors."""
+    x, y = zs[0], zs[1]
+    merged = np.zeros_like(x)
+    merged[:MERGE] = [z[0] for z in zs]
+    return {"EvalSub": x - y, "EvalNegate": -x, "EvalAdd scalar": x + 0.25,
+            "EvalSub scalar": x - 0.125, "EvalMult scalar": -0.75 * x,
+            "EvalAdd plaintext": x + w, "EvalSub plaintext": x - w,
+            "EvalMult plaintext": x * w, "EvalSquare": x * x,
+            "EvalMultAndRelinearize": x * y,
+            "EvalLinearWSum 4": sum(c * z for c, z in zip(WSUM, zs)),
+            f"EvalMerge {MERGE}": merged,
+            "EvalAdd (1, 2) + (0, 1)": (x * y) ** 2 + x,
+            "Compress": x * y}
+
+
+def mult_chain(cc, x, y) -> list:
+    """EvalMult by y and Rescale from x's level down to the chain's last
+    level, then a scalar add: every product, the sum last."""
+    out = [x]
+    while out[-1].level + 1 < len(cc.scf_real):
+        out.append(cc.Rescale(cc.EvalMult(out[-1], y)))
+    out.append(cc.EvalAdd(out[-1], CHAIN_ADD))
+    return out[1:]
+
+
+def cheb_error(func, a, b, degree) -> float:
+    """Largest error of the degree-`degree` Chebyshev interpolant of func
+    on [a, b] (the coefficients the evaluators use, in numpy), on a grid
+    of 20001 points."""
+    from openfhe_tpu_torch.math.chebyshev import eval_chebyshev_coefficients
+    c = np.array(eval_chebyshev_coefficients(func, a, b, degree))
+    c[0] /= 2.0
+    x = np.linspace(a, b, 20001)
+    approx = np.polynomial.chebyshev.chebval(2 * (x - a) / (b - a) - 1, c)
+    return float(np.abs(approx - np.vectorize(func)(x)).max())
+
+
+def deepest_start(cc, out0) -> int:
+    """The deepest level a call that took out0 from level 0 can start at
+    and still leave LEVEL_SPARE_BITS above the result's scale."""
+    used = out0.level
+    for start in range(len(cc.scf_real) - 1 - used, -1, -1):
+        bits = sum(math.log2(q) for q in
+                   cc.moduli_q[:cc.size_ql(start + used)])
+        if bits >= math.log2(out0.scale) + LEVEL_SPARE_BITS:
+            return start
+    return 0
+
+
+def leveled_phase(card, gen, names, cases, staged) -> dict:
+    """The leveled CKKS layer (see the module docstring, phase 7); raises
+    on any fault. Appends the kernel cases of (c) to `cases` / `staged`."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.pke import advanced
+    from openfhe_tpu_torch.pke.keyswitch import ks_fused
+    from openfhe_tpu_torch.pke.parameters import main_path_params
+    from openfhe_tpu_torch.trace_evalmult import time_encodes
+    t_phase = time.perf_counter()
+    T = fhe.ScalingTechnique
+    rng = np.random.default_rng(LEVELED_SEED)
+    res = {"errors": {}, "limits": {}, "same": {}}
+
+    def check(label, got, want, limit):
+        err = float(np.abs(np.asarray(got)[:len(want)] - want).max())
+        res["errors"][label], res["limits"][label] = err, limit
+        require(np.isfinite(err) and err <= limit,
+                f"{label}: decryption error {err:.3e} above {limit:.1e}")
+
+    # (a) FLEXIBLEAUTO at the main path's widths. Each of (a), (b) and (c)
+    # is counted from its context's creation to its last fused op; the
+    # oracles (the unfused chain, the CPU plain path, the kernel cases)
+    # run outside those windows.
+    launches = collections.Counter()
+    _build.LAUNCHES.clear()
+    params = dataclasses.replace(main_path_params(),
+                                 scaling_technique=T.FLEXIBLEAUTO)
+    cc = fhe.GenCryptoContext(params, seed=LEVELED_SEED)
+    kp = cc.KeyGen()
+    sk = kp.secret_key
+    cc.EvalMultKeyGen(sk)
+    cc.EvalRotateKeyGen(sk, [-i for i in range(1, MERGE)])
+    require((len(cc.moduli_q), len(cc.moduli_p)) == (31, 16)
+            and cc.hybrid_tables(cc.size_ql(0)).fused is not None,
+            "unexpected FLEXIBLEAUTO chain or no fused tables")
+    encodes = time_encodes(cc)
+    zs = [rng.uniform(-Z_MAX, Z_MAX, cc.slots) for _ in range(MERGE)]
+    w = rng.uniform(-Z_MAX, Z_MAX, cc.slots)
+    cts = [cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(z))
+           for z in zs]
+    pt_w = cc.MakeCKKSPackedPlaintext(w)
+
+    # (a)1: the leveled ops
+    fused, per_ops = count_launches(lambda: leveled_ops(cc, cts, pt_w),
+                                    names)
+
+    # (a)2 and (a)3: the function evaluations
+    u = rng.uniform(-1.0, 1.0, cc.slots)
+    v = rng.uniform(LOGISTIC_WIDE[0], LOGISTIC_WIDE[1], cc.slots)
+    ct_u = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(u))
+    ct_v = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(v))
+    sigmoid = lambda t: 1.0 / (1.0 + np.exp(-t))
+    res["calls"], calls = {}, []
+
+    def run_call(label, fn, ct, want_vals, limit):
+        before = dict(encodes)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, per = count_launches(lambda: fn(cc, ct), names)
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end)
+        enc_ms = (encodes["s"] - before["s"]) * 1e3
+        n_enc = encodes["n"] - before["n"]
+        calls.append((label, fn, ct, out, want_vals, limit))
+        res["calls"][label] = dict(
+            wall_ms=wall, encode_ms=enc_ms, encodes=n_enc,
+            host_encode_share=enc_ms / wall, level_in=ct.level,
+            level_out=out.level, noise_deg=out.noise_deg,
+            launches={k: v for k, v in per.items() if v})
+        print(f"{label}: wall {wall:.1f} ms (CUDA events, {card}); "
+              f"{n_enc} encodes {enc_ms:.1f} ms on the host "
+              f"({enc_ms / wall:.0%} of the wall); level {ct.level} -> "
+              f"{out.level}, noise degree {out.noise_deg}; launches "
+              f"{res['calls'][label]['launches']}")
+        return out
+
+    for func, fname, f in ((advanced.logistic, "EvalLogistic", sigmoid),
+                           (math.sin, "EvalSin", np.sin)):
+        approx = cheb_error(func, -1.0, 1.0, FUNC_DEGREE)
+        run_call(f"{fname} [-1, 1] degree {FUNC_DEGREE}",
+                 lambda c, ct, fname=fname: getattr(c, fname)(
+                     ct, -1.0, 1.0, FUNC_DEGREE),
+                 ct_u, f(u), approx + FUNC_NOISE[fname])
+    a, b, degree = LOGISTIC_WIDE
+    approx = cheb_error(advanced.logistic, a, b, degree)
+    wide = lambda c, ct: c.EvalLogistic(ct, a, b, degree)
+    out0 = run_call(f"EvalLogistic [-8, 8] degree {degree}", wide, ct_v,
+                    sigmoid(v), approx + FUNC_NOISE["EvalLogistic wide"])
+    res["deepest_level"] = deep = deepest_start(cc, out0)
+    ct_deep = cc.Encrypt(kp.public_key,
+                         cc.MakeCKKSPackedPlaintext(v, level=deep))
+    run_call(f"EvalLogistic [-8, 8] degree {degree} from level {deep}",
+             wide, ct_deep, sigmoid(v),
+             approx + FUNC_NOISE["EvalLogistic wide"])
+    torch.cuda.synchronize()
+    launches.update({k: _build.LAUNCHES[k] for k in names})
+    print(f"deepest start of the degree-{LOGISTIC_WIDE[2]} logistic: level "
+          f"{res['deepest_level']} of {len(cc.scf_real) - 1}")
+
+    # (a)'s oracles: three ways for (a)1, fused == unfused for (a)2, (a)3
+    decv = lambda ct: np.asarray(cc.Decrypt(sk, ct).values).real
+    unf = unfused_view(cc)
+    plain_card = leveled_ops(unf, cts, pt_w)
+    t0 = time.perf_counter()
+    cpu, on_cpu = cpu_twin(cc, LEVELED_SEED)
+    on_cpu_cts = [on_cpu(ct) for ct in cts]
+    plain_cpu = leveled_ops(cpu, on_cpu_cts, cpu.MakeCKKSPackedPlaintext(w))
+    cpu_s = time.perf_counter() - t0
+    want = leveled_want(zs, w)
+    for op, ct in fused.items():
+        res["same"][f"(a)1 {op}: fused == unfused"] = same_ct(
+            ct, plain_card[op])
+        res["same"][f"(a)1 {op}: card == CPU"] = same_ct(ct, plain_cpu[op])
+        check(f"(a)1 {op}", decv(ct), want[op], LEVELED_LIMITS[op])
+    print(f"(a)1 leveled ops: launches {per_ops}; CPU plain path "
+          f"{cpu_s:.1f} s")
+    del cpu, on_cpu_cts, plain_cpu
+    for label, fn, ct, out, want_vals, limit in calls:
+        res["same"][f"{label}: fused == unfused"] = same_ct(out,
+                                                           fn(unf, ct))
+        check(label, decv(out), want_vals, limit)
+    del cc, unf, cts, fused, plain_card, calls
+    torch.cuda.empty_cache()
+
+    # (b) FIXEDAUTO, depth 6: the x1 plaintext multiply
+    def fixed_auto():
+        params_b = dataclasses.replace(main_path_params(), mult_depth=6,
+                                       scaling_technique=T.FIXEDAUTO)
+        cb = fhe.GenCryptoContext(params_b, seed=LEVELED_SEED)
+        kb = cb.KeyGen()
+        cb.EvalMultKeyGen(kb.secret_key)
+        xb, yb = (cb.Encrypt(kb.public_key, cb.MakeCKKSPackedPlaintext(z))
+                  for z in zs[:2])
+        deg2 = cb.EvalMult(cb.EvalMult(xb, yb), xb)
+        return cb, kb, xb, yb, deg2, cb.EvalAdd(deg2, xb)
+
+    (cb, kb, xb, yb, deg2, summed), per_b = count_launches(fixed_auto,
+                                                           names)
+    launches.update(per_b)
+    require((deg2.level, deg2.noise_deg, summed.level, summed.noise_deg)
+            == (1, 2, 1, 2), "(b): unexpected levels or degrees")
+    cpu, on_cpu = cpu_twin(cb, LEVELED_SEED)
+    deg2_cpu = cpu.EvalMult(cpu.EvalMult(on_cpu(xb), on_cpu(yb)),
+                            on_cpu(xb))
+    res["same"]["(b) [1, 2] operand: card == CPU"] = same_ct(deg2, deg2_cpu)
+    res["same"]["(b) x1 multiply add: card == CPU"] = same_ct(
+        summed, cpu.EvalAdd(deg2_cpu, on_cpu(xb)))
+    check("(b) FIXEDAUTO [1, 2] + [0, 1]",
+          np.asarray(cb.Decrypt(kb.secret_key, summed).values).real,
+          zs[0] ** 2 * zs[1] + zs[0], LEVELED_LIMITS["FIXEDAUTO x1"])
+    del cb, cpu
+    torch.cuda.empty_cache()
+
+    # (c) the chains the kernels had not run on
+    for tech, depth, kw in CHAINS:
+        y_vals = rng.uniform(1.0 - CHAIN_SPREAD, 1.0 + CHAIN_SPREAD,
+                             len(zs[0]))
+
+        def chain_run(tech=tech, depth=depth, kw=kw, y_vals=y_vals):
+            pc = dataclasses.replace(main_path_params(), mult_depth=depth,
+                                     scaling_technique=T[tech], **kw)
+            c3 = fhe.GenCryptoContext(pc, seed=LEVELED_SEED)
+            k3 = c3.KeyGen()
+            c3.EvalMultKeyGen(k3.secret_key)
+            x3 = c3.Encrypt(k3.public_key,
+                            c3.MakeCKKSPackedPlaintext(zs[0]))
+            y3 = c3.Encrypt(k3.public_key,
+                            c3.MakeCKKSPackedPlaintext(y_vals))
+            return c3, k3, x3, y3, mult_chain(c3, x3, y3)
+
+        (c3, k3, x3, y3, chain), per_c = count_launches(chain_run, names)
+        launches.update(per_c)
+        chain_u = mult_chain(unfused_view(c3), x3, y3)
+        label = (f"(c) {tech} N=2^{c3.ring_dim.bit_length() - 1}, depth "
+                 f"{depth}: {len(c3.moduli_q)} Q + {len(c3.moduli_p)} P "
+                 "towers")
+        res["same"][f"{label}: fused == unfused"] = all(
+            same_ct(a, b) for a, b in zip(chain, chain_u))
+        want_c = zs[0] * y_vals ** (len(chain) - 1) + CHAIN_ADD
+        check(label, np.asarray(c3.Decrypt(k3.secret_key,
+                                           chain[-1]).values).real,
+              want_c, LEVELED_LIMITS[tech])
+        print(f"{label}: moduli bits "
+              f"{[q.bit_length() for q in c3.moduli_q]}, P "
+              f"{[q.bit_length() for q in c3.moduli_p]}; "
+              f"{len(chain) - 1} products to level {chain[-1].level}; "
+              f"launches {dict((k, n) for k, n in per_c.items() if n)}")
+        tabs = c3.hybrid_tables(c3.size_ql(0)).fused
+        key = rand_key(gen, list(c3.moduli_q) + list(c3.moduli_p),
+                       c3.ring_dim)
+        for name, case in fused_cases(ks_fused, tabs, key, gen,
+                                      f"{tech} level 0 ({tabs.kql} Q + "
+                                      f"{tabs.kp} P)"):
+            (staged if name in STAGED else cases)[name].append(case)
+        del c3, chain, chain_u, tabs, key
+        torch.cuda.empty_cache()
+
+    # the fused runs' own launches, summed over (a), (b) and (c)
+    res["launches"] = launches = {k: launches[k] for k in names}
+    path = ("ntt_fwd", "ntt_inv", "tensor_intt", "conv_digits",
+            "ntt_keymul_acc", "intt_conv_p", "ntt_submul_final",
+            "intt_scale", "ntt_subscale")
+    print(f"leveled path launches (rows a-h, j; fused runs only): "
+          f"{ {k: launches[k] for k in path} }; others "
+          f"{ {k: v for k, v in launches.items() if k not in path and v} }")
+    require(all(launches[k] > 0 for k in path),
+            f"a kernel of rows a-h, j was not launched: {launches}")
+    require(not any(launches[k] for k in STAGED),
+            f"the leveled path ran a staged form: {launches}")
+    print(f"leveled phase decryption errors (limit): "
+          + ", ".join(f"{k} {v:.3e} ({res['limits'][k]:.1e})"
+                      for k, v in res["errors"].items()))
+    print(f"leveled phase words equal: {res['same']}")
+    require(all(res["same"].values()),
+            f"leveled phase words differ: "
+            f"{[k for k, v in res['same'].items() if not v]}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"leveled phase: {res['seconds']:.1f} s")
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -1410,11 +1828,10 @@ def main() -> int:
     import openfhe_tpu_torch as fhe
     from openfhe_tpu_torch import _build
     from openfhe_tpu_torch.lattice.automorph import (
-        eval_indices, rotation_automorphism_index)
+        rotation_automorphism_index)
     from openfhe_tpu_torch.lattice.basis import make_basis
     from openfhe_tpu_torch.math import nbtheory
     from openfhe_tpu_torch.ops import modmatmul, ntt
-    from openfhe_tpu_torch.pke import context
     from openfhe_tpu_torch.pke.keys import EvalKey
     from openfhe_tpu_torch.pke.keyswitch import ks_fused
     from openfhe_tpu_torch.pke.parameters import main_path_params
@@ -1624,19 +2041,9 @@ def main() -> int:
 
     # the unfused chain, as the JAX package builds its oracle: the same
     # level tables without the fused ones
-    plain = lambda ct: dataclasses.replace(
-        cc.hybrid_tables(cc.size_ql(ct.level)), fused=None)
-
-    def relin_unfused(ct3):
-        return dataclasses.replace(ct3, elements=context.relin_hybrid(
-            *ct3.elements, ek_mult, plain(ct3)))
-
-    def rotate_unfused(ct, r):
-        g = rotation_automorphism_index(r, n)
-        idx = torch.from_numpy(eval_indices(n, g).astype(np.int64)).cuda()
-        return dataclasses.replace(ct, elements=context.automorph_hybrid(
-            ct.elements, idx, auto_keys[g], plain(ct)))
-
+    unf = unfused_view(cc)
+    relin_unfused = unf.Relinearize
+    rotate_unfused = unf.EvalRotate
     unfused = lambda x, y: relin_unfused(cc.EvalMultNoRelin(x, y))
     relin = lambda x, y: cc.Relinearize(cc.EvalMultNoRelin(x, y))
     prod, per_mult = counted(lambda: cc.EvalMult(ct_a, ct_b))
@@ -1863,7 +2270,14 @@ def main() -> int:
                             card)
     launches.update({k: sharded["launches"][k] for k in SHARDED})
 
-    # 7. the kernels line, then the device line
+    # 7. the leveled CKKS layer, counted from its first context on
+    leveled = leveled_phase(card, gen, names, cases, staged)
+    per_call = {label: c["launches"] for label, c in leveled["calls"].items()}
+    logistic32 = per_call[f"EvalLogistic [-1, 1] degree {FUNC_DEGREE}"]
+    logistic119 = per_call[
+        f"EvalLogistic [-8, 8] degree {LOGISTIC_WIDE[2]}"]
+
+    # 8. the kernels line, then the device line
     kernels = []
     for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
@@ -1879,6 +2293,9 @@ def main() -> int:
             launches_per_ginx_gate=per_gate[name],
             launches_per_sharded_mult=sharded["per_mult"][name],
             launches_per_sharded_ntt=sharded["per_ntt"][name],
+            launches_leveled_phase=leveled["launches"][name],
+            launches_per_logistic32=logistic32.get(name, 0),
+            launches_per_logistic119=logistic119.get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -1909,6 +2326,9 @@ def main() -> int:
                       "binfhe": binfhe,
                       "sharded": {k: sharded[k] for k in (
                           "times", "same", "mult_err", "per_mult_limb2",
+                          "seconds")},
+                      "leveled": {k: leveled[k] for k in (
+                          "calls", "errors", "limits", "deepest_level",
                           "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -43,12 +43,15 @@ def ternary(gen: torch.Generator, shape,
 
 
 def discrete_gaussian(gen: torch.Generator, shape,
-                      sigma: float = DEFAULT_SIGMA) -> torch.Tensor:
-    """Rounded-Gaussian int32 sample, clipped to +-6 sigma (errors)."""
+                      sigma: float = DEFAULT_SIGMA,
+                      dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Rounded-Gaussian sample, clipped to +-6 sigma (errors). The
+    noise-flooding sampler asks for int64: at sigma >= 2^29 the clip
+    passes 2^31, where an int32 would wrap."""
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float64) * sigma
     bound = math.ceil(6.0 * sigma)
-    return torch.clamp(torch.round(x), -bound, bound).to(torch.int32)
+    return torch.clamp(torch.round(x), -bound, bound).to(dtype)
 
 
 def uniform_residues(gen: torch.Generator, basis: Basis,
@@ -62,7 +65,7 @@ def uniform_residues(gen: torch.Generator, basis: Basis,
 
 
 def to_residues(small: torch.Tensor, basis: Basis) -> torch.Tensor:
-    """Lift signed int32 [..., N] (|v| << q) to [..., k, N] residues.
+    """Lift signed int32 or int64 [..., N] to [..., k, N] residues.
     `torch.remainder` takes the sign of the divisor, so results are in
     [0, q) (not `fmod`)."""
     return torch.remainder(small[..., None, :].long(), basis.q.long()).int()

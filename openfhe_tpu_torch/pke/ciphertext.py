@@ -38,3 +38,9 @@ class Plaintext:
     scale: float = 1.0
     slots: int = 0
     values: Any = None                      # host view (numpy)
+    # log2 of the decryption noise seen (reference GetLogError), set by
+    # Decrypt under EXEC_NOISE_ESTIMATION
+    log_error: float = 0.0
+
+    def GetLogError(self) -> float:
+        return self.log_error

@@ -160,6 +160,24 @@ def _nearest_prime(target: float, order: int, used: set) -> int:
 DEFAULT_EXTRA_MOD_SIZE = 20
 
 
+def _ext_prime(ext_mod_size: int, order: int, used: set) -> int:
+    """FLEXIBLEAUTOEXT's extra top prime: the first (ext_mod_size - 1)-bit
+    prime = 1 mod order, as the JAX package picks it. From N = 2^13 on
+    there is none (the 19-bit range holds at most two candidates), where
+    the JAX package raises. The port then takes the first ext_mod_size-bit
+    prime = 1 mod order (786433 at N = 2^15 ... 2^17): a choice of the
+    port's own, backed by no reference, so there its chain is held only
+    against itself (fused against unfused) and against decryption limits.
+    Where the JAX package has a prime, the chains are equal."""
+    try:
+        q_ext = nbtheory.first_prime(ext_mod_size - 1, order)
+    except RuntimeError:
+        q_ext = nbtheory.first_prime(ext_mod_size, order)
+    while q_ext in used:
+        q_ext = nbtheory.next_prime(q_ext, order)
+    return q_ext
+
+
 def select_ckks_moduli(n: int, mult_depth: int, scaling_mod_size: int,
                        first_mod_size: int, forbidden=(),
                        flexible: bool = True, ext_mod_size: int = 0) -> list:
@@ -193,10 +211,7 @@ def select_ckks_moduli(n: int, mult_depth: int, scaling_mod_size: int,
             scf = float(q) if i == 0 else scf * scf / q
         chain = [q0] + drops[::-1]
         if ext_mod_size:
-            q_ext = nbtheory.first_prime(ext_mod_size - 1, order)
-            while q_ext in used:
-                q_ext = nbtheory.next_prime(q_ext, order)
-            chain.append(q_ext)
+            chain.append(_ext_prime(ext_mod_size, order, used))
         return chain
     chain = [q0]
     up = int(target) + 1
@@ -216,6 +231,52 @@ def select_ckks_moduli(n: int, mult_depth: int, scaling_mod_size: int,
         used.add(q)
         chain.append(q)
         log_drift += math.log2(q) - scaling_mod_size
+    return chain
+
+
+def select_ckks_moduli_composite(n: int, mult_depth: int,
+                                 scaling_mod_size: int, first_mod_size: int,
+                                 degree: int, forbidden=()) -> list:
+    """Composite-scaling chain (reference COMPOSITESCALING*,
+    ckksrns-parametergeneration.cpp:57-135): each level is a group of
+    `degree` word-sized primes whose product tracks the scaling factor
+    2^scaling_mod_size; the FLEXIBLE recurrence runs on group products,
+    scf[l+1] = scf[l]^2 / prod(group_l)."""
+    order = 2 * n
+    used = set(forbidden)
+
+    def pick_group_exact(target: float, count: int) -> list:
+        # log2(target) shared over `count` primes, each the nearest prime
+        # to its share of what is left, so the product stays anchored
+        group = []
+        rem_log = math.log2(target)
+        for i in range(count):
+            share_bits = rem_log / (count - i)
+            q = _nearest_prime(2.0 ** share_bits, order, used)
+            if q >= 1 << MAX_MODULUS_BITS:
+                raise ValueError("composite prime exceeded 31 bits")
+            used.add(q)
+            group.append(q)
+            rem_log -= math.log2(q)
+        return group
+
+    first = pick_group_exact(2.0 ** first_mod_size, degree)
+    target = 2.0 ** scaling_mod_size
+    groups = []
+    scf = None
+    for i in range(mult_depth):
+        t = target if i == 0 else scf * scf / target
+        g = pick_group_exact(t, degree)
+        prod = 1.0
+        for q in g:
+            prod *= q
+        scf = prod if i == 0 else scf * scf / prod
+        groups.append(g)
+    # [first group, level depth-1's group, ..., level 0's group]: the group
+    # made first (which anchors scf[0]) sits at the end and drops first
+    chain = list(first)
+    for g in groups[::-1]:
+        chain.extend(g)
     return chain
 
 

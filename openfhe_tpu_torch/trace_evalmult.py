@@ -16,7 +16,13 @@ EvalFastRotation by 1 on its digits: the hoisted rotation of
 and b, its key product and mod-down's arithmetic plain int64 torch),
 `encrypt` (public-key Encrypt of an encoded plaintext) or `decrypt`
 (Decrypt with the CKKS decode on the host). Several ops, comma-separated, share one
-context and are traced one after another. `--op
+context and are traced one after another. `--op logistic` builds the
+same chain under FLEXIBLEAUTO and traces EvalLogistic over [-1, 1] at
+degree 32 (`examples/function_evaluation.py`'s call) of a fresh
+ciphertext at level 0, `logistic119` EvalLogistic over [-8, 8] at degree
+119; both also print the host's time in the encodes of constant vectors
+(MakeCKKSPackedPlaintext: the FFT and CRT on the host, the upload and one
+`ntt_fwd`) per call and its share of the wall. `--op
 ginx` instead builds a BinFHE STD128 GINX context and traces 2 calls of
 EvalBinGate(AND) over a batch of 256 gates (a = i % 2, b = (i // 2) % 2),
 whose blind rotation is one launch of `csrc/blind_rotate.cu` between
@@ -49,7 +55,9 @@ import torch
 
 CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "rescale": 5,
          "fastrotation": 5, "encrypt": 5, "decrypt": 5, "ginx": 2,
-         "lmkcdey": 2, "sharded": 5}
+         "lmkcdey": 2, "sharded": 5, "logistic": 2, "logistic119": 2}
+# --op logistic / logistic119: (a, b, degree) of EvalLogistic
+LOGISTIC = {"logistic": (-1.0, 1.0, 32), "logistic119": (-8.0, 8.0, 119)}
 SHARDED_LEVEL = 3
 SHARDED_LIMB = 4
 GATE_BATCH = 256
@@ -84,7 +92,10 @@ def main(argv=None) -> int:
     worst = 0
     for name in ops:
         op = {"ginx": _ginx_op, "lmkcdey": _lmkcdey_op,
-              "sharded": _sharded_op}.get(name, lambda: _ckks_op(name))()
+              "sharded": _sharded_op,
+              "logistic": lambda: _logistic_op(name),
+              "logistic119": lambda: _logistic_op(name)}.get(
+                  name, lambda: _ckks_op(name))()
         worst = max(worst, _trace(name, op, CALLS[name]))
     return worst
 
@@ -96,6 +107,9 @@ def _trace(name: str, op, calls: int) -> int:
         op()
     torch.cuda.synchronize()
 
+    encodes = getattr(op, "encodes", None)
+    if encodes is not None:
+        encodes.update(s=0.0, n=0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -104,6 +118,11 @@ def _trace(name: str, op, calls: int) -> int:
     end.record()
     end.synchronize()
     wall_ms = start.elapsed_time(end) / calls
+    host = {}
+    if encodes is not None:
+        host = {"encodes_per_call": encodes["n"] // calls,
+                "encode_ms": encodes["s"] * 1e3 / calls,
+                "host_encode_share": encodes["s"] * 1e3 / calls / wall_ms}
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -121,7 +140,15 @@ def _trace(name: str, op, calls: int) -> int:
     own = [n for n in per_name
            if any(f"{o}(" in n or f"{o}<" in n for o in OWN)]
     own_ms = sum(per_name[n] for n in own)
+    # names cut to 60 characters; kernels sharing a cut name add up
+    by_kernel = collections.Counter()
+    for kname, n in launches.items():
+        by_kernel[kname[:60]] += n
     print(f"{name} wall {wall_ms:.3f} ms (CUDA events, mean of {calls})")
+    if host:
+        print(f"  host encodes: {host['encodes_per_call']} a call, "
+              f"{host['encode_ms']:.3f} ms ({host['host_encode_share']:.1%}"
+              " of the wall)")
     if not per_name:
         print("the profiler recorded no device time: busy share not measured")
         return 1
@@ -136,7 +163,9 @@ def _trace(name: str, op, calls: int) -> int:
         "plain_torch_ms": busy_ms - own_ms,
         "plain_torch_share": (busy_ms - own_ms) / busy_ms,
         "kernel_launches": sum(launches.values()) // calls,
-        "device": torch.cuda.get_device_name(0)}))
+        "launches_by_kernel": {k: v // calls
+                               for k, v in by_kernel.most_common()},
+        **host, "device": torch.cuda.get_device_name(0)}))
     return 0
 
 
@@ -211,6 +240,49 @@ def _ckks_context():
     pt = cc.MakeCKKSPackedPlaintext(z)
     a, b = cc.Encrypt(kp.public_key, pt), cc.Encrypt(kp.public_key, pt)
     return cc, kp, pt, a, b
+
+
+def _logistic_op(name: str):
+    """EvalLogistic of a fresh level-0 ciphertext on the main path's
+    chain under FLEXIBLEAUTO; the op carries the encodes' host time."""
+    import dataclasses
+
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch.pke.parameters import main_path_params
+
+    params = dataclasses.replace(
+        main_path_params(),
+        scaling_technique=fhe.ScalingTechnique.FLEXIBLEAUTO)
+    cc = fhe.GenCryptoContext(params, seed=17)
+    kp = cc.KeyGen()
+    cc.EvalMultKeyGen(kp.secret_key)
+    a, b, degree = LOGISTIC[name]
+    x = np.random.default_rng(0).uniform(a, b, size=cc.slots)
+    ct = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(x))
+    encodes = time_encodes(cc)
+
+    def op():
+        return cc.EvalLogistic(ct, a, b, degree)
+
+    op.encodes = encodes
+    return op
+
+
+def time_encodes(cc) -> dict:
+    """Make cc's MakeCKKSPackedPlaintext add the host seconds of each call
+    to the returned dict's "s" and one to its "n"."""
+    encodes = {"s": 0.0, "n": 0}
+    encode = cc.MakeCKKSPackedPlaintext
+
+    def timed_encode(*args, **kw):
+        t = time.perf_counter()
+        out = encode(*args, **kw)
+        encodes["s"] += time.perf_counter() - t
+        encodes["n"] += 1
+        return out
+
+    cc.MakeCKKSPackedPlaintext = timed_encode
+    return encodes
 
 
 def _ckks_op(name: str):

@@ -281,8 +281,13 @@ def test_convert_without_device_needs_a_gpu(jax_side):
             np.asarray(jax_side["kp"].secret_key.s_qp))
 
 
-def test_unported_options_raise():
-    p = dataclasses.replace(
-        _port_params(), scaling_technique=fhe.ScalingTechnique.FLEXIBLEAUTO)
+@pytest.mark.parametrize("option", [
+    dict(scheme=fhe.Scheme.BGVRNS_SCHEME, plaintext_modulus=65537),
+    dict(scheme=fhe.Scheme.BFVRNS_SCHEME, plaintext_modulus=65537),
+    dict(ks_technique=fhe.KeySwitchTechnique.BV)])
+def test_unported_options_raise(option):
+    """The options the port still lacks raise; every scaling technique and
+    noise-flooding decryption are ported (tests/test_torch_leveled.py)."""
+    p = dataclasses.replace(_port_params(), **option)
     with pytest.raises(NotImplementedError):
         fhe.GenCryptoContext(p, device="cpu")
