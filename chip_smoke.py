@@ -160,7 +160,32 @@ is not beside it. Phases, none of which catches its own failure:
    against its plain version and former form on the chain's level-0
    tables (`fused_cases`). Every decryption within the limits of the note
    below;
-8. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+8. the integer schemes and the extended basis, each of (a)-(d) counted
+   from its context's creation (or its first op) to its last op, every
+   oracle outside those windows: (a) BGV at the JAX repo's BGV benchmark
+   (`bench.py` `bench_bfvbgv`: N=2^15, depth 10, FLEXIBLEAUTO, t = 65537;
+   21 Q + 7 P towers, 3 digits): KeyGen, EvalMultKeyGen, rotation keys
+   +-1, MakePackedPlaintext, Encrypt, EvalMult (one launch of each kernel
+   of the mult chain, with t in the fused tables: K45's t^-1 and K6f's t;
+   MULT_KERNELS device kernels, all of csrc/), EvalMult by a plaintext,
+   EvalAdd, three EvalMults down the chain (each ModReduce two towers),
+   ModReduce, EvalRotate +1 and -1; every decryption equal to numpy mod
+   t; the chain and the rotation fused == unfused
+   (`dataclasses.replace(tabs, fused=None)`, the mod-down tables with t);
+   K6 and K6f with t against their twins and staged forms at level 0 and
+   level 4; (b) BFV at `bench_bfvbgv`'s N=2^14, depth 2, t = 65537 (6 Q +
+   2 P towers): EvalMult (the tensor product on kernels a, b and k, then
+   Relinearize on the general fused chain) and a second EvalMult under
+   HPS, HPSPOVERQLEVELED at depth 3 (its third product drops a tower) and
+   EncryptionTechnique EXTENDED, decryptions exact, Relinearize and the
+   second product fused == unfused; (c) BV key switching (digit_size 0,
+   one conversion a tower) on (a)'s chain: EvalMult and EvalRotate, exact;
+   (d) on phase 4's context, EvalFastRotationExt of the level-0 product
+   (scale 2^52) over rotations 1, 2, 3, summed by EvalAddExt, one
+   KeySwitchDown, then Rescale, held to EXT_SUM_TOL against the sum of
+   Rescale(EvalRotate) and the rotated decryption of Rescale(prod), and at
+   level 20 word for word against the port's plain path on the CPU;
+9. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 
 bound_ms is the least time the card could take for a call: the larger of
 its bytes (each input read once, each output written once) at 3.35 TB/s
@@ -410,6 +435,8 @@ ROT_RESID_TOL = 6e-2
 SUM_BATCH = 64
 SUM_TOL = 2e-2
 REPS = 20
+PROFILE_TRIES = 5
+PROFILE_LEAD_S = 0.05
 SPIN_CYCLES = 2_000_000   # about 1 ms at the H100's clock
 
 # phase 7: the leveled CKKS layer (FLEXIBLEAUTO at the main path's widths)
@@ -458,6 +485,20 @@ LEVELED_LIMITS = {
 # the noise allowance of each function call, added to `cheb_error`
 FUNC_NOISE = {"EvalLogistic": 1e-2, "EvalSin": 3e-2,
               "EvalLogistic wide": 1.5e-2}
+
+# phase 8: the integer schemes and the extended basis
+INT_SEED = 23
+BFV_LEVELED_DEPTH = 3     # its third product drops a tower (depth 2: none)
+EXT_ROTS = (1, 2, 3)
+EXT_CPU_LEVEL = 20        # the CPU twin's level: 11 Q towers, one digit
+# The extended-basis ladder runs at the product's scale 2^52 and is
+# rescaled once: against the sum of the three rotations of dec(Rescale(
+# prod)) it carries four rescale roundings (its own and one of each
+# rotation's operand), against the sum of three Rescale(EvalRotate(prod,
+# r)) four too, each at most 1.5e-3 a slot and about 3.3e-4 in std
+# (complex), so a max over 32768 slots near 4.5 std of the sum, ~3e-3:
+# twice MULT_TOL, the limit of one rotation's two roundings in phase 4.
+EXT_SUM_TOL = 2 * MULT_TOL
 
 
 def require(cond: bool, msg: str) -> None:
@@ -678,7 +719,7 @@ def fused_work(tabs, adds: int = 0) -> dict:
                          + adds * kql * n * 2),
         "ntt_submul_final": (WORD * n * 12 * kql,
                              ntt(2 * kql) + kql * n * (3 * MULMOD_OPS + 12)
-                             + 2 * kql * n * (SHOUP_OPS + 5)),
+                             + 2 * kql * n * (SHOUP_OPS + 5 + t_ops)),
     }
 
 
@@ -833,18 +874,32 @@ def count_launches(fn, names):
     return out, {k: _build.LAUNCHES[k] - before.get(k, 0) for k in names}
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, want: int | None = None) -> list:
     """The names of the device kernels one call of fn runs (torch.profiler,
-    after a call that warms up)."""
+    after a call that warms up). With `want`, a profile that records
+    fewer kernels is printed and taken again, up to PROFILE_TRIES
+    profiles: late in a long process the first two profiles of phase 8
+    recorded only the last of a BGV EvalMult's 6 kernels (the H100),
+    where the third profile, a fresh process and the trace recorded all
+    6; each profile waits PROFILE_LEAD_S on the host before fn. A profile
+    that records more is returned as it is, for the caller's check to
+    refuse."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [ev.name for ev in prof.events()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(PROFILE_LEAD_S)
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if want is None or len(names) >= want:
+            break
+        print(f"profile {attempt + 1} recorded {len(names)} device "
+              f"kernels, expected {want}: {[n[:60] for n in names]}")
+    return names
 
 
 def ntt_small_cases(gen) -> dict:
@@ -1815,6 +1870,299 @@ def leveled_phase(card, gen, names, cases, staged) -> dict:
     return res
 
 
+def rows_rolled(vals, r: int) -> np.ndarray:
+    """EvalRotate(r) of packed slots: each of the two rows of N / 2 slots
+    turns left by r."""
+    h = len(vals) // 2
+    return np.concatenate([np.roll(vals[:h], -r), np.roll(vals[h:], -r)])
+
+
+def ext_ladder(cc, ct) -> dict:
+    """EvalFastRotationExt of ct over EXT_ROTS on one set of hoisted
+    digits, summed by EvalAddExt, then one KeySwitchDown (and its first
+    element alone)."""
+    digits = cc.EvalFastRotationPrecompute(ct)
+    terms = [cc.EvalFastRotationExt(ct, r, digits) for r in EXT_ROTS]
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = cc.EvalAddExt(acc, term)
+    return dict(terms=terms, sum=acc, down=cc.KeySwitchDown(acc),
+                first=cc.KeySwitchDownFirstElement(acc))
+
+
+def integer_phase(card, gen, names, cases, staged, ckks) -> dict:
+    """The integer schemes and the extended basis (see the module
+    docstring, phase 8); raises on any fault. `ckks` holds phase 4's
+    context, secret key and level-0 product. Appends the K6 / K6f cases
+    with t to `cases` / `staged`."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.pke import parameters as prm
+    from openfhe_tpu_torch.pke.constants import (EncryptionTechnique,
+                                                 KeySwitchTechnique,
+                                                 MultiplicationTechnique)
+    from openfhe_tpu_torch.pke.keyswitch import ks_fused
+    from openfhe_tpu_torch.trace_evalmult import OWN
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(INT_SEED)
+    res = {"exact": {}, "same": {}, "per_mult": {}, "errors": {},
+           "seconds": {}}
+    launches = collections.Counter()
+
+    def counted_window(fn):
+        """fn() from a cleared counter; its launches join the phase's."""
+        _build.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        launches.update({k: _build.LAUNCHES[k] for k in names})
+        return out
+
+    def exact(label, cc, sk, ct, want):
+        t = cc.plaintext_modulus
+        got = np.asarray(cc.Decrypt(sk, ct).values)[:len(want)]
+        res["exact"][label] = ok = bool(np.array_equal(np.mod(got, t),
+                                                       np.mod(want, t)))
+        require(ok, f"{label}: decryption differs from numpy mod t")
+
+    def own_kernels(label, fn, want):
+        kernels = device_kernels(fn, want)
+        own = [k for k in kernels
+               if any(f"{o}(" in k or f"{o}<" in k for o in OWN)]
+        print(f"{label} on the card: {len(kernels)} device kernels, "
+              f"{len(own)} of csrc/")
+        require(len(kernels) == want == len(own),
+                f"{label} ran {len(kernels)} device kernels ({len(own)} of "
+                f"csrc/), expected {want}, all of csrc/")
+
+    # (a) BGV at bench_bfvbgv's widths
+    t0 = time.perf_counter()
+    bgv_params = prm.bgv_bench_params()
+
+    def bgv_run():
+        cc = fhe.GenCryptoContext(bgv_params, seed=INT_SEED)
+        kp = cc.KeyGen()
+        cc.EvalMultKeyGen(kp.secret_key)
+        cc.EvalRotateKeyGen(kp.secret_key, [1, -1])
+        n, t = cc.ring_dim, cc.plaintext_modulus
+        vals = [rng.integers(0, t, n) for _ in range(3)]
+        x, y, z = (cc.Encrypt(kp.public_key, cc.MakePackedPlaintext(v))
+                   for v in vals)
+        pt_w = cc.MakePackedPlaintext(vals[2])
+        prod, per = count_launches(lambda: cc.EvalMult(x, y), names)
+        chain = [prod, cc.EvalMult(prod, z)]      # each a ModReduce first
+        chain.append(cc.EvalMult(chain[1], x))
+        ops = {"EvalMult": prod, "EvalMult plaintext": cc.EvalMult(x, pt_w),
+               "EvalAdd": cc.EvalAdd(prod, z), "EvalMult x3": chain[2],
+               "ModReduce": cc.ModReduce(chain[2]),
+               "EvalRotate +1": cc.EvalRotate(x, 1),
+               "EvalRotate -1 at level 2": cc.EvalRotate(chain[1], -1)}
+        return cc, kp, vals, (x, y, z), ops, chain, per
+
+    cc, kp, vals, (x, y, z), ops, chain, per_bgv = counted_window(bgv_run)
+    sk = kp.secret_key
+    t = cc.plaintext_modulus
+    tabs0 = cc.hybrid_tables(cc.size_ql(0))
+    require((len(cc.moduli_q), len(cc.moduli_p), len(tabs0.parts))
+            == (21, 7, 3) and tabs0.fused is not None
+            and not tabs0.fused.t_is_one,
+            "unexpected BGV chain or fused tables without t")
+    u, v, w = vals
+    want = {"EvalMult": u * v, "EvalMult plaintext": u * w,
+            "EvalAdd": u * v + w, "EvalMult x3": u * v % t * w % t * u,
+            "ModReduce": u * v % t * w % t * u,
+            "EvalRotate +1": rows_rolled(u, 1),
+            "EvalRotate -1 at level 2": rows_rolled(u * v % t * w % t, -1)}
+    for op, out in ops.items():
+        exact(f"(a) BGV {op}", cc, sk, out, want[op])
+    unf = unfused_view(cc)
+    chain_u = [unf.EvalMult(x, y)]
+    chain_u += [unf.EvalMult(chain_u[0], z)]
+    chain_u += [unf.EvalMult(chain_u[1], x)]
+    for i, (a, b) in enumerate(zip(chain, chain_u)):
+        res["same"][f"(a) BGV EvalMult {i + 1}: fused == unfused"] = (
+            same_words(a, b) and a.scale_int == b.scale_int)
+    res["same"]["(a) BGV EvalRotate +1: fused == unfused"] = same_words(
+        ops["EvalRotate +1"], unf.EvalRotate(x, 1))
+    want_mult = {k: int(k in MULT_CHAIN) for k in names}
+    require(per_bgv == want_mult,
+            f"BGV EvalMult launches {per_bgv}, expected {want_mult}")
+    res["per_mult"]["bgv"] = per_bgv
+    own_kernels("BGV EvalMult", lambda: cc.EvalMult(x, y), MULT_KERNELS)
+    # K6 and K6f with t = 65537 at level 0 and a lower level, each beside
+    # its twin and its staged form
+    key = rand_key(gen, list(cc.moduli_q) + list(cc.moduli_p), cc.ring_dim)
+    for lvl in (0, 4):
+        tabs = cc.hybrid_tables(cc.size_ql(lvl)).fused
+        for name, case in fused_cases(
+                ks_fused, tabs, key, gen,
+                f"BGV level {lvl} ({tabs.kql} Q + {tabs.kp} P), t = {t}",
+                ("ntt_subscale", "ntt_submul_final")):
+            (staged if name in STAGED else cases)[name].append(case)
+            print(f"  {name:24s} {str(case['shape']):18s} {case['moduli']}:"
+                  f" kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f}"
+                  f" ms  bound {case['bound_ms']:.4f} ms ({case['bound_by']})"
+                  f"  max_abs_err {case['max_abs_err']}")
+    res["seconds"]["bgv"] = time.perf_counter() - t0
+    del cc, unf, ops, chain, chain_u, key, x, y, z
+    torch.cuda.empty_cache()
+
+    # (b) BFV at bench_bfvbgv's widths, HPSPOVERQLEVELED and EXTENDED
+    t0 = time.perf_counter()
+    bfv_params = prm.bfv_bench_params()
+    leveled = dataclasses.replace(
+        bfv_params, mult_depth=BFV_LEVELED_DEPTH,
+        multiplication_technique=MultiplicationTechnique.HPSPOVERQLEVELED)
+    extended = dataclasses.replace(
+        bfv_params, encryption_technique=EncryptionTechnique.EXTENDED)
+
+    def bfv_run():
+        out = {}
+        for label, params in (("HPS", bfv_params),
+                              ("HPSPOVERQLEVELED", leveled),
+                              ("EXTENDED", extended)):
+            cb = fhe.GenCryptoContext(params, seed=INT_SEED)
+            kb = cb.KeyGen()
+            cb.EvalMultKeyGen(kb.secret_key)
+            n, t = cb.ring_dim, cb.plaintext_modulus
+            vb = [rng.integers(0, t, n) for _ in range(3)]
+            cts = [cb.Encrypt(kb.public_key, cb.MakePackedPlaintext(a))
+                   for a in vb]
+            prod, per = count_launches(lambda: cb.EvalMult(cts[0], cts[1]),
+                                       names)
+            chain = [prod, cb.EvalMult(prod, cts[2])]
+            if label == "HPSPOVERQLEVELED":
+                chain.append(cb.EvalMult(chain[-1], cts[1]))
+            out[label] = (cb, kb, vb, cts, chain, per)
+        return out
+
+    bfv = counted_window(bfv_run)
+    for label, (cb, kb, vb, cts, chain, per) in bfv.items():
+        t = cb.plaintext_modulus
+        wants = [vb[0] * vb[1] % t, vb[0] * vb[1] % t * vb[2] % t,
+                 vb[0] * vb[1] % t * vb[2] % t * vb[1]]
+        for i, out in enumerate(chain):
+            exact(f"(b) BFV {label} EvalMult {i + 1}", cb, kb.secret_key,
+                  out, wants[i])
+        if label == "HPSPOVERQLEVELED":
+            from openfhe_tpu_torch.pke.schemes import bfv as bfv_mod
+            drops = [bfv_mod._find_levels_to_drop(cb, d)
+                     for d in range(len(chain))]
+            print(f"(b) BFV HPSPOVERQLEVELED depth {BFV_LEVELED_DEPTH}: "
+                  f"{len(cb.moduli_q)} Q towers, towers dropped before each "
+                  f"product {drops}")
+            require(max(drops) > 0, "HPSPOVERQLEVELED dropped no tower")
+    cb, kb, vb, cts, chain, per_bfv = bfv["HPS"]
+    require((len(cb.moduli_q), len(cb.moduli_p)) == (6, 2),
+            "unexpected BFV chain")
+    unf = unfused_view(cb)
+    tensor = cb.EvalMultNoRelin(cts[0], cts[1])
+    res["same"]["(b) BFV Relinearize: fused == unfused"] = same_words(
+        cb.Relinearize(tensor), unf.Relinearize(tensor))
+    res["same"]["(b) BFV EvalMult 2: fused == unfused"] = same_words(
+        chain[1], unf.EvalMult(chain[0], cts[2]))
+    want_bfv = {k: 0 for k in names}
+    want_bfv.update(ntt_fwd=2, ntt_inv=3, mod_matmul_rowmod=3,
+                    **{k: 1 for k in KS_CHAIN})
+    require(per_bfv == want_bfv,
+            f"BFV EvalMult launches {per_bfv}, expected {want_bfv}")
+    res["per_mult"]["bfv"] = per_bfv
+    res["seconds"]["bfv"] = time.perf_counter() - t0
+    del bfv, cb, unf, tensor, chain, cts
+    torch.cuda.empty_cache()
+
+    # (c) BV key switching on the BGV chain (digit_size 0: a digit a tower,
+    # each extended by one conversion)
+    t0 = time.perf_counter()
+    bv_params = dataclasses.replace(bgv_params,
+                                    ks_technique=KeySwitchTechnique.BV,
+                                    digit_size=0)
+
+    def bv_run():
+        cv = fhe.GenCryptoContext(bv_params, seed=INT_SEED)
+        kv = cv.KeyGen()
+        cv.EvalMultKeyGen(kv.secret_key)
+        cv.EvalRotateKeyGen(kv.secret_key, [1])
+        n, t = cv.ring_dim, cv.plaintext_modulus
+        vv = [rng.integers(0, t, n) for _ in range(2)]
+        xv, yv = (cv.Encrypt(kv.public_key, cv.MakePackedPlaintext(a))
+                  for a in vv)
+        prod, per = count_launches(lambda: cv.EvalMult(xv, yv), names)
+        return cv, kv, vv, prod, cv.EvalRotate(xv, 1), per
+
+    cv, kv, vv, prod_v, rot_v, per_bv = counted_window(bv_run)
+    require(cv.moduli_p == [] and len(cv.moduli_q) == 21,
+            "unexpected BV chain")
+    t = cv.plaintext_modulus
+    exact("(c) BV EvalMult", cv, kv.secret_key, prod_v, vv[0] * vv[1])
+    exact("(c) BV EvalRotate +1", cv, kv.secret_key, rot_v,
+          rows_rolled(vv[0], 1))
+    kq = len(cv.moduli_q)
+    want_bv = {k: 0 for k in names}
+    want_bv.update(ntt_fwd=kq, ntt_inv=kq, mod_matmul_rowmod=kq)
+    require(per_bv == want_bv,
+            f"BV EvalMult launches {per_bv}, expected {want_bv}")
+    res["per_mult"]["bv"] = per_bv
+    res["seconds"]["bv"] = time.perf_counter() - t0
+    del cv, prod_v, rot_v
+    torch.cuda.empty_cache()
+
+    # (d) the extended basis on phase 4's context (N=2^16, L=30)
+    t0 = time.perf_counter()
+    cm, skm, prod = ckks["cc"], ckks["sk"], ckks["prod"]
+    cm.EvalRotateKeyGen(skm, list(EXT_ROTS))
+    ladder = counted_window(lambda: ext_ladder(cm, prod))
+    decv = lambda c: np.asarray(cm.Decrypt(skm, c).values)
+    got = decv(cm.Rescale(ladder["down"]))
+    rot_sum = sum(decv(cm.Rescale(cm.EvalRotate(prod, r)))
+                  for r in EXT_ROTS)
+    base = decv(cm.Rescale(prod))
+    roll_sum = sum(np.roll(base, -r) for r in EXT_ROTS)
+    res["errors"]["(d) ladder vs sum of EvalRotate"] = e1 = float(
+        np.abs(got - rot_sum).max())
+    res["errors"]["(d) ladder vs rotated dec(Rescale(prod))"] = e2 = float(
+        np.abs(got - roll_sum).max())
+    require(max(e1, e2) <= EXT_SUM_TOL,
+            f"extended-basis ladder error {e1:.3e} / {e2:.3e} above "
+            f"{EXT_SUM_TOL}")
+    res["same"]["(d) KeySwitchDownFirstElement == KeySwitchDown[0]"] = (
+        torch.equal(ladder["first"], ladder["down"].elements[0]))
+    res["same"]["(d) metadata ext_basis"] = (
+        ladder["sum"].GetMetadataByKey("ext_basis") is True
+        and ladder["down"].GetMetadataByKey("ext_basis") is False)
+    low = cm.LevelReduce(prod, EXT_CPU_LEVEL)
+    card_low = ext_ladder(cm, low)
+    cpu, on_cpu = cpu_twin(cm, 7)
+    cpu_low = ext_ladder(cpu, on_cpu(low))
+    for key in ("sum", "down"):
+        res["same"][f"(d) level {EXT_CPU_LEVEL} {key}: card == CPU"] = (
+            same_words(card_low[key], cpu_low[key]))
+    res["same"][f"(d) level {EXT_CPU_LEVEL} terms: card == CPU"] = all(
+        same_words(a, b) for a, b in zip(card_low["terms"],
+                                         cpu_low["terms"]))
+    res["seconds"]["ext"] = time.perf_counter() - t0
+    del cpu, cpu_low, card_low, ladder
+    torch.cuda.empty_cache()
+
+    res["launches"] = {k: launches[k] for k in names}
+    print(f"integer phase per EvalMult: BGV {per_bgv}; BFV {per_bfv}; "
+          f"BV { {k: n for k, n in per_bv.items() if n} }")
+    print(f"integer phase launches (fused runs only): "
+          f"{ {k: n for k, n in res['launches'].items() if n} }")
+    require(not any(res["launches"][k] for k in STAGED),
+            f"the integer phase ran a staged form: {res['launches']}")
+    print(f"integer phase exact decryptions: {res['exact']}")
+    print(f"integer phase extended-basis errors (limit {EXT_SUM_TOL}): "
+          f"{res['errors']}")
+    print(f"integer phase words equal: {res['same']}")
+    require(all(res["same"].values()),
+            f"integer phase words differ: "
+            f"{[k for k, v in res['same'].items() if not v]}")
+    res["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"integer phase: {res['seconds']['phase']:.1f} s "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in res['seconds'].items())})")
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -2181,7 +2529,8 @@ def main() -> int:
             f"{want_mult}")
     from openfhe_tpu_torch.trace_evalmult import OWN
     prod3 = cc.EvalMultNoRelin(ct_a, ct_b)
-    mult_kernels = device_kernels(lambda: cc.EvalMult(ct_a, ct_b))
+    mult_kernels = device_kernels(lambda: cc.EvalMult(ct_a, ct_b),
+                                  MULT_KERNELS)
     own = [k for k in mult_kernels
            if any(f"{o}(" in k or f"{o}<" in k for o in OWN)]
     short = lambda k: (re.search(r"::(\w+(?:<[^<>]*>)?)\(", k)
@@ -2191,7 +2540,8 @@ def main() -> int:
     require(len(mult_kernels) == MULT_KERNELS == len(own),
             f"EvalMult ran {len(mult_kernels)} device kernels ({len(own)} "
             f"of csrc/), expected {MULT_KERNELS}, all of csrc/")
-    relin_kernels = device_kernels(lambda: cc.Relinearize(prod3))
+    relin_kernels = device_kernels(lambda: cc.Relinearize(prod3),
+                                   RELIN_KERNELS)
     own = [k for k in relin_kernels
            if any(f"{o}(" in k or f"{o}<" in k for o in OWN)]
     print(f"Relinearize on the card: {len(relin_kernels)} device kernels, "
@@ -2277,7 +2627,13 @@ def main() -> int:
     logistic119 = per_call[
         f"EvalLogistic [-8, 8] degree {LOGISTIC_WIDE[2]}"]
 
-    # 8. the kernels line, then the device line
+    # 8. the integer schemes and the extended basis, counted over their
+    # runs
+    integer = integer_phase(card, gen, names, cases, staged,
+                            dict(cc=cc, sk=sk, prod=prod))
+    per_int = integer["per_mult"]
+
+    # 9. the kernels line, then the device line
     kernels = []
     for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
@@ -2296,6 +2652,10 @@ def main() -> int:
             launches_leveled_phase=leveled["launches"][name],
             launches_per_logistic32=logistic32.get(name, 0),
             launches_per_logistic119=logistic119.get(name, 0),
+            launches_integer_phase=integer["launches"][name],
+            launches_per_bgv_mult=per_int["bgv"].get(name, 0),
+            launches_per_bfv_mult=per_int["bfv"].get(name, 0),
+            launches_per_bv_mult=per_int["bv"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -2329,7 +2689,9 @@ def main() -> int:
                           "seconds")},
                       "leveled": {k: leveled[k] for k in (
                           "calls", "errors", "limits", "deepest_level",
-                          "seconds")}}))
+                          "seconds")},
+                      "integer": {k: integer[k] for k in (
+                          "exact", "errors", "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -63,8 +63,8 @@ SOURCES = {
                  "intt_conv_p_staged": [_P] * 11 + [_I] * 3 + [_P],
                  "ntt_subscale": [_P] * 12 + [_I] * 4 + [_P],
                  "ntt_subscale_staged": [_P] * 13 + [_I] * 4 + [_P],
-                 "ntt_submul_final": [_P] * 13 + [_I] * 4 + [_P],
-                 "ntt_submul_final_staged": [_P] * 13 + [_I] * 4 + [_P]},
+                 "ntt_submul_final": [_P] * 15 + [_I] * 5 + [_P],
+                 "ntt_submul_final_staged": [_P] * 15 + [_I] * 5 + [_P]},
     "blind_rotate": {"blind_rotate_cggi": [_P] * 14 + [_I] * 6 + [_P],
                      "blind_rotate_dm": [_P] * 13 + [_I] * 6 + [_P],
                      "blind_rotate_lmkcdey": [_P] * 14 + [_I] * 6 + [_P]},

@@ -6,7 +6,9 @@ device, `cuda` unless another is named (they raise when there is no GPU,
 as the context does), and `to_numpy` turns the port's int32 tensors back
 into uint32 words. Keys and encryptions are random and the two packages'
 RNGs never agree, so word-exact comparisons feed JAX-made keys and
-ciphertexts into the port through this module. The `lwe_*`,
+ciphertexts into the port through this module: CKKS, BGV and BFV
+ciphertexts with their metadata (`ciphertext_from_numpy`), plaintexts
+(`plaintext_from_numpy`), hybrid and BV key-switch keys. The `lwe_*`,
 `switching_key_*` and `bt_key_*` functions carry BinFHE state.
 """
 
@@ -18,7 +20,7 @@ from openfhe_tpu_torch._device import resolve_device
 from openfhe_tpu_torch.binfhe import lwe
 from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD
 from openfhe_tpu_torch.math.modops import to_u32, u32_tensor
-from openfhe_tpu_torch.pke.ciphertext import Ciphertext
+from openfhe_tpu_torch.pke.ciphertext import Ciphertext, Plaintext
 from openfhe_tpu_torch.pke.keys import EvalKey, PrivateKey, PublicKey
 from openfhe_tpu_torch.pke.keyswitch.hybrid import shoup_companions
 
@@ -53,6 +55,18 @@ def eval_key_from_numpy(bv, av, key_tag: str = "", device=None, bv_sh=None,
     return shoup_companions(ek, moduli_qp)
 
 
+def bv_key_from_numpy(bv, av, key_tag: str = "", device=None, bv_sh=None,
+                      av_sh=None) -> EvalKey:
+    """A BV key-switch key in `bv.keyswitch_gen`'s layout: bv, av
+    [rows, kQ, N] uint32 words, a row per tower (digit_size 0) or per
+    (tower, digit) pair. BV's key product needs no Shoup companions; they
+    are kept where given (digit_size 0 keys have them)."""
+    dev = resolve_device(device)
+    sh = [None if v is None else u32_tensor(v, dev) for v in (bv_sh, av_sh)]
+    return EvalKey(bv=u32_tensor(bv, dev), av=u32_tensor(av, dev),
+                   bv_sh=sh[0], av_sh=sh[1], key_tag=key_tag)
+
+
 def eval_key_map_from_numpy(key_map, key_tag: str | None = None,
                             device=None, moduli_qp=None) -> dict:
     """An automorphism key map {g: key} -> {g: EvalKey} on a device. Each
@@ -72,12 +86,39 @@ def eval_key_map_from_numpy(key_map, key_tag: str | None = None,
 
 def ciphertext_from_numpy(elements, level: int = 0, noise_deg: int = 1,
                           scale: float = 1.0, slots: int = 0,
-                          key_tag: str = "", device=None) -> Ciphertext:
-    """elements: a sequence of [k, N] uint32 EVAL words."""
+                          key_tag: str = "", device=None,
+                          encoding: str = "CKKS_PACKED", scale_int: int = 1,
+                          metadata=()) -> Ciphertext:
+    """elements: a sequence of [k, N] uint32 EVAL words; the rest is the
+    JAX ciphertext's metadata (BGV's `scale_int`, the metadata map's
+    (key, value) pairs)."""
     dev = resolve_device(device)
     return Ciphertext(elements=tuple(u32_tensor(e, dev) for e in elements),
                       level=level, noise_deg=noise_deg, scale=scale,
-                      slots=slots, key_tag=key_tag)
+                      slots=slots, key_tag=key_tag, encoding=encoding,
+                      scale_int=int(scale_int), metadata=tuple(metadata))
+
+
+def ciphertext_from_jax(ct, device=None) -> Ciphertext:
+    """A JAX package Ciphertext (anything with its fields) on a device."""
+    return ciphertext_from_numpy(
+        [np.asarray(e) for e in ct.elements], level=ct.level,
+        noise_deg=ct.noise_deg, scale=ct.scale, slots=ct.slots,
+        key_tag=ct.key_tag, device=device, encoding=ct.encoding,
+        scale_int=ct.scale_int, metadata=ct.metadata)
+
+
+def plaintext_from_numpy(poly, fmt: int = 1, level: int = 0,
+                         noise_deg: int = 1, scale: float = 1.0,
+                         slots: int = 0, encoding: str = "CKKS_PACKED",
+                         values=None, scale_int: int = 1,
+                         device=None) -> Plaintext:
+    """poly: [k, N] uint32 words (EVAL when fmt is 1); the rest is the
+    JAX plaintext's metadata."""
+    return Plaintext(poly=u32_tensor(poly, resolve_device(device)), fmt=fmt,
+                     level=level, noise_deg=noise_deg, scale=scale,
+                     slots=slots, encoding=encoding, values=values,
+                     scale_int=int(scale_int))
 
 
 def _i32(x, dev):

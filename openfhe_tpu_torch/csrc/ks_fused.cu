@@ -22,7 +22,10 @@
 //                     an optional addend per element (the caller's final
 //                     add of Relinearize, KeySwitch and the automorphisms)
 //   ntt_submul_final  replaces _ntt_submul_final (K6f, :802):
-//                     (ext - NTT(convq)) * P^-1 plus the tensor terms
+//                     (ext - t * NTT(convq)) * P^-1 plus the tensor
+//                     terms, t = 1 for CKKS (BGV's EvalMult passes its
+//                     plaintext modulus: K45's scale carries t^-1, so the
+//                     mod-down must multiply by t again, as K6 does)
 //   tensor_intt_staged, intt_scale_staged, ntt_keymul_acc_staged,
 //   intt_conv_p_staged, ntt_subscale_staged, ntt_submul_final_staged:
 //                     K1t, K1/K4, K3, K45, K6 and K6f on the staged NTT
@@ -82,8 +85,8 @@
 //     then an epilogue on the thread's 16 output words that reads ext (and
 //     K6f's inputs, K6's addend) at the same words with 16-byte loads and
 //     writes out: K6 the optional t multiply, the mod-down and the addend,
-//     K6f the element's tensor term and the mod-down. No scratch, 4
-//     launches become 1.
+//     K6f the optional t multiply, the element's tensor term and the
+//     mod-down. No scratch, 4 launches become 1.
 //   * K2 is pconv too, a digit per blockIdx.y with its own weights: it
 //     reads the digit's rows of y in place (no zero-padded copy) and
 //     writes the digit's own rows as zeros without forming a product.
@@ -160,8 +163,8 @@ __global__ void tensor_intt_tile(const uint32_t* __restrict__ a1,
 // K6f's staged tile pass, one (tile, Q tower) per block: c0 = a0 b0 and
 // c1 = (a0 + a1)(b0 + b1) - c0 - a1 b1 in registers, then per element e
 // the last forward stages of src[e, tau] and
-// out[e] = c_e + (ext[e, tau] - NTT(convq[e])) * P^-1, ext: [2, ext_rows,
-// N] from the first row read.
+// out[e] = c_e + (ext[e, tau] - t * NTT(convq[e])) * P^-1 (the t multiply
+// only when t_mul), ext: [2, ext_rows, N] from the first row read.
 __global__ void submul_tile(const uint32_t* __restrict__ src,
                             const uint32_t* __restrict__ ext,
                             const uint32_t* __restrict__ a0,
@@ -172,9 +175,12 @@ __global__ void submul_tile(const uint32_t* __restrict__ src,
                             const uint32_t* __restrict__ psi,
                             const uint32_t* __restrict__ psi_sh,
                             const uint32_t* __restrict__ qs,
+                            const uint32_t* __restrict__ t,
+                            const uint32_t* __restrict__ t_sh,
                             const uint32_t* __restrict__ pinv,
                             const uint32_t* __restrict__ pinv_sh, int kql,
-                            int ext_rows, int log_n, int log_tile) {
+                            int ext_rows, int t_mul, int log_n,
+                            int log_tile) {
   __shared__ uint32_t s[1 << kMaxTileLog];
   const int tau = blockIdx.y;
   const uint32_t tile = blockIdx.x;
@@ -184,6 +190,7 @@ __global__ void submul_tile(const uint32_t* __restrict__ src,
   const size_t base = tw0 + col0;
   const uint32_t q = qs[tau];
   const uint32_t pv = pinv[tau], pv_sh = pinv_sh[tau];
+  const uint32_t tv = t_mul ? t[tau] : 0, tv_sh = t_mul ? t_sh[tau] : 0;
   uint32_t cs[2][kTileWords];
 #pragma unroll
   for (int w = 0; w < kTileWords; ++w) {
@@ -212,7 +219,9 @@ __global__ void submul_tile(const uint32_t* __restrict__ src,
     for (int w = 0; w < kTileWords; ++w) {
       const uint32_t x = threadIdx.x + w * blockDim.x;
       if (x < size) {
-        const uint32_t d = mul_shoup(sub_mod(xe[x], s[x], q), pv, pv_sh, q);
+        uint32_t v = s[x];
+        if (t_mul) v = mul_shoup(v, tv, tv_sh, q);      // block-uniform
+        const uint32_t d = mul_shoup(sub_mod(xe[x], v, q), pv, pv_sh, q);
         oe[x] = add_mod(cs[e][w], d, q);
       }
     }
@@ -302,15 +311,18 @@ struct SubmulArgs {
   const uint32_t* psi;       // [kql, N]
   const uint32_t* psi_sh;
   const uint32_t* qs;        // [kql]
+  const uint32_t* t;         // [kql] t mod q_i, read when t_mul
+  const uint32_t* t_sh;
   const uint32_t* pinv;      // [kql] P^-1 mod q_i
   const uint32_t* pinv_sh;
   const uint32_t* red;       // [kql, 3] Basis.red64
-  int kql, ext_rows, ext_off;
+  int kql, ext_rows, ext_off, t_mul;
 };
 
 // One element of K6f in a cluster: the forward transform of convq[E, tau]
 // and the epilogue on each thread's kR consecutive output words a at row
-// word x: out[E, tau] = c_E + (ext[E, ext_off + tau] - a) * P^-1, where
+// word x: out[E, tau] = c_E + (ext[E, ext_off + tau] - t a) * P^-1 (t a
+// by a Shoup multiply, only when t_mul, uniform over the cluster), where
 // c_0 = a0 b0 and c_1 = a0 b1 + a1 b0 (equal mod q to the Karatsuba form
 // (a0 + a1)(b0 + b1) - a0 b0 - a1 b1 of the TPU kernel, which shares c0
 // with element 0; here each element has its own cluster, and two
@@ -330,6 +342,11 @@ __device__ __forceinline__ void submul_row(const SubmulArgs& p, int tau,
     uint32_t* oe =
         p.out + ((static_cast<size_t>(E) * p.kql + tau) << LOG_N);
     const uint32_t pv = p.pinv[tau], pv_sh = p.pinv_sh[tau];
+    uint32_t tv = 0, tv_sh = 0;
+    if (p.t_mul) {
+      tv = p.t[tau];
+      tv_sh = p.t_sh[tau];
+    }
     const uint32_t r32 = p.red[3 * tau], r32_sh = p.red[3 * tau + 1],
                    m32 = p.red[3 * tau + 2];
 #pragma unroll
@@ -352,8 +369,9 @@ __device__ __forceinline__ void submul_row(const SubmulArgs& p, int tau,
           s = static_cast<uint64_t>(p0.v[l]) * q1.v[l] +
               static_cast<uint64_t>(p1.v[l]) * q0.v[l];
         const uint32_t c = reduce_wide(s, q, r32, r32_sh, m32);
-        const uint32_t d =
-            mul_shoup_q(sub_q(xv.v[l], a[4 * v + l], q), pv, pv_sh, q);
+        uint32_t w = a[4 * v + l];
+        if (p.t_mul) w = mul_shoup_q(w, tv, tv_sh, q);
+        const uint32_t d = mul_shoup_q(sub_q(xv.v[l], w, q), pv, pv_sh, q);
         r[l] = add_q(c, d, q);
       }
       *reinterpret_cast<uint4*>(oe + x + 4 * v) =
@@ -847,18 +865,20 @@ extern "C" int ntt_subscale_staged(const void* convq, const void* ext,
 // convq: [2, kql, N] COEFF; ext: [2, ext_rows, N] EVAL, of which rows
 // ext_off .. ext_off + kql - 1 are read (in place: the sharded path passes
 // the gathered ext); a0, a1, b0, b1: [kql, N] EVAL; out: [2, kql, N];
-// psi(_sh): [kql, N]; q, pinv(_sh): [kql] with pinv = P^-1 mod q_i; red:
-// [kql, 3] (Basis.red64). One launch of submul_cluster; refuses rings
+// psi(_sh): [kql, N]; q, t(_sh), pinv(_sh): [kql] with t = ns_int mod q_i
+// (multiplied only when t_mul) and pinv = P^-1 mod q_i; red: [kql, 3]
+// (Basis.red64). One launch of submul_cluster; refuses rings
 // outside 2^4 .. 2^17 (ntt_submul_final_staged serves them) and operands
 // off a 16-byte boundary.
 extern "C" int ntt_submul_final(const void* convq, const void* ext,
                                 const void* a0, const void* a1,
                                 const void* b0, const void* b1, void* out,
                                 const void* psi, const void* psi_sh,
-                                const void* q, const void* pinv,
+                                const void* q, const void* t,
+                                const void* t_sh, const void* pinv,
                                 const void* pinv_sh, const void* red,
                                 int kql, int ext_rows, int ext_off,
-                                int log_n, void* stream) {
+                                int t_mul, int log_n, void* stream) {
   if (int bad = check_cluster(convq, out, 2 * kql, kql, log_n)) return bad;
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(ext) | reinterpret_cast<uintptr_t>(a0) |
@@ -869,8 +889,9 @@ extern "C" int ntt_submul_final(const void* convq, const void* ext,
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
   const SubmulArgs args = {in(convq), in(ext), in(a0), in(a1), in(b0),
                            in(b1), static_cast<uint32_t*>(out), in(psi),
-                           in(psi_sh), in(q), in(pinv), in(pinv_sh), in(red),
-                           kql, ext_rows, ext_off};
+                           in(psi_sh), in(q), in(t), in(t_sh), in(pinv),
+                           in(pinv_sh), in(red), kql, ext_rows, ext_off,
+                           t_mul};
   return launch_cluster(submul_kernel(log_n, ClusterRings{}),
                         &submul_placeable[log_n], 2 * kql, log_n,
                         static_cast<cudaStream_t>(stream), args);
@@ -878,17 +899,18 @@ extern "C" int ntt_submul_final(const void* convq, const void* ext,
 
 // The same function on the staged NTT passes, any ring: the forward
 // stages of ntt_core.cuh over both elements' rows into scratch ([2, kql,
-// N]), then submul_tile; the arguments of ntt_submul_final with scratch in
-// place of red.
+// N]), then submul_tile; the arguments of ntt_submul_final with scratch
+// before out and no red.
 extern "C" int ntt_submul_final_staged(const void* convq, const void* ext,
                                        const void* a0, const void* a1,
                                        const void* b0, const void* b1,
                                        void* scratch, void* out,
                                        const void* psi, const void* psi_sh,
-                                       const void* q, const void* pinv,
+                                       const void* q, const void* t,
+                                       const void* t_sh, const void* pinv,
                                        const void* pinv_sh, int kql,
-                                       int ext_rows, int ext_off, int log_n,
-                                       void* stream) {
+                                       int ext_rows, int ext_off, int t_mul,
+                                       int log_n, void* stream) {
   if (int bad = check_shape(2 * kql, kql, log_n)) return bad;
   if (ext_off < 0 || ext_rows < ext_off + kql)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -908,7 +930,9 @@ extern "C" int ntt_submul_final_staged(const void* convq, const void* ext,
       static_cast<const uint32_t*>(a0), static_cast<const uint32_t*>(a1),
       static_cast<const uint32_t*>(b0), static_cast<const uint32_t*>(b1),
       static_cast<uint32_t*>(out), w, w_sh, qs,
+      static_cast<const uint32_t*>(t), static_cast<const uint32_t*>(t_sh),
       static_cast<const uint32_t*>(pinv),
-      static_cast<const uint32_t*>(pinv_sh), kql, ext_rows, log_n, log_tile);
+      static_cast<const uint32_t*>(pinv_sh), kql, ext_rows, t_mul, log_n,
+      log_tile);
   return static_cast<int>(cudaGetLastError());
 }

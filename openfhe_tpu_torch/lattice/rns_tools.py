@@ -73,21 +73,37 @@ def _accumulate_converted(y: torch.Tensor, tab: SwitchTables,
 
 @dataclasses.dataclass(frozen=True)
 class ModDownTables:
-    """P -> Q mod-down: switch tables for P->Q plus P^{-1} mod q_i."""
+    """P -> Q mod-down: switch tables for P->Q plus P^{-1} mod q_i.
+
+    With BGV's noise scale t != 1 the rounding error must stay divisible
+    by t (reference ApproxModDown's tInvModp / t arguments): the P part is
+    multiplied by t^{-1} mod p_i before the conversion and by t mod q_i
+    after it (`tinv_modp`, `t_modq`; None when t = 1)."""
     switch: SwitchTables
     pinv_modq: torch.Tensor
     pinv_modq_sh: torch.Tensor
+    tinv_modp: torch.Tensor | None = None
+    tinv_modp_sh: torch.Tensor | None = None
+    t_modq: torch.Tensor | None = None
+    t_modq_sh: torch.Tensor | None = None
 
 
-def make_mod_down_tables(p_moduli, q_moduli, device="cpu") -> ModDownTables:
+def make_mod_down_tables(p_moduli, q_moduli, device="cpu",
+                         t: int = 1) -> ModDownTables:
     big_p = 1
     for p in p_moduli:
         big_p *= p
     c, c_sh = mo.shoup_pair([pow(big_p % q, -1, q) for q in q_moduli],
                             q_moduli, device)
+    kw = {}
+    if t != 1:
+        a, a_sh = mo.shoup_pair([pow(t % p, -1, p) for p in p_moduli],
+                                p_moduli, device)
+        b, b_sh = mo.shoup_pair([t % q for q in q_moduli], q_moduli, device)
+        kw = dict(tinv_modp=a, tinv_modp_sh=a_sh, t_modq=b, t_modq_sh=b_sh)
     return ModDownTables(
         switch=make_switch_tables(p_moduli, q_moduli, device),
-        pinv_modq=c, pinv_modq_sh=c_sh)
+        pinv_modq=c, pinv_modq_sh=c_sh, **kw)
 
 
 def approx_mod_down(x_q: torch.Tensor, x_p: torch.Tensor, q_basis: Basis,
@@ -99,7 +115,12 @@ def approx_mod_down(x_q: torch.Tensor, x_p: torch.Tensor, q_basis: Basis,
     [..., kq, N] in `fmt`.
     """
     x_p_coeff = ntt_inv(x_p, p_basis) if fmt == EVAL else x_p
+    if tab.tinv_modp is not None:
+        x_p_coeff = mo.mul_mod_shoup(x_p_coeff, tab.tinv_modp,
+                                     tab.tinv_modp_sh, p_basis.q)
     conv = switch_crt_basis_approx(x_p_coeff, p_basis, q_basis, tab.switch)
+    if tab.t_modq is not None:
+        conv = mo.mul_mod_shoup(conv, tab.t_modq, tab.t_modq_sh, q_basis.q)
     if fmt == EVAL:
         conv = ntt_fwd(conv, q_basis)
     diff = mo.sub_mod(x_q, conv, q_basis.q)

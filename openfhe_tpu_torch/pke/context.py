@@ -1,6 +1,6 @@
-"""CryptoContext: the user-facing FHE API (CKKS subset).
+"""CryptoContext: the user-facing FHE API.
 
-Counterpart of the CKKS part of `openfhe_tpu/pke/context.py` (reference
+Counterpart of `openfhe_tpu/pke/context.py` (reference
 analog: cryptocontext.h). The context is a host object holding the bases,
 the conversion tables (built lazily per level) and the key stores, all on
 one device. Method names mirror the reference.
@@ -27,12 +27,23 @@ EvalInnerProduct), EvalLinearWSum, EvalMerge, the power-basis polynomials
 and the Chebyshev series with EvalChebyshevFunction, EvalSin, EvalCos,
 EvalLogistic and EvalDivide.
 
-Not ported (NotImplementedError or absent): BGV and BFV, BV key
-switching, the extended-basis ops (KeySwitchExt, EvalFastRotationExt,
-KeySwitchDown), EvalHermiteTrigSeries, JitPipeline, serialization,
-multiparty, PRE, the bootstrap and scheme switching. Ciphertexts of three
-or more elements are refused where the JAX package reads two and drops
-the rest.
+The integer schemes: BGV (`schemes/bgv.py`: its chain, ModReduce by
+`bgv_drops_per_level` towers with the message factor in `scale_int`, the
+factor's alignment of two operands) and BFV (`schemes/bfv.py`: the exact
+RNS tensor product under every MultiplicationTechnique, STANDARD and
+EXTENDED encryption), the packed, coefficient and string encodings
+(`encoding/packed.py`), and BV key switching (`keyswitch/bv.py`) beside
+HYBRID for every scheme. BGV's noise scale t reaches the keys, the
+encryptions and every key switch's tables; its EvalMult runs the fused
+mult chain with t. The extended-basis family: KeySwitchExt,
+EvalFastRotationExt, EvalAddExt / EvalSubExt, KeySwitchDown and
+KeySwitchDownFirstElement, and SparseKeyGen.
+
+Not ported (NotImplementedError or absent): EvalHermiteTrigSeries,
+JitPipeline, serialization, multiparty (NOISE_FLOODING_MULTIPARTY raises
+for BGV and BFV), PRE, the bootstrap and scheme switching. Ciphertexts of
+three or more elements are refused where the JAX package reads two and
+drops the rest.
 
 Devices are explicit: the context's tensors live on `device`, `cuda` when
 None (it raises if there is no GPU). Randomness comes from one
@@ -62,14 +73,18 @@ from openfhe_tpu_torch.pke import parameters as prm
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext, Plaintext
 from openfhe_tpu_torch.math import sampling
 from openfhe_tpu_torch.pke.constants import (DecryptionNoiseMode,
+                                             EncryptionTechnique,
                                              ExecutionMode,
                                              KeySwitchTechnique,
                                              PKESchemeFeature,
-                                             ScalingTechnique, Scheme)
+                                             PlaintextEncodings,
+                                             ScalingTechnique, Scheme,
+                                             SecretKeyDist)
 from openfhe_tpu_torch.pke.encoding import ckks_packed
+from openfhe_tpu_torch.pke.encoding.packed import coef_encode, string_encode
 from openfhe_tpu_torch.pke.keys import EvalKey, KeyPair, PrivateKey, PublicKey
-from openfhe_tpu_torch.pke.keyswitch import hybrid, ks_fused
-from openfhe_tpu_torch.pke.schemes import rns_pke
+from openfhe_tpu_torch.pke.keyswitch import bv, hybrid, ks_fused
+from openfhe_tpu_torch.pke.schemes import bfv, bgv, rns_pke
 
 
 def mult_relin_hybrid(a0, a1, b0, b1, ek: EvalKey,
@@ -89,34 +104,14 @@ def mult_relin_hybrid(a0, a1, b0, b1, ek: EvalKey,
     c2 = mo.mul_mod(a1, b1, q)
     cross = mo.mul_mod(mo.add_mod(a0, a1, q), mo.add_mod(b0, b1, q), q)
     c1 = mo.sub_mod(mo.sub_mod(cross, c0, q), c2, q)
-    return relin_hybrid(c0, c1, c2, ek, tabs)
-
-
-def relin_hybrid(e0, e1, e2, ek: EvalKey, tabs: hybrid.HybridTables):
-    """(e0, e1, e2) -> (e0 + d0, e1 + d1) with (d0, d1) the key switch of
-    e2, as the JAX package's `_k_relin_hybrid`."""
-    return hybrid.keyswitch_core(e2, ek, tabs, e0, e1)
-
-
-def automorph_hybrid(elems, idx: torch.Tensor, ek: EvalKey,
-                     tabs: hybrid.HybridTables):
-    """sigma_g of a 2-element ciphertext, as the JAX package's
-    `_k_automorph_hybrid`: both elements gathered with the EVAL table
-    `idx`, the second key-switched from s(X^g) back to s, its first half
-    added to the first."""
-    rot = [torch.index_select(c, -1, idx) for c in elems]
-    return hybrid.keyswitch_core(rot[1], ek, tabs, rot[0])
+    return hybrid.keyswitch_core(c2, ek, tabs, c0, c1)
 
 
 class CryptoContext:
-    """One instantiated CKKS scheme (parameters frozen, tables cached)."""
+    """One instantiated scheme (parameters frozen, tables cached)."""
 
     def __init__(self, params: prm.CCParams, seed: int = 0, device=None):
         params.validate()
-        if params.scheme != Scheme.CKKSRNS_SCHEME:
-            raise NotImplementedError(f"{params.scheme} is not ported yet")
-        if params.ks_technique != KeySwitchTechnique.HYBRID:
-            raise NotImplementedError("only HYBRID key switching is ported")
         self.device = resolve_device(device)
         self.params = params
         self.scheme = params.scheme
@@ -124,8 +119,16 @@ class CryptoContext:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._key_counter = 0
-        self._init_ckks()
+        self.comp_deg = 1
+        self.noise_scale_int = 1
+        if self.scheme == Scheme.CKKSRNS_SCHEME:
+            self._init_ckks()
+        elif self.scheme == Scheme.BGVRNS_SCHEME:
+            bgv.init_context(self)
+        else:
+            bfv.init_context(self)
         self._hybrid_cache: dict = {}
+        self._bv_cache: dict = {}
         self._rescale_cache: dict = {}
         self.eval_mult_keys: dict = {}
         self.eval_automorphism_keys: dict = {}   # key_tag -> {g: EvalKey}
@@ -135,37 +138,53 @@ class CryptoContext:
     # parameter generation
     # ------------------------------------------------------------------
 
+    def _init_common(self, moduli_q) -> None:
+        """The chain's bases on the device: Q, and P for HYBRID (BV has no
+        auxiliary towers: basis_qp is Q). The security check covers
+        log QP."""
+        p = self.params
+        n = self.ring_dim = p.ring_dim
+        self.moduli_q = list(moduli_q)
+        self.moduli_p = (prm.select_aux_moduli(n, self.moduli_q,
+                                               p.num_large_digits,
+                                               p.aux_mod_size)
+                         if p.ks_technique == KeySwitchTechnique.HYBRID
+                         else [])
+        log_qp = sum(math.log2(q) for q in self.moduli_q + self.moduli_p)
+        prm.validate_security(p, n, log_qp)
+        dev = self.device
+        self.basis_q = make_basis(self.moduli_q, n, device=dev)
+        self.big_p = math.prod(self.moduli_p)
+        if not self.moduli_p:
+            self.basis_p = None
+            self.basis_qp = self.basis_q
+            self.p_modq = self.p_modq_sh = None
+            return
+        self.basis_p = make_basis(self.moduli_p, n, device=dev)
+        self.basis_qp = self.basis_q.concat(self.basis_p)
+        pm = [self.big_p % q for q in self.moduli_q] + [0] * len(self.moduli_p)
+        self.p_modq, self.p_modq_sh = mo.shoup_pair(
+            pm, self.moduli_q + self.moduli_p, dev)
+
     def _init_ckks(self):
         p = self.params
         if p.ring_dim == 0:
             est_log = p.first_mod_size + p.mult_depth * p.scaling_mod_size
             est_log += est_log / max(1, p.num_large_digits)  # + logP
             p.ring_dim = prm.derive_ring_dim(p, est_log)
-        n = self.ring_dim = p.ring_dim
+        n = p.ring_dim
         self.comp_deg = p.composite_degree if self._composite() else 1
         if self.comp_deg > 1:
-            self.moduli_q = prm.select_ckks_moduli_composite(
+            moduli = prm.select_ckks_moduli_composite(
                 n, p.mult_depth, p.scaling_mod_size, p.first_mod_size,
                 self.comp_deg)
         else:
-            self.moduli_q = prm.select_ckks_moduli(
+            moduli = prm.select_ckks_moduli(
                 n, p.mult_depth, p.scaling_mod_size, p.first_mod_size,
                 flexible=self._flexible(),
                 ext_mod_size=(prm.DEFAULT_EXTRA_MOD_SIZE
                               if self._flexible_ext() else 0))
-        self.moduli_p = prm.select_aux_moduli(n, self.moduli_q,
-                                              p.num_large_digits,
-                                              p.aux_mod_size)
-        log_qp = sum(math.log2(q) for q in self.moduli_q + self.moduli_p)
-        prm.validate_security(p, n, log_qp)
-        dev = self.device
-        self.basis_q = make_basis(self.moduli_q, n, device=dev)
-        self.basis_p = make_basis(self.moduli_p, n, device=dev)
-        self.basis_qp = self.basis_q.concat(self.basis_p)
-        self.big_p = math.prod(self.moduli_p)
-        pm = [self.big_p % q for q in self.moduli_q] + [0] * len(self.moduli_p)
-        self.p_modq, self.p_modq_sh = mo.shoup_pair(
-            pm, self.moduli_q + self.moduli_p, dev)
+        self._init_common(moduli)
         self.delta = float(2 ** p.scaling_mod_size)
         self.slots = p.batch_size or n // 2
         self.scf_real = self._scaling_factors()
@@ -252,8 +271,11 @@ class CryptoContext:
         return self.basis_q.slice(0, self.size_ql(level))
 
     def scale_at(self, level: int) -> float:
-        """Scaling factor of a depth-1 ciphertext at `level`."""
-        return self.scf_real[level]
+        """Scaling factor of a depth-1 ciphertext at `level` (CKKS; the
+        integer schemes' is 1)."""
+        if self.scheme == Scheme.CKKSRNS_SCHEME:
+            return self.scf_real[level]
+        return self.delta
 
     def _auto(self) -> bool:
         return self.params.scaling_technique in (
@@ -280,8 +302,38 @@ class CryptoContext:
         if size_ql not in self._hybrid_cache:
             self._hybrid_cache[size_ql] = hybrid.make_hybrid_tables(
                 self.basis_q, self.basis_p, size_ql,
-                self.params.num_large_digits)
+                self.params.num_large_digits, ns_int=self.noise_scale_int)
         return self._hybrid_cache[size_ql]
+
+    def bv_tables(self, size_ql: int) -> bv.BVTables:
+        if size_ql not in self._bv_cache:
+            self._bv_cache[size_ql] = bv.make_bv_tables(self.basis_q,
+                                                        size_ql)
+        return self._bv_cache[size_ql]
+
+    def _hybrid(self) -> bool:
+        return self.params.ks_technique == KeySwitchTechnique.HYBRID
+
+    def _keyswitch_core(self, c: torch.Tensor, ek: EvalKey, size_ql: int,
+                        add0: torch.Tensor | None = None,
+                        add1: torch.Tensor | None = None):
+        """(d0 + add0, d1 + add1) over Q_l: the key switch of c under the
+        configured technique (reference KeySwitchBV / KeySwitchHYBRID),
+        each plus its addend where one is given (HYBRID's fused chain adds
+        it in its last kernel)."""
+        if self._hybrid():
+            return hybrid.keyswitch_core(c, ek, self.hybrid_tables(size_ql),
+                                         add0, add1)
+        w = self.params.digit_size
+        if w:
+            d = bv.keyswitch_core_digits(
+                c, ek, self.basis_q.slice(0, size_ql), w,
+                bv._digit_count(self.basis_q, len(self.moduli_q), w))
+        else:
+            d = bv.keyswitch_core(c, ek, self.bv_tables(size_ql))
+        q = self.basis_q.slice(0, size_ql).q
+        return tuple(x if a is None else mo.add_mod(a, x, q)
+                     for x, a in zip(d, (add0, add1)))
 
     def rescale_tables(self, size_ql: int) -> rt.DropScaleTables:
         if size_ql not in self._rescale_cache:
@@ -294,17 +346,31 @@ class CryptoContext:
     # ------------------------------------------------------------------
 
     def KeyGen(self) -> KeyPair:
+        return self._keygen(self.params.secret_key_dist)
+
+    def SparseKeyGen(self) -> KeyPair:
+        """A key pair with a sparse ternary secret of Hamming weight 192
+        (reference SparseKeyGen, cryptocontext.h:1238)."""
+        return self._keygen(SecretKeyDist.SPARSE_TERNARY)
+
+    def _keygen(self, secret_key_dist) -> KeyPair:
         self._key_counter += 1
         return rns_pke.keygen(self._gen, self.basis_qp,
-                              f"key-{self._key_counter}",
-                              self.params.secret_key_dist,
-                              self.params.standard_deviation)
+                              f"key-{self._key_counter}", secret_key_dist,
+                              self.params.standard_deviation,
+                              ns_int=self.noise_scale_int)
 
     def KeySwitchGen(self, old_key: PrivateKey,
                      new_key: PrivateKey) -> EvalKey:
+        if not self._hybrid():
+            return bv.keyswitch_gen(self._gen, old_key, new_key,
+                                    self.basis_q, len(self.moduli_q),
+                                    ns_int=self.noise_scale_int,
+                                    digit_size=self.params.digit_size)
         return hybrid.keyswitch_gen(
             self._gen, old_key, new_key, self.basis_qp, len(self.moduli_q),
-            self.params.num_large_digits, self.p_modq, self.p_modq_sh)
+            self.params.num_large_digits, self.p_modq, self.p_modq_sh,
+            ns_int=self.noise_scale_int)
 
     def EvalMultKeyGen(self, sk: PrivateKey) -> None:
         """Relinearization key: s^2 -> s (reference cryptocontext.h:1764)."""
@@ -347,6 +413,7 @@ class CryptoContext:
                                 scale: float | None = None) -> Plaintext:
         slots = slots or min(self.slots, self.ring_dim // 2)
         if (scale is None and level == 0 and scale_deg == 1
+                and self.scheme == Scheme.CKKSRNS_SCHEME
                 and self._flexible_ext()):
             # FLEXIBLEAUTOEXT encodes fresh values at the degree-2 scale
             # q_ext * q_top (reference GetScalingFactorRealBig); the first
@@ -363,6 +430,52 @@ class CryptoContext:
                          noise_deg=scale_deg, scale=scale, slots=slots,
                          values=np.asarray(values))
 
+    def MakePackedPlaintext(self, values, noise_deg: int = 1,
+                            level: int = 0) -> Plaintext:
+        """Integer SIMD packing (reference MakePackedPlaintext)."""
+        if self.scheme == Scheme.BGVRNS_SCHEME:
+            return bgv.make_packed_plaintext(self, values, level=level,
+                                             noise_deg=noise_deg)
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            return bfv.make_packed_plaintext(self, values)
+        raise ValueError("PackedPlaintext requires BGV/BFV")
+
+    def MakePlaintext(self, encoding, values) -> Plaintext:
+        """The factory over PlaintextEncodings (reference MakePlaintext,
+        plaintextfactory.h:136)."""
+        make = {PlaintextEncodings.PACKED_ENCODING: self.MakePackedPlaintext,
+                PlaintextEncodings.CKKS_PACKED_ENCODING:
+                    self.MakeCKKSPackedPlaintext,
+                PlaintextEncodings.COEF_PACKED_ENCODING:
+                    self.MakeCoefPackedPlaintext,
+                PlaintextEncodings.STRING_ENCODING:
+                    self.MakeStringPlaintext}.get(encoding)
+        if make is None:
+            raise ValueError(f"unknown plaintext encoding {encoding}")
+        return make(values)
+
+    def _full_level_plaintext(self, coeffs, encoding: str,
+                              values) -> Plaintext:
+        res = crt.to_residues_host(coeffs, tuple(self.moduli_q))
+        poly = ntt_fwd(mo.u32_tensor(res, self.device), self.basis_q)
+        return Plaintext(poly=poly, fmt=EVAL, level=0, slots=self.ring_dim,
+                         encoding=encoding, values=values)
+
+    def MakeCoefPackedPlaintext(self, values) -> Plaintext:
+        """Coefficient packing (reference MakeCoefPackedPlaintext)."""
+        t = self.plaintext_modulus
+        coeffs = coef_encode(values, t, self.ring_dim)
+        return self._full_level_plaintext(
+            np.where(coeffs > t // 2, coeffs - t, coeffs), "COEF_PACKED",
+            np.asarray(values))
+
+    def MakeStringPlaintext(self, s: str) -> Plaintext:
+        """String encoding (reference MakeStringPlaintext): the bytes as
+        coefficients."""
+        return self._full_level_plaintext(
+            string_encode(s, self.plaintext_modulus, self.ring_dim),
+            "STRING", s)
+
     def decode_ckks(self, coeff_residues: np.ndarray, level: int,
                     scale: float, slots: int) -> np.ndarray:
         size = coeff_residues.shape[-2]
@@ -376,22 +489,37 @@ class CryptoContext:
     # ------------------------------------------------------------------
 
     def Encrypt(self, key, plaintext: Plaintext) -> Ciphertext:
+        """Encrypt under a public key (or key pair) or a secret key. BFV
+        scales the message by Delta = floor(Q / t), or encrypts over Q r
+        under EncryptionTechnique EXTENDED; BGV's errors carry t."""
+        if (self.scheme == Scheme.BFVRNS_SCHEME
+                and self.params.encryption_technique
+                == EncryptionTechnique.EXTENDED):
+            return bfv.encrypt_extended(self, key, plaintext)
         basis = self.basis_at(plaintext.level)
+        ns = self.noise_scale_int
         if isinstance(key, KeyPair):
             key = key.public_key
+        pt_poly = plaintext.poly
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            pt_poly = bfv.scale_plaintext_for_add(self, pt_poly)
         if isinstance(key, PublicKey):
             c0, c1 = rns_pke.encrypt_zero_pk(self._gen, key, basis,
-                                             self.params.secret_key_dist)
+                                             self.params.secret_key_dist,
+                                             ns_int=ns)
         else:
-            c0, c1 = rns_pke.encrypt_zero_sk(self._gen, key, basis)
-        c0 = mo.add_mod(c0, plaintext.poly, basis.q)
+            c0, c1 = rns_pke.encrypt_zero_sk(self._gen, key, basis,
+                                             ns_int=ns)
+        c0 = mo.add_mod(c0, pt_poly, basis.q)
         return Ciphertext(elements=(c0, c1), level=plaintext.level,
                           noise_deg=plaintext.noise_deg,
                           scale=plaintext.scale, slots=plaintext.slots,
-                          key_tag=key.key_tag)
+                          key_tag=key.key_tag, encoding=plaintext.encoding,
+                          scale_int=plaintext.scale_int)
 
     def Decrypt(self, sk: PrivateKey, ct: Ciphertext) -> Plaintext:
-        """Decrypt and decode. With NOISE_FLOODING_DECRYPT in
+        """Decrypt and decode (BGV and BFV: exact integers mod t, the
+        scheme's tail). CKKS: with NOISE_FLOODING_DECRYPT in
         EXEC_EVALUATION and a noise estimate, Gaussian noise of sigma
         2^noise_estimate (at most 2^30) is added to the coefficients first
         (reference ckks-noise-flooding.cpp), sampled in int64 so the +-6
@@ -401,6 +529,10 @@ class CryptoContext:
         p = self.params
         basis = self.basis_at(ct.level)
         b = rns_pke.decrypt_core(ct.elements, sk, basis)
+        if self.scheme == Scheme.BGVRNS_SCHEME:
+            return bgv.decrypt_tail(self, b, ct)
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            return bfv.decrypt_tail(self, b, ct)
         if (p.decryption_noise_mode
                 == DecryptionNoiseMode.NOISE_FLOODING_DECRYPT
                 and p.execution_mode == ExecutionMode.EXEC_EVALUATION
@@ -483,13 +615,57 @@ class CryptoContext:
             b = bring(b, a.level, a.noise_deg, a.scale)
         return a, b
 
+    def _eval_times_int(self, ct: Ciphertext, k: int) -> Ciphertext:
+        """Every element times the integer k (mod each q_i), BGV's
+        scale-factor correction (reference EvalMultCoreInPlace(ct,
+        scalar), bgvrns-leveledshe.cpp), by the centred representative of
+        k mod t, which limits the noise."""
+        t = self.plaintext_modulus
+        k = k % t
+        kc = k - t if k > t // 2 else k
+        basis = self.basis_at(ct.level)
+        c, c_sh = mo.shoup_pair([kc % q for q in basis.moduli],
+                                basis.moduli, self.device)
+        return dataclasses.replace(
+            ct, elements=tuple(mo.mul_mod_shoup(e, c, c_sh, basis.q)
+                               for e in ct.elements),
+            scale_int=(ct.scale_int * k) % t)
+
+    def _adjust_pair_bgv(self, a: Ciphertext, b: Ciphertext):
+        """BGV's AdjustLevelsAndDepth (bgvrns-leveledshe.cpp:84-225): tower
+        counts aligned by LevelReduce (the invariant m + t e is far below
+        every Q_l), then the integer scale factors by a correction
+        multiply; the noise degree is bookkeeping only."""
+        if a.level < b.level:
+            a = self.LevelReduce(a, b.level - a.level)
+        elif b.level < a.level:
+            b = self.LevelReduce(b, a.level - b.level)
+        t = self.plaintext_modulus
+        if a.scale_int % t != b.scale_int % t:
+            a = self._eval_times_int(
+                a, (b.scale_int * pow(a.scale_int % t, -1, t)) % t)
+        deg = max(a.noise_deg, b.noise_deg)
+        return (dataclasses.replace(a, noise_deg=deg),
+                dataclasses.replace(b, noise_deg=deg))
+
     def _adjust_pair(self, a: Ciphertext, b: Ciphertext,
                      for_mult: bool = False):
         """Equalize level and noise degree before an add or a mult
         (reference AdjustLevelsAndDepth). FIXED modes: under FIXEDAUTO a
         degree-2 operand at the shallower level is rescaled, and a degree
         left lower is raised by an x1 plaintext multiply; then towers are
-        dropped to align levels."""
+        dropped to align levels. BGV aligns its scale factors
+        (`_adjust_pair_bgv`); BFV, scale-invariant, only its towers."""
+        if self.scheme == Scheme.BGVRNS_SCHEME:
+            return self._adjust_pair_bgv(a, b)
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            if a.level < b.level:
+                a = self.LevelReduce(a, b.level - a.level)
+            elif b.level < a.level:
+                b = self.LevelReduce(b, a.level - b.level)
+            deg = max(a.noise_deg, b.noise_deg)
+            return (dataclasses.replace(a, noise_deg=deg),
+                    dataclasses.replace(b, noise_deg=deg))
         if self._flexible():
             return self._adjust_flexible(a, b, for_mult=for_mult)
         if a.noise_deg != b.noise_deg:
@@ -552,44 +728,66 @@ class CryptoContext:
 
     def _encode_like(self, ct: Ciphertext, values) -> Plaintext:
         """`values` encoded at ct's level and degree (an addend)."""
+        if self.scheme != Scheme.CKKSRNS_SCHEME:
+            return self.MakePackedPlaintext(
+                np.broadcast_to(np.asarray(values, np.int64), (ct.slots,)),
+                level=ct.level)
         return self.MakeCKKSPackedPlaintext(
             np.broadcast_to(np.asarray(values, np.complex128), (ct.slots,)),
             scale_deg=ct.noise_deg, level=ct.level, slots=ct.slots)
 
     def _encode_like_mult(self, ct: Ciphertext, values) -> Plaintext:
-        """`values` encoded at ct's level and degree 1 (a factor)."""
+        """`values` encoded at ct's level and degree 1 (a factor; BGV's
+        without the level's message factor)."""
+        if self.scheme == Scheme.BGVRNS_SCHEME:
+            return bgv.make_packed_plaintext(
+                self, np.broadcast_to(np.asarray(values, np.int64),
+                                      (self.ring_dim,)),
+                level=ct.level, apply_factor=False)
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            return self.MakePackedPlaintext(
+                np.broadcast_to(np.asarray(values, np.int64),
+                                (self.ring_dim,)))
         return self.MakeCKKSPackedPlaintext(
             np.broadcast_to(np.asarray(values, np.complex128), (ct.slots,)),
             scale_deg=1, level=ct.level, slots=ct.slots)
 
     def _eval_add_plain(self, ct: Ciphertext, pt: Plaintext,
                         negate: bool = False) -> Ciphertext:
-        if pt.level != ct.level or pt.noise_deg != ct.noise_deg:
-            pt = self.MakeCKKSPackedPlaintext(
+        ckks = self.scheme == Scheme.CKKSRNS_SCHEME
+        if pt.level != ct.level or (ckks and pt.noise_deg != ct.noise_deg):
+            pt = (self.MakeCKKSPackedPlaintext(
                 pt.values, scale_deg=ct.noise_deg, level=ct.level,
-                slots=ct.slots)
+                slots=ct.slots) if ckks else
+                self.MakePackedPlaintext(pt.values, level=ct.level))
+        pt_poly = pt.poly
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            pt_poly = bfv.scale_plaintext_for_add(self, pt_poly)
         op = mo.sub_mod if negate else mo.add_mod
-        c0 = op(ct.elements[0], pt.poly, self.basis_at(ct.level).q)
+        c0 = op(ct.elements[0], pt_poly, self.basis_at(ct.level).q)
         return dataclasses.replace(ct, elements=(c0,) + ct.elements[1:])
 
     def _eval_add_scalar(self, ct: Ciphertext, s) -> Ciphertext:
         return self._eval_add_plain(ct, self._encode_like(ct, s))
 
     def _eval_mult_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
-        if self._auto() and ct.noise_deg == 2:
+        ckks = self.scheme == Scheme.CKKSRNS_SCHEME
+        if ckks and self._auto() and ct.noise_deg == 2:
             ct = self.ModReduce(ct)
-        if pt.level != ct.level:
+        if pt.level != ct.level and self.scheme != Scheme.BFVRNS_SCHEME:
             # the plaintext's own slot count: a diagonal may be encoded
             # wider than the ciphertext's slots
-            pt = self.MakeCKKSPackedPlaintext(pt.values, scale_deg=1,
-                                              level=ct.level,
-                                              slots=pt.slots or ct.slots)
+            pt = (self.MakeCKKSPackedPlaintext(pt.values, scale_deg=1,
+                                               level=ct.level,
+                                               slots=pt.slots or ct.slots)
+                  if ckks else self._encode_like_mult(ct, pt.values))
         q = self.basis_at(ct.level).q
         return dataclasses.replace(
             ct, elements=tuple(mo.mul_mod(c, pt.poly, q)
                                for c in ct.elements),
             noise_deg=ct.noise_deg + pt.noise_deg,
-            scale=ct.scale * pt.scale)
+            scale=ct.scale * pt.scale,
+            scale_int=ct.scale_int * pt.scale_int)
 
     def _prepare_mult(self, a: Ciphertext, b: Ciphertext):
         if self._auto():
@@ -601,14 +799,18 @@ class CryptoContext:
 
     def _product_meta(self, a: Ciphertext, b: Ciphertext) -> dict:
         return dict(noise_deg=a.noise_deg + b.noise_deg,
-                    scale=a.scale * b.scale)
+                    scale=a.scale * b.scale,
+                    scale_int=a.scale_int * b.scale_int)
 
     def EvalMultNoRelin(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """Tensor product (c0d0, c0d1+c1d0, c1d1), Karatsuba, of two
         2-element ciphertexts (the JAX package drops a third element
-        without a word; here it raises NotImplementedError)."""
+        without a word; here it raises NotImplementedError); BFV's exact
+        RNS tensor product (`bfv.eval_mult_no_relin`)."""
         self._two_elements(a, "EvalMultNoRelin")
         self._two_elements(b, "EvalMultNoRelin")
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            return bfv.eval_mult_no_relin(self, a, b)
         a, b = self._prepare_mult(a, b)
         q = self.basis_at(a.level).q
         (a0, a1), (b0, b1) = a.elements, b.elements
@@ -625,9 +827,9 @@ class CryptoContext:
         if len(ct.elements) != 3:
             raise NotImplementedError("relinearization beyond degree 2")
         ek = self.eval_mult_keys[ct.key_tag]
-        tabs = self.hybrid_tables(self.size_ql(ct.level))
-        return dataclasses.replace(ct, elements=relin_hybrid(*ct.elements,
-                                                             ek, tabs))
+        e0, e1, e2 = ct.elements
+        return dataclasses.replace(ct, elements=self._keyswitch_core(
+            e2, ek, self.size_ql(ct.level), e0, e1))
 
     def EvalMult(self, a: Ciphertext, b) -> Ciphertext:
         """a * b for a ciphertext (tensor product + relinearization),
@@ -636,7 +838,9 @@ class CryptoContext:
             return self._eval_mult_plain(a, self._encode_like_mult(a, b))
         if isinstance(b, Plaintext):
             return self._eval_mult_plain(a, b)
-        if len(a.elements) != 2 or len(b.elements) != 2:
+        if (len(a.elements) != 2 or len(b.elements) != 2
+                or not self._hybrid()
+                or self.scheme == Scheme.BFVRNS_SCHEME):
             return self.Relinearize(self.EvalMultNoRelin(a, b))
         a, b = self._prepare_mult(a, b)
         ek = self.eval_mult_keys[a.key_tag]
@@ -672,7 +876,12 @@ class CryptoContext:
     def ModReduce(self, ct: Ciphertext, levels: int | None = None
                   ) -> Ciphertext:
         """CKKS rescale: drop `levels` levels of `comp_deg` towers each,
-        dividing by each tower."""
+        dividing by each tower. BGV: `bgv.mod_reduce`, `levels` towers
+        (one multiplicative level when None). BFV has none."""
+        if self.scheme == Scheme.BGVRNS_SCHEME:
+            return bgv.mod_reduce(self, ct, levels)
+        if self.scheme == Scheme.BFVRNS_SCHEME:
+            raise ValueError("ModReduce is not applicable to BFV")
         levels = 1 if levels is None else levels
         size = self.size_ql(ct.level)
         elems = ct.elements
@@ -729,11 +938,16 @@ class CryptoContext:
                 "(relinearize first)")
 
     def EvalAutomorphism(self, ct: Ciphertext, g: int) -> Ciphertext:
+        """sigma_g of a 2-element ciphertext, as the JAX package's
+        `_k_automorph_hybrid`: both elements gathered with the EVAL table
+        of g, the second key-switched from s(X^g) back to s, its first
+        half added to the first (inside the fused chain's last kernel)."""
         self._two_elements(ct, "EvalAutomorphism")
         ek = self.eval_automorphism_keys[ct.key_tag][g]
-        tabs = self.hybrid_tables(self.size_ql(ct.level))
-        return dataclasses.replace(ct, elements=automorph_hybrid(
-            ct.elements, self._auto_idx(g), ek, tabs))
+        idx = self._auto_idx(g)
+        rot = [torch.index_select(c, -1, idx) for c in ct.elements]
+        return dataclasses.replace(ct, elements=self._keyswitch_core(
+            rot[1], ek, self.size_ql(ct.level), rot[0]))
 
     def EvalRotate(self, ct: Ciphertext, index: int) -> Ciphertext:
         """Slot rotation: index 1 moves slot i + 1 to slot i."""
@@ -750,9 +964,13 @@ class CryptoContext:
     # EvalFastRotation, cryptocontext.h:2331-2410)
     # ------------------------------------------------------------------
 
-    def EvalFastRotationPrecompute(self, ct: Ciphertext) -> list:
-        """Digit-decompose c1 once; every EvalFastRotation shares it."""
+    def EvalFastRotationPrecompute(self, ct: Ciphertext) -> list | None:
+        """Digit-decompose c1 once; every EvalFastRotation shares it
+        (HYBRID only: None under BV, whose rotations then run
+        EvalRotate)."""
         self._two_elements(ct, "EvalFastRotationPrecompute")
+        if not self._hybrid():
+            return None
         tabs = self.hybrid_tables(self.size_ql(ct.level))
         return hybrid.eval_fast_rotation_precompute(ct.elements[1], tabs)
 
@@ -780,11 +998,78 @@ class CryptoContext:
     def KeySwitch(self, ct: Ciphertext, ek: EvalKey) -> Ciphertext:
         """Switch a 2-element ciphertext to the key `ek` targets."""
         self._two_elements(ct, "KeySwitch")
-        tabs = self.hybrid_tables(self.size_ql(ct.level))
         return dataclasses.replace(
-            ct, elements=hybrid.keyswitch_core(ct.elements[1], ek, tabs,
-                                               ct.elements[0]),
+            ct, elements=self._keyswitch_core(ct.elements[1], ek,
+                                              self.size_ql(ct.level),
+                                              ct.elements[0]),
             key_tag=ek.key_tag)
+
+    KeySwitchInPlace = KeySwitch
+
+    # ------------------------------------------------------------------
+    # the extended basis Q_l*P (reference KeySwitchExt / KeySwitchDown /
+    # EvalFastRotationExt, cryptocontext.h:1680-2440): a ladder of
+    # hoisted rotations summed before one ApproxModDown. An extended
+    # ciphertext keeps its level and carries "ext_basis" True in its
+    # metadata; its elements have size_ql + kP towers.
+    # ------------------------------------------------------------------
+
+    def KeySwitchExt(self, ct: Ciphertext,
+                     add_first: bool = True) -> Ciphertext:
+        """Every element raised to Q_l*P (times P); with add_first False
+        element 0 is left zero, to be added back after
+        KeySwitchDownFirstElement."""
+        tabs = self.hybrid_tables(self.size_ql(ct.level))
+        elems = [hybrid.raise_c0_ext(c, self.p_modq, self.p_modq_sh, tabs)
+                 for c in ct.elements]
+        if not add_first:
+            elems[0] = torch.zeros_like(elems[0])
+        return dataclasses.replace(ct, elements=tuple(elems)
+                                   ).SetMetadataByKey("ext_basis", True)
+
+    def EvalFastRotationExt(self, ct: Ciphertext, index: int, digits,
+                            add_first: bool = True) -> Ciphertext:
+        """A hoisted rotation left in the extended basis (reference
+        EvalFastRotationExt, cryptocontext.h:2412): sum many with
+        EvalAddExt, then one KeySwitchDown."""
+        self._two_elements(ct, "EvalFastRotationExt")
+        g = rotation_automorphism_index(index, self.ring_dim)
+        ek = self.eval_automorphism_keys[ct.key_tag][g]
+        tabs = self.hybrid_tables(self.size_ql(ct.level))
+        idx = self._auto_idx(g)
+        e0, e1 = hybrid.eval_fast_rotation_core_ext(digits, idx, ek, tabs)
+        if add_first:
+            c0 = torch.index_select(ct.elements[0], -1, idx)
+            e0 = mo.add_mod(e0, hybrid.raise_c0_ext(
+                c0, self.p_modq, self.p_modq_sh, tabs), tabs.basis_qlp.q)
+        return dataclasses.replace(ct, elements=(e0, e1)).SetMetadataByKey(
+            "ext_basis", True)
+
+    def EvalAddExt(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """The elementwise sum of two extended ciphertexts (reference
+        EvalAddExt)."""
+        q = self.hybrid_tables(self.size_ql(a.level)).basis_qlp.q
+        return dataclasses.replace(a, elements=tuple(
+            mo.add_mod(x, y, q) for x, y in zip(a.elements, b.elements)))
+
+    def EvalSubExt(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        q = self.hybrid_tables(self.size_ql(a.level)).basis_qlp.q
+        return dataclasses.replace(a, elements=tuple(
+            mo.sub_mod(x, y, q) for x, y in zip(a.elements, b.elements)))
+
+    def KeySwitchDown(self, ct: Ciphertext) -> Ciphertext:
+        """ApproxModDown of an extended ciphertext back to Q_l (reference
+        KeySwitchDown)."""
+        tabs = self.hybrid_tables(self.size_ql(ct.level))
+        return dataclasses.replace(ct, elements=hybrid.mod_down_pair(
+            ct.elements[0], ct.elements[1], tabs)).SetMetadataByKey(
+                "ext_basis", False)
+
+    def KeySwitchDownFirstElement(self, ct: Ciphertext) -> torch.Tensor:
+        """ApproxModDown of element 0 alone (reference
+        KeySwitchDownFirstElement): the [size_ql, N] tensor."""
+        return hybrid.mod_down_first(
+            ct.elements[0], self.hybrid_tables(self.size_ql(ct.level)))
 
     # ------------------------------------------------------------------
     # AdvancedSHE: many-operand trees and rotation ladders (advanced.py)

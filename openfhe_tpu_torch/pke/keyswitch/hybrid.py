@@ -19,7 +19,14 @@ then runs `ks_fused.keyswitch_core_fused` and EvalMult
 
 Hoisted rotations (`eval_fast_rotation_precompute` / `_core`) stay
 unfused, as in the JAX package: the digits are extended once and each
-rotation permutes them.
+rotation permutes them. The extended-basis forms (reference KeySwitchExt,
+EvalFastRotationExt, KeySwitchDown) stop before the mod-down and leave
+the pair over Q_l*P: `raise_c0_ext`, `eval_fast_rotation_core_ext`,
+`mod_down_pair` and `mod_down_first`.
+
+BGV's noise scale t (`ns_int`) multiplies the key's error and reaches the
+mod-down tables (t^-1 on the P rows, t after the conversion) and the
+fused chain's tables; it is 1 for CKKS and BFV.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ class HybridTables:
 
 
 def make_hybrid_tables(basis_q: Basis, basis_p: Basis, size_ql: int,
-                       num_parts_full: int) -> HybridTables:
+                       num_parts_full: int, ns_int: int = 1) -> HybridTables:
     """Host precompute for the level with `size_ql` towers (reference:
     rns-cryptoparameters.h m_paramsPartQ / m_paramsComplPartQ). On a CUDA
     device the fused chain's tables come too, as the JAX package builds
@@ -89,20 +96,22 @@ def make_hybrid_tables(basis_q: Basis, basis_p: Basis, size_ql: int,
     fused = None
     if dev.type == "cuda":
         fused = ks_fused.make_fused_ks_tables(basis_qlp, size_ql, k_full,
-                                              num_parts_full)
+                                              num_parts_full, ns_int=ns_int)
     return HybridTables(
         parts=tuple(parts),
-        moddown=rt.make_mod_down_tables(p_mods, q_mods, dev),
+        moddown=rt.make_mod_down_tables(p_mods, q_mods, dev, t=ns_int),
         basis_ql=basis_ql, basis_p=basis_p, basis_qlp=basis_qlp,
         size_ql=size_ql, k_q_full=k_full, fused=fused)
 
 
 def keyswitch_gen(gen: torch.Generator, s_old: PrivateKey,
                   s_new: PrivateKey, basis_qp: Basis, k_q: int,
-                  num_parts: int, p_modq, p_modq_sh) -> EvalKey:
+                  num_parts: int, p_modq, p_modq_sh,
+                  ns_int: int = 1) -> EvalKey:
     """Generate the hybrid KS key s_old -> s_new over QP.
 
-    p_modq(+_sh): [P mod q_i] per Q tower, zero over the P towers.
+    p_modq(+_sh): [P mod q_i] per Q tower, zero over the P towers; ns_int
+    the noise scale (BGV's t, else 1), which multiplies the error.
     """
     n = basis_qp.ring_dim
     alpha = -(-k_q // num_parts)
@@ -113,6 +122,8 @@ def keyswitch_gen(gen: torch.Generator, s_old: PrivateKey,
         a = sampling.uniform_residues(gen, basis_qp)           # EVAL-uniform
         e = ntt_fwd(sampling.to_residues(
             sampling.discrete_gaussian(gen, (n,)), basis_qp), basis_qp)
+        if ns_int != 1:
+            e = mul_const_int(e, ns_int, basis_qp)
         b = mo.sub_mod(e, mo.mul_mod(a, s_new.s_qp, basis_qp.q), basis_qp.q)
         # + P * s_old on this digit's towers only (the CRT mask)
         start, end = alpha * part, min(alpha * (part + 1), k_q)
@@ -122,6 +133,13 @@ def keyswitch_gen(gen: torch.Generator, s_old: PrivateKey,
         as_.append(a)
     return shoup_companions(EvalKey(bv=torch.stack(bs), av=torch.stack(as_),
                                     key_tag=s_new.key_tag), basis_qp.moduli)
+
+
+def mul_const_int(x: torch.Tensor, c: int, basis: Basis) -> torch.Tensor:
+    """x times the integer c (reduced mod each tower), by Shoup."""
+    cc, cc_sh = mo.shoup_pair([c % q for q in basis.moduli], basis.moduli,
+                              basis.device)
+    return mo.mul_mod_shoup(x, cc, cc_sh, basis.q)
 
 
 def shoup_companions(ek: EvalKey, moduli_qp) -> EvalKey:
@@ -222,3 +240,38 @@ def eval_fast_rotation_core(digits: list, idx: torch.Tensor, ek: EvalKey,
     the rotated polynomial; both are valid key switches."""
     rot = [torch.index_select(d, -1, idx) for d in digits]
     return _mod_down_pair(*_fast_core_ext(rot, ek, tabs), tabs)
+
+
+def raise_c0_ext(c0: torch.Tensor, p_modq, p_modq_sh,
+                 tabs: HybridTables) -> torch.Tensor:
+    """[c0]_{Q_l} -> [P*c0]_{Q_l*P} (reference KeySwitchExt): P*c0 is 0
+    mod every P tower and (P mod q_i)*c0 on the Q towers."""
+    size_ql = tabs.size_ql
+    pc0 = mo.mul_mod_shoup(c0, p_modq[:size_ql], p_modq_sh[:size_ql],
+                           tabs.basis_ql.q)
+    zeros = c0.new_zeros((tabs.basis_p.k,) + tuple(c0.shape[1:]))
+    return torch.cat([pc0, zeros], dim=0)
+
+
+def eval_fast_rotation_core_ext(digits: list, idx: torch.Tensor, ek: EvalKey,
+                                tabs: HybridTables):
+    """A hoisted rotation without the ApproxModDown (reference
+    EvalFastRotationExt): the (b, a) pair over Q_l*P, so that many
+    rotations can be summed before one mod-down."""
+    rot = [torch.index_select(d, -1, idx) for d in digits]
+    return _fast_core_ext(rot, ek, tabs)
+
+
+def mod_down_pair(ext0: torch.Tensor, ext1: torch.Tensor,
+                  tabs: HybridTables):
+    """ApproxModDown of both elements of an extended-basis pair back to
+    Q_l (reference KeySwitchDown)."""
+    return _mod_down_pair(ext0, ext1, tabs)
+
+
+def mod_down_first(ext0: torch.Tensor, tabs: HybridTables) -> torch.Tensor:
+    """ApproxModDown of element 0 alone (reference
+    KeySwitchDownFirstElement)."""
+    size_ql = tabs.size_ql
+    return rt.approx_mod_down(ext0[:size_ql], ext0[size_ql:], tabs.basis_ql,
+                              tabs.basis_p, tabs.moddown)

@@ -13,7 +13,7 @@ calls of `csrc/ks_fused.cu`:
                           digit's own towers, else NTT of the extension
   intt_conv_p       (K45) INTT(ext's P rows) * (P/p_i)^-1 * t^-1, then
                           P -> Q_l
-  ntt_submul_final  (K6f) out = tensor terms + (ext - NTT(convq)) * P^-1
+  ntt_submul_final  (K6f) out = tensor terms + (ext - t * NTT(convq)) * P^-1
 
 Every other key switch (Relinearize, KeySwitch, every automorphism) is
 `keyswitch_core_fused` on one polynomial c2, also five calls: K1t and K6f
@@ -36,9 +36,12 @@ and f32 ratios are the TPU's number scheme and have no counterpart here.
 There is no bucket padding (`bucket_size`, `pad_to`, `kql_real`): XLA
 compiles once per shape, but the CUDA kernels take the tower counts as
 runtime arguments, so tables are built for each level's real size_ql.
-BGV's noise scale t (`ns_int`) reaches only these tables and the two
-kernels that read it (`intt_conv_p` through t^-1 in its scale,
-`ntt_subscale`); no context of the port sets it yet.
+BGV's noise scale t (`ns_int`) reaches only these tables and the three
+kernels that read it: `intt_conv_p` through t^-1 in its scale, then
+`ntt_subscale` and `ntt_submul_final`, which multiply NTT(convq) by t
+again. (The JAX package's `_ntt_submul_final` omits that multiply, so its
+fused BGV EvalMult differs from its own unfused chain; the port follows
+the unfused chain's words.)
 
 Each kernel has a wrapper and its plain twin (`_..._ref`) here. The
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
@@ -100,7 +103,7 @@ class FusedKSTables:
     nd: int
     alpha: int
     k_q_full: int
-    t_is_one: bool = True        # ns_int == 1: K6 skips the t multiply
+    t_is_one: bool = True        # ns_int == 1: K6, K6f skip the t multiply
 
 
 def _pair(vals, mods, device):
@@ -424,7 +427,8 @@ def ntt_submul_final(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
     .. ext_off + kql - 1 are the Q_l rows (R = kqlp and ext_off = 0 on one
     card; the gathered ext and the shard's first Q row when sharded) and
     the inputs a0, a1, b0, b1 [kql, N] EVAL -> [2, kql, N] EVAL:
-    d_e = (ext[e, ext_off:][:kql] - NTT(convq[e])) * P^-1, c0 = a0 b0,
+    d_e = (ext[e, ext_off:][:kql] - t * NTT(convq[e])) * P^-1 (t = 1
+    unless the tables were made with ns_int), c0 = a0 b0,
     c2 = a1 b1, c1 = (a0 + a1)(b0 + b1) - c0 - c2, out = (c0 + d_0,
     c1 + d_1). On the card one launch of the cluster kernel, or the staged
     one for rings it does not take; ext is read in place."""
@@ -460,8 +464,9 @@ def _ntt_submul_final_cu(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
             else (out,))
     red = () if entry.endswith("_staged") else (bq.red64,)
     _build.launch("ks_fused", entry, convq, ext, a0, a1, b0, b1, *tail,
-                  bq.psi_br, bq.psi_br_sh, bq.q, tabs.pinv_q, tabs.pinv_q_sh,
-                  *red, kql, rows, ext_off, _log_n(tabs))
+                  bq.psi_br, bq.psi_br_sh, bq.q, tabs.t_modq, tabs.t_modq_sh,
+                  tabs.pinv_q, tabs.pinv_q_sh, *red, kql, rows, ext_off,
+                  int(not tabs.t_is_one), _log_n(tabs))
     return out
 
 
@@ -474,8 +479,11 @@ def _ntt_submul_final_ref(convq, ext, a0, a1, b0, b1, tabs: FusedKSTables,
     cross = mo.mul_mod(mo.add_mod(a0, a1, q), mo.add_mod(b0, b1, q), q)
     c1 = mo.sub_mod(mo.sub_mod(cross, c0, q), c2, q)
     xq = ext[:, ext_off:ext_off + tabs.kql]
-    d = mo.mul_mod_shoup(mo.sub_mod(xq, _ntt_fwd_ref(convq, bq), q),
-                         tabs.pinv_q, tabs.pinv_q_sh, q)
+    s = _ntt_fwd_ref(convq, bq)
+    if not tabs.t_is_one:
+        s = mo.mul_mod_shoup(s, tabs.t_modq, tabs.t_modq_sh, q)
+    d = mo.mul_mod_shoup(mo.sub_mod(xq, s, q), tabs.pinv_q, tabs.pinv_q_sh,
+                         q)
     return torch.stack([mo.add_mod(c0, d[0], q), mo.add_mod(c1, d[1], q)])
 
 

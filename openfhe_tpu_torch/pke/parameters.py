@@ -129,6 +129,25 @@ def main_path_params() -> CCParams:
                     scaling_technique=ScalingTechnique.FIXEDMANUAL)
 
 
+def bgv_bench_params() -> CCParams:
+    """BGV as the JAX repo benchmarks it (`bench.py` `bench_bfvbgv`):
+    N=2^15, depth 10, FLEXIBLEAUTO, t = 65537, HEStd_NotSet; a chain of
+    21 Q towers (27 + 20 x 26 bits, two a multiplicative level), 7 P
+    towers and 3 digits."""
+    return CCParams(scheme=Scheme.BGVRNS_SCHEME, ring_dim=1 << 15,
+                    mult_depth=10, plaintext_modulus=65537,
+                    security_level=SecurityLevel.HEStd_NotSet,
+                    scaling_technique=ScalingTechnique.FLEXIBLEAUTO)
+
+
+def bfv_bench_params() -> CCParams:
+    """BFV as `bench_bfvbgv` runs it: N=2^14, depth 2, t = 65537,
+    HEStd_NotSet, HPS (6 Q towers of 26 bits, 2 P towers, 3 digits)."""
+    return CCParams(scheme=Scheme.BFVRNS_SCHEME, ring_dim=1 << 14,
+                    mult_depth=2, plaintext_modulus=65537,
+                    security_level=SecurityLevel.HEStd_NotSet)
+
+
 def _distinct_prime_chain(order: int, bit_sizes, forbidden=()) -> list:
     """Primes = 1 mod order with the given bit sizes, all distinct."""
     used = set(forbidden)

@@ -32,7 +32,16 @@ context over a batch of 64 gates and also times the host's per-gate
 schedule (`binfhe/blind_rotate.lmkcdey_sched`). `--op sharded`
 traces the limb-sharded EvalMult of `parallel/sharded_fused.py` at level 3
 (28 Q towers) over a limb axis of 4 on the visible cards (all four shards
-on one card when there is one), inputs sharded beforehand. Prints the
+on one card when there is one), inputs sharded beforehand. `--op
+bgvmult` builds BGV at the JAX repo's BGV benchmark (`bench.py`
+`bench_bfvbgv`: N=2^15, depth 10, FLEXIBLEAUTO, t = 65537) and traces
+EvalMult of two fresh ciphertexts (the fused mult chain with t in its
+tables), `bgvmodreduce` ModReduce of their product (two towers: per
+tower one inverse NTT of the dropped tower and one forward NTT of the
+others, plain int64 torch around them), `bfvmult` EvalMult on BFV at
+`bench_bfvbgv`'s N=2^14, depth 2 (the tensor product: NTTs and
+conversions, plain int64 torch around them, then Relinearize on the
+fused chain); the integer ops share their scheme's context. Prints the
 device time of every kernel name (summed over the calls, divided by
 their number) with its launches per call, the share taken by the port's
 own kernels (`csrc/`) against the plain torch ops around them (the
@@ -55,7 +64,8 @@ import torch
 
 CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "rescale": 5,
          "fastrotation": 5, "encrypt": 5, "decrypt": 5, "ginx": 2,
-         "lmkcdey": 2, "sharded": 5, "logistic": 2, "logistic119": 2}
+         "lmkcdey": 2, "sharded": 5, "logistic": 2, "logistic119": 2,
+         "bgvmult": 5, "bgvmodreduce": 5, "bfvmult": 5}
 # --op logistic / logistic119: (a, b, degree) of EvalLogistic
 LOGISTIC = {"logistic": (-1.0, 1.0, 32), "logistic119": (-8.0, 8.0, 119)}
 SHARDED_LEVEL = 3
@@ -94,7 +104,10 @@ def main(argv=None) -> int:
         op = {"ginx": _ginx_op, "lmkcdey": _lmkcdey_op,
               "sharded": _sharded_op,
               "logistic": lambda: _logistic_op(name),
-              "logistic119": lambda: _logistic_op(name)}.get(
+              "logistic119": lambda: _logistic_op(name),
+              "bgvmult": lambda: _integer_op(name),
+              "bgvmodreduce": lambda: _integer_op(name),
+              "bfvmult": lambda: _integer_op(name)}.get(
                   name, lambda: _ckks_op(name))()
         worst = max(worst, _trace(name, op, CALLS[name]))
     return worst
@@ -283,6 +296,30 @@ def time_encodes(cc) -> dict:
 
     cc.MakeCKKSPackedPlaintext = timed_encode
     return encodes
+
+
+@functools.lru_cache(maxsize=None)
+def _integer_context(scheme: str):
+    """BGV or BFV at `bench_bfvbgv`'s widths, its keys and two fresh
+    encryptions of arange(64) % 17 (the benchmark's values)."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch.pke import parameters as prm
+
+    params = (prm.bgv_bench_params() if scheme == "bgv"
+              else prm.bfv_bench_params())
+    cc = fhe.GenCryptoContext(params, seed=7)
+    kp = cc.KeyGen()
+    cc.EvalMultKeyGen(kp.secret_key)
+    pt = cc.MakePackedPlaintext(np.arange(64) % 17)
+    return cc, cc.Encrypt(kp.public_key, pt), cc.Encrypt(kp.public_key, pt)
+
+
+def _integer_op(name: str):
+    cc, a, b = _integer_context(name[:3])
+    if name == "bgvmodreduce":
+        prod = cc.EvalMult(a, b)
+        return lambda: cc.ModReduce(prod)
+    return lambda: cc.EvalMult(a, b)
 
 
 def _ckks_op(name: str):

@@ -284,10 +284,25 @@ def test_convert_without_device_needs_a_gpu(jax_side):
 @pytest.mark.parametrize("option", [
     dict(scheme=fhe.Scheme.BGVRNS_SCHEME, plaintext_modulus=65537),
     dict(scheme=fhe.Scheme.BFVRNS_SCHEME, plaintext_modulus=65537),
-    dict(ks_technique=fhe.KeySwitchTechnique.BV)])
+    dict(ks_technique=fhe.KeySwitchTechnique.BV),
+    dict(scheme=fhe.Scheme.BGVRNS_SCHEME, plaintext_modulus=65537,
+         multiparty_mode=fhe.pke.constants.MultipartyMode
+         .NOISE_FLOODING_MULTIPARTY)])
 def test_unported_options_raise(option):
-    """The options the port still lacks raise; every scaling technique and
-    noise-flooding decryption are ported (tests/test_torch_leveled.py)."""
+    """BGV, BFV and BV key switching are ported
+    (tests/test_torch_bgv.py, test_torch_bfv.py, test_torch_bv.py): each
+    builds its context on the CPU with its scheme and key-switch
+    technique. Multiparty is not: NOISE_FLOODING_MULTIPARTY, which changes
+    the integer schemes' chains, still raises."""
     p = dataclasses.replace(_port_params(), **option)
-    with pytest.raises(NotImplementedError):
-        fhe.GenCryptoContext(p, device="cpu")
+    if "multiparty_mode" in option:
+        with pytest.raises(NotImplementedError):
+            fhe.GenCryptoContext(p, device="cpu")
+        return
+    cc = fhe.GenCryptoContext(p, device="cpu")
+    assert cc.GetScheme() == p.scheme
+    assert cc.params.ks_technique == p.ks_technique
+    if p.ks_technique == fhe.KeySwitchTechnique.BV:
+        assert cc.moduli_p == [] and cc.basis_qp is cc.basis_q
+    else:
+        assert len(cc.moduli_p) > 0

@@ -475,8 +475,9 @@ def test_staged_entries_are_registered():
     # the cluster form also reads the Q_l towers' Basis.red64
     assert src["intt_conv_p"] == [p] * 12 + [i] * 3 + [p]
     assert src["intt_conv_p_staged"] == [p] * 11 + [i] * 3 + [p]
-    # K6f: the staged form takes scratch where the cluster form takes red
-    assert src["ntt_submul_final"] == [p] * 13 + [i] * 4 + [p]
+    # K6f: the staged form takes scratch where the cluster form takes red;
+    # both take t (with its companion) and the t_mul flag, as K6 does
+    assert src["ntt_submul_final"] == [p] * 15 + [i] * 5 + [p]
     assert src["ntt_submul_final_staged"] == src["ntt_submul_final"]
     # K2: y in place with red64 and kql, or the padded digits
     assert src["conv_digits"] == [p] * 6 + [i] * 5 + [p]

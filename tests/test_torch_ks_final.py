@@ -51,7 +51,8 @@ N = 1 << 12
 def model_submul(convq, ext, inputs, tabs, ext_off, log_w):
     """submul_cluster: convq [2, kql, N], ext [2, R, N] (rows ext_off ..
     ext_off + kql - 1 read), inputs (a0, a1, b0, b1) each [kql, N] ->
-    out [2, kql, N]."""
+    out [2, kql, N]; the transform's words times t (Shoup) where the
+    tables carry BGV's t."""
     kql, n = convq.shape[1], convq.shape[2]
     log_n = n.bit_length() - 1
     bq = tabs.basis_ql
@@ -59,6 +60,8 @@ def model_submul(convq, ext, inputs, tabs, ext_off, log_w):
     psi = mo.to_u32(bq.psi_br).astype(np.int64)
     pv = mo.to_u32(tabs.pinv_q).astype(np.uint64)[:, 0]
     pv_sh = mo.to_u32(tabs.pinv_q_sh).astype(np.uint64)[:, 0]
+    tv = mo.to_u32(tabs.t_modq).astype(np.uint64)[:, 0]
+    tv_sh = mo.to_u32(tabs.t_modq_sh).astype(np.uint64)[:, 0]
     red = mo.to_u32(bq.red64).astype(np.uint64)
     a0, a1, b0, b1 = (x.astype(np.uint64) for x in inputs)
     out = np.zeros((2, kql, n), np.uint64)
@@ -70,6 +73,8 @@ def model_submul(convq, ext, inputs, tabs, ext_off, log_w):
         def epi(rank, a, idx, e=e, tau=tau, qt=qt):
             assert (idx[:, 0] == fwd_out_word(rank, log_n, log_w)).all()
             word = a[0].astype(np.uint64)
+            if not tabs.t_is_one:
+                word = shoup(word, tv[tau], tv_sh[tau], qt)
             xe = ext[e, ext_off + tau][idx].astype(np.uint64)
             p0, q0 = a0[tau][idx], b0[tau][idx]
             if e == 0:
@@ -103,14 +108,15 @@ def model_conv_digits(y, tabs, splits):
 # the cases
 # ---------------------------------------------------------------------------
 
-def _case(mq, mp, kql, num_parts, seed, k_q_full=None, extra=0):
+def _case(mq, mp, kql, num_parts, seed, k_q_full=None, extra=0,
+          ns_int=1):
     """Port tables and inputs for the level with kql of the Q towers mq;
     ext has `extra` rows before the Q_l*P rows (ext_off = extra)."""
     rng = np.random.default_rng(seed)
     kf = k_q_full or len(mq)
     qlp = mq[:kql] + mp
     tabs = ks_fused.make_fused_ks_tables(make_basis(qlp, N), kql, kf,
-                                         num_parts)
+                                         num_parts, ns_int=ns_int)
     ext = _rand(rng, qlp, (2,))
     if extra:
         ext = np.concatenate([_rand(rng, mq[:extra], (2,)), ext], axis=1)
@@ -203,14 +209,19 @@ def test_models_match_jax_kernels_and_twins(chains27, key, log_w):
         assert k2[j, other].any(axis=-1).all()
 
 
-@pytest.mark.parametrize("log_w,extra", [(12, 0), (10, 2)],
+@pytest.mark.parametrize("log_w,extra,t", [(12, 0, 1), (10, 2, 1)],
                          ids=["C1", "C4-ext_off-2"])
-def test_models_on_31_bit_primes_match_jax_ntt_and_twins(log_w, extra):
+def test_models_on_31_bit_primes_match_jax_ntt_and_twins(log_w, extra, t):
     """4 Q + 2 P of the largest 31-bit primes in 2 digits: the models
     against the twins, and K6f against JAX's stage transform with exact
-    products, K2 against the exact conversion."""
+    products (the transform times t where the tables carry BGV's t, as
+    the unfused mod-down multiplies the conversion by t), K2 against the
+    exact conversion. `tests/test_torch_bgv.py` runs it with t =
+    65537."""
     mods = _top31(6)
-    case = _case(mods[:4], mods[4:], 4, 2, 31 + extra, extra=extra)
+    case = _case(mods[:4], mods[4:], 4, 2, 31 + extra, extra=extra,
+                 ns_int=t)
+    tt = t
     t = case["tabs"]
     k6f = model_submul(case["convq"], case["ext"], case["inputs"], t, extra,
                        log_w)
@@ -230,6 +241,7 @@ def test_models_on_31_bit_primes_match_jax_ntt_and_twins(log_w, extra):
                                       dtype=object)) % int(qi), -1, int(qi))
                      for qi in q[:, 0]], np.uint64).reshape(-1, 1)
     xq = case["ext"][:, extra:extra + 4].astype(np.uint64)
+    s = s * (tt % q)[None] % q
     want = np.stack([(c + (x - v + q) % q * pinv) % q
                      for c, x, v in zip((c0, c1), xq, s)])
     np.testing.assert_array_equal(k6f, want)
