@@ -185,7 +185,35 @@ is not beside it. Phases, none of which catches its own failure:
    KeySwitchDown, then Rescale, held to EXT_SUM_TOL against the sum of
    Rescale(EvalRotate) and the rotated decryption of Rescale(prod), and at
    level 20 word for word against the port's plain path on the CPU;
-9. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+9. CKKS bootstrapping (`pke/fhe/ckks_bootstrap.py`, `fbt.py`,
+   `schemelet.py`), which launches only kernels the phases above hold
+   (the NTTs, the conversion in the composite ModRaise and the hoisted
+   rotations, the fused key switches of EvalMult / EvalSquare /
+   EvalRotate / EvalConjugate): (a) `bench.py`'s bench_boot16 at full
+   width (N=2^16, depth 24, COMPOSITESCALINGAUTO at 50-bit scales over two
+   towers a level, 51-bit first level, 26-bit P towers, 3 digits,
+   HEStd_NotSet, seed 7; 2^11 slots, level budget (3, 3); z uniform in
+   [-0.5, 0.5) from default_rng(0), the ciphertext two levels from the
+   end): context, KeyGen, EvalMultKeyGen, EvalBootstrapKeyGen, then a
+   cold and a warm EvalBootstrap, each counted from a cleared counter
+   (its walls with CUDA events, the encodes of its plaintexts and their
+   share of the wall, its hoisted and plain rotations); the warm one's
+   launches are the kernels line's `launches_per_bootstrap`, its device
+   busy time, idle gaps and top device ops come from torch.profiler; the
+   decryption must keep BOOT16_BITS of precision, the output more than
+   two towers, and the words must equal those of the same context through
+   the unfused chain (`unfused_view`); the peak device memory is printed;
+   (b) bench_boot (N=2^12, depth 20, 256 slots, budget (2, 2)): the card's
+   EvalBootstrap word-equal to the port's plain path on the CPU from the
+   same keys and ciphertext (`cpu_twin`), BOOT_BITS; (c) on (b)'s
+   context EvalBootstrapStCFirst (STC_BITS) and the two-round
+   EvalBootstrap (more than TWO_ROUND_GAIN bits over one round), then
+   EvalFBT of a p = 8 LUT at `examples/functional_bootstrapping_ckks.py`'s
+   configuration on N=2^12 (FBT_CONFIG): the LUT back exactly after
+   rounding. Every kernel of the path must have been launched in (a)'s
+   runs and no former form;
+10. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+   line.
 
 bound_ms is the least time the card could take for a call: the larger of
 its bytes (each input read once, each output written once) at 3.35 TB/s
@@ -436,7 +464,6 @@ SUM_BATCH = 64
 SUM_TOL = 2e-2
 REPS = 20
 PROFILE_TRIES = 5
-PROFILE_LEAD_S = 0.05
 SPIN_CYCLES = 2_000_000   # about 1 ms at the H100's clock
 
 # phase 7: the leveled CKKS layer (FLEXIBLEAUTO at the main path's widths)
@@ -485,6 +512,24 @@ LEVELED_LIMITS = {
 # the noise allowance of each function call, added to `cheb_error`
 FUNC_NOISE = {"EvalLogistic": 1e-2, "EvalSin": 3e-2,
               "EvalLogistic wide": 1.5e-2}
+
+# phase 9: CKKS bootstrapping. (ring, depth, slots, level budget) of
+# `bench.py`'s bench_boot16 (a) and bench_boot (b, c); both
+# COMPOSITESCALINGAUTO at 50-bit scales (`boot_bench_params`)
+BOOT_SEED = 7
+BOOT16 = (1 << 16, 24, 1 << 11, (3, 3))
+BOOT12 = (1 << 12, 20, 256, (2, 2))
+# the reference's documented single-round floor
+# (tests/test_bootstrap.py:163-165), and StCFirst's
+BOOT16_BITS = BOOT_BITS = 10.0
+STC_BITS = 4.0
+TWO_ROUND_GAIN = 0.3      # tests/test_bootstrap.py:93
+# (c) EvalFBT at examples/functional_bootstrapping_ckks.py's configuration
+# (FLEXIBLEAUTO, 28/30-bit moduli, depth 22, 8 slots, p = 8) on N=2^12,
+# the largest ring of 2^9-2^12
+FBT_CONFIG = (1 << 12, 22, 8, 8)
+FBT_DIGITS = np.array([0, 3, 1, 7, 2, 6, 5, 4])
+FBT_LUT = np.array([1, 2, 4, 0, 6, 3, 7, 5])
 
 # phase 8: the integer schemes and the extended basis
 INT_SEED = 23
@@ -875,26 +920,18 @@ def count_launches(fn, names):
 
 
 def device_kernels(fn, want: int | None = None) -> list:
-    """The names of the device kernels one call of fn runs (torch.profiler,
-    after a call that warms up). With `want`, a profile that records
-    fewer kernels is printed and taken again, up to PROFILE_TRIES
-    profiles: late in a long process the first two profiles of phase 8
-    recorded only the last of a BGV EvalMult's 6 kernels (the H100),
-    where the third profile, a fresh process and the trace recorded all
-    6; each profile waits PROFILE_LEAD_S on the host before fn. A profile
-    that records more is returned as it is, for the caller's check to
-    refuse."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    """The names of the device kernels one call of fn runs, a name per
+    launch (`trace_evalmult.profile_device`: a profiler step that starts
+    the tracing, then the recorded call). Late in a long process a
+    session that recorded from its first call came up short: 1 of a BGV
+    EvalMult's 6 kernels in PR 15's runs, 0 of 6 five times in one of PR
+    16's, where a fresh process recorded all 6. With `want`, a profile
+    that records fewer is printed and taken again, up to PROFILE_TRIES
+    profiles; one that records more is returned as it is, for the
+    caller's check to refuse."""
+    from openfhe_tpu_torch.trace_evalmult import profile_device
     for attempt in range(PROFILE_TRIES):
-        with torch.profiler.profile(activities=acts) as prof:
-            time.sleep(PROFILE_LEAD_S)
-            fn()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        names = list(profile_device(fn)["launches"].elements())
         if want is None or len(names) >= want:
             break
         print(f"profile {attempt + 1} recorded {len(names)} device "
@@ -2163,6 +2200,208 @@ def integer_phase(card, gen, names, cases, staged, ckks) -> dict:
     return res
 
 
+def count_calls(cc, methods) -> collections.Counter:
+    """Make each of cc's `methods` count its calls in the returned
+    Counter (instance attributes over the class's methods, bound to cc:
+    delete them before `unfused_view(cc)`)."""
+    calls = collections.Counter()
+    for m in methods:
+        def counted(*args, _m=m, _f=getattr(cc, m), **kw):
+            calls[_m] += 1
+            return _f(*args, **kw)
+        setattr(cc, m, counted)
+    return calls
+
+
+def bootstrap_phase(card, names) -> dict:
+    """CKKS bootstrapping (see the module docstring, phase 9); raises on
+    any fault. Counted over (a)'s cold and warm EvalBootstrap alone, each
+    from a cleared counter; every oracle runs outside those windows."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.pke import parameters as prm
+    from openfhe_tpu_torch.pke.schemelet import SchemeletRLWEMP as SL
+    from openfhe_tpu_torch.trace_evalmult import (OWN, profile_device,
+                                                  time_encodes)
+    from openfhe_tpu_torch.utils.precision import \
+        calculate_approximation_error as precision
+    t_phase = time.perf_counter()
+    res = {"precision_bits": {}, "same": {}, "seconds": {}}
+
+    def floor(label, bits, limit):
+        res["precision_bits"][label] = bits
+        print(f"{label}: {bits:.2f} bits of precision (floor {limit})")
+        require(np.isfinite(bits) and bits >= limit,
+                f"{label}: {bits:.2f} bits, below {limit}")
+
+    def boot_context(ring_dim, depth, slots, budget):
+        cc = fhe.GenCryptoContext(prm.boot_bench_params(ring_dim, depth),
+                                  seed=BOOT_SEED)
+        cc.EvalBootstrapSetup(level_budget=budget, slots=slots)
+        kp = cc.KeyGen()
+        cc.EvalMultKeyGen(kp.secret_key)
+        cc.EvalBootstrapKeyGen(kp.secret_key, slots)
+        z = np.random.default_rng(0).uniform(-0.5, 0.5, slots)
+        ct = cc.LevelReduce(cc.Encrypt(kp.public_key,
+                                       cc.MakeCKKSPackedPlaintext(
+                                           z, slots=slots)), depth - 2)
+        return cc, kp, z, ct
+
+    # (a) bench_boot16 at full width
+    torch.cuda.reset_peak_memory_stats()
+    n, depth, slots, budget = BOOT16
+    t0 = time.perf_counter()
+    cc, kp, z, ct = boot_context(n, depth, slots, budget)
+    sk = kp.secret_key
+    torch.cuda.synchronize()
+    res["seconds"]["(a) context and keys"] = time.perf_counter() - t0
+    keys = len(cc.eval_automorphism_keys[sk.key_tag])
+    print(f"(a) bootstrap context: N=2^{n.bit_length() - 1}, "
+          f"{len(cc.moduli_q)} Q + {len(cc.moduli_p)} P towers, "
+          f"{len(cc.hybrid_tables(cc.size_ql(0)).parts)} digits, "
+          f"{keys} automorphism keys, {slots} slots, budget {budget}, input "
+          f"level {ct.level} ({cc.size_ql(ct.level)} towers); "
+          f"{res['seconds']['(a) context and keys']:.1f} s")
+    encodes = time_encodes(cc)
+    counted = ("EvalFastRotation", "EvalRotate", "EvalConjugate")
+    rotations = count_calls(cc, counted)
+    res["boot16"] = runs = {}
+    for run in ("cold", "warm"):
+        before, rot_before = dict(encodes), dict(rotations)
+        _build.LAUNCHES.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cc.EvalBootstrap(ct)
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end)
+        per = {k: _build.LAUNCHES[k] for k in names if _build.LAUNCHES[k]}
+        enc_ms = (encodes["s"] - before["s"]) * 1e3
+        runs[run] = dict(
+            wall_ms=wall, encodes=encodes["n"] - before["n"],
+            encode_ms=enc_ms, host_encode_share=enc_ms / wall,
+            rotations={k: rotations[k] - rot_before.get(k, 0)
+                       for k in rotations}, launches=per)
+        print(f"(a) {run} EvalBootstrap: wall {wall:.1f} ms (CUDA events, "
+              f"{card}); {runs[run]['encodes']} encodes {enc_ms:.1f} ms on "
+              f"the host ({enc_ms / wall:.0%} of the wall); rotations "
+              f"{runs[run]['rotations']} (EvalFastRotation hoisted); "
+              f"launches {per}")
+    res["launches"] = runs["warm"]["launches"]
+    for m in counted + ("MakeCKKSPackedPlaintext",):
+        delattr(cc, m)        # the class's methods again (unfused_view)
+    prof = profile_device(lambda: cc.EvalBootstrap(ct))
+    own_ms = sum(t for k, t in prof["per_name"].items()
+                 if any(f"{o}(" in k or f"{o}<" in k for o in OWN))
+    by_op = collections.Counter()
+    for k, t in prof["per_name"].items():
+        by_op[k[:60]] += t
+    runs["warm"].update(
+        device_busy_ms=prof["busy_ms"], own_kernels_ms=own_ms,
+        device_launches=sum(prof["launches"].values()),
+        idle_gaps_ms=prof["idle_ms"], idle_gaps=prof["gaps"],
+        top_device_ops={k: round(t, 4) for k, t in by_op.most_common(8)})
+    print(f"(a) warm EvalBootstrap under torch.profiler: device busy "
+          f"{prof['busy_ms']:.1f} ms in {runs['warm']['device_launches']} "
+          f"launches, the port's kernels {own_ms:.1f} ms; idle gaps "
+          f"{prof['idle_ms']:.1f} ms in {prof['gaps']}; top "
+          f"{runs['warm']['top_device_ops']}")
+    dec = np.asarray(cc.Decrypt(sk, out).values)[:slots]
+    floor("(a) EvalBootstrap N=2^16", precision(dec, z), BOOT16_BITS)
+    require(cc.size_ql(out.level) > 2,
+            f"(a) output keeps {cc.size_ql(out.level)} towers")
+    res["levels_after"] = cc.size_ql(out.level) // cc.comp_deg - 1
+    res["same"]["(a) fused == unfused"] = same_ct(
+        out, unfused_view(cc).EvalBootstrap(ct))
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"(a) output level {out.level} ({cc.size_ql(out.level)} towers); "
+          f"peak memory {res['peak_memory_gb']:.2f} GiB")
+    del cc, kp, sk, ct, out
+    torch.cuda.empty_cache()
+
+    # (b) bench_boot on the card and on the CPU's plain path
+    n, depth, slots, budget = BOOT12
+    cc, kp_b, z, ct = boot_context(n, depth, slots, budget)
+    sk = kp_b.secret_key
+    out = cc.EvalBootstrap(ct)
+    floor("(b) EvalBootstrap on the card", precision(
+        np.asarray(cc.Decrypt(sk, out).values)[:slots], z), BOOT_BITS)
+    t0 = time.perf_counter()
+    cpu, on_cpu = cpu_twin(cc, BOOT_SEED)
+    cpu.EvalBootstrapSetup(level_budget=budget, slots=slots)
+    res["same"]["(b) card == CPU"] = same_ct(out, cpu.EvalBootstrap(
+        on_cpu(ct)))
+    res["seconds"]["(b) CPU plain path"] = cpu_s = time.perf_counter() - t0
+    print(f"(b) N=2^{n.bit_length() - 1}, {len(cc.moduli_q)} Q + "
+          f"{len(cc.moduli_p)} P towers: card == CPU "
+          f"{res['same']['(b) card == CPU']} (CPU {cpu_s:.1f} s)")
+    del cpu
+
+    # (c) the other entry points on (b)'s card context; StCFirst takes a
+    # fresh encryption (S2C first needs l_dec + 2 levels: it brings the
+    # input down to them itself)
+    fresh = cc.Encrypt(kp_b.public_key, cc.MakeCKKSPackedPlaintext(
+        z, slots=slots))
+    out = cc.EvalBootstrapStCFirst(fresh)
+    floor("(c) EvalBootstrapStCFirst", precision(
+        np.asarray(cc.Decrypt(sk, out).values)[:slots], z), STC_BITS)
+    prec1 = precision(np.asarray(cc.Decrypt(
+        sk, cc.EvalBootstrap(ct)).values)[:slots], z)
+    prec2 = precision(np.asarray(cc.Decrypt(
+        sk, cc.EvalBootstrap(ct, num_iterations=2)).values)[:slots], z)
+    res["precision_bits"]["(c) two rounds: one, two"] = (prec1, prec2)
+    print(f"(c) two-round EvalBootstrap: {prec1:.2f} -> {prec2:.2f} bits "
+          f"(must gain {TWO_ROUND_GAIN})")
+    require(prec2 > prec1 + TWO_ROUND_GAIN,
+            f"(c) two rounds gave {prec2:.2f} bits against {prec1:.2f}")
+    del cc, ct, fresh, out
+    torch.cuda.empty_cache()
+
+    n, depth, slots, p_in = FBT_CONFIG
+    fc = fhe.GenCryptoContext(fhe.CCParams(
+        scheme=fhe.Scheme.CKKSRNS_SCHEME, ring_dim=n, mult_depth=depth,
+        scaling_mod_size=28, first_mod_size=30, batch_size=slots,
+        security_level=fhe.SecurityLevel.HEStd_NotSet,
+        scaling_technique=fhe.ScalingTechnique.FLEXIBLEAUTO), seed=14)
+    fc.EvalFBTSetup(num_slots=slots, p_in=p_in)
+    kp = fc.KeyGen()
+    fc.EvalMultKeyGen(kp.secret_key)
+    fc.EvalFBTKeyGen(kp.secret_key, slots)
+    q0, last = fc.moduli_q[0], len(fc.moduli_q) - 1
+    polys = SL.encrypt_coeff(fc, kp.secret_key, FBT_DIGITS, q0, p_in,
+                             level=last)
+    fct = dataclasses.replace(
+        SL.convert_rlwe_to_ckks(fc, polys, q0, slots=slots, level=last,
+                                scale=q0 / p_in),
+        key_tag=kp.secret_key.key_tag)
+    got = np.round(np.asarray(fc.Decrypt(kp.secret_key, fc.EvalFBT(
+        fct, FBT_LUT, p_in, decode=False)).values).real[:slots])
+    res["fbt_lut_exact"] = ok = bool(np.array_equal(got,
+                                                    FBT_LUT[FBT_DIGITS]))
+    print(f"(c) EvalFBT p = {p_in} at N=2^{n.bit_length() - 1}, depth "
+          f"{depth}: {got.astype(int).tolist()} against "
+          f"{FBT_LUT[FBT_DIGITS].tolist()}")
+    require(ok, "(c) EvalFBT's LUT did not come back after rounding")
+    del fc
+
+    print(f"bootstrap phase words equal: {res['same']}")
+    require(all(res["same"].values()),
+            f"bootstrap phase words differ: "
+            f"{[k for k, v in res['same'].items() if not v]}")
+    path = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod", "tensor_intt",
+            "conv_digits", "ntt_keymul_acc", "intt_conv_p",
+            "ntt_submul_final", "intt_scale", "ntt_subscale")
+    require(all(res["launches"].get(k, 0) > 0 for k in path),
+            f"a kernel of the bootstrap's path was not launched: "
+            f"{res['launches']}")
+    require(not any(res["launches"].get(k, 0) for k in STAGED),
+            f"the bootstrap ran a staged form: {res['launches']}")
+    res["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"bootstrap phase: {res['seconds']['phase']:.1f} s")
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -2633,7 +2872,10 @@ def main() -> int:
                             dict(cc=cc, sk=sk, prod=prod))
     per_int = integer["per_mult"]
 
-    # 9. the kernels line, then the device line
+    # 9. CKKS bootstrapping, counted over (a)'s two EvalBootstraps
+    boot = bootstrap_phase(card, names)
+
+    # 10. the kernels line, then the device line
     kernels = []
     for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
@@ -2656,6 +2898,9 @@ def main() -> int:
             launches_per_bgv_mult=per_int["bgv"].get(name, 0),
             launches_per_bfv_mult=per_int["bfv"].get(name, 0),
             launches_per_bv_mult=per_int["bv"].get(name, 0),
+            launches_per_bootstrap=boot["launches"].get(name, 0),
+            launches_per_cold_bootstrap=boot["boot16"]["cold"][
+                "launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -2691,7 +2936,11 @@ def main() -> int:
                           "calls", "errors", "limits", "deepest_level",
                           "seconds")},
                       "integer": {k: integer[k] for k in (
-                          "exact", "errors", "seconds")}}))
+                          "exact", "errors", "seconds")},
+                      "bootstrap": {k: boot[k] for k in (
+                          "boot16", "precision_bits", "same",
+                          "levels_after", "peak_memory_gb",
+                          "fbt_lut_exact", "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

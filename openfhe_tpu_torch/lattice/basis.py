@@ -64,6 +64,13 @@ class Basis:
         return self._map(lambda name: getattr(self, name)[start:stop],
                          self.moduli[start:stop])
 
+    def take(self, idx: tuple) -> "Basis":
+        """Sub-basis of any tuple of tower indices, in that order (fresh
+        contiguous tables)."""
+        ix = torch.as_tensor(list(idx), dtype=torch.long, device=self.device)
+        return self._map(lambda name: getattr(self, name)[ix],
+                         [self.moduli[i] for i in idx])
+
     def to(self, device) -> "Basis":
         """The same basis with its tables on `device`."""
         return self._map(lambda name: getattr(self, name).to(device),

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from openfhe_tpu_torch.lattice.basis import Basis
@@ -26,11 +27,16 @@ class SwitchTables:
 
     bhat_inv[i]      = [(B/b_i)^{-1}]_{b_i}, [k_in, 1] (+ Shoup)
     bhat_mod_d[i, j] = [B/b_i]_{d_j}, [k_in, k_out] (+ Shoup)
+    b_mod_d[j]       = [B]_{d_j}, [k_out, 1] (+ Shoup), for the exact switch
+    b_inv_f32[i]     = 1 / b_i in float32, [k_in, 1], its overflow count
     """
     bhat_inv: torch.Tensor
     bhat_inv_sh: torch.Tensor
     bhat_mod_d: torch.Tensor
     bhat_mod_d_sh: torch.Tensor
+    b_mod_d: torch.Tensor
+    b_mod_d_sh: torch.Tensor
+    b_inv_f32: torch.Tensor
 
 
 def make_switch_tables(from_moduli, to_moduli, device="cpu") -> SwitchTables:
@@ -44,9 +50,15 @@ def make_switch_tables(from_moduli, to_moduli, device="cpu") -> SwitchTables:
     mat = [[h % d for d in to_moduli] for h in bhat]
     mat_sh = [[(v << 32) // d for v, d in zip(row, to_moduli)]
               for row in mat]
+    bm, bm_sh = mo.shoup_pair([big_b % d for d in to_moduli], to_moduli,
+                              device)
+    inv = np.array([1.0 / b for b in from_moduli], np.float32)
     return SwitchTables(bhat_inv=c, bhat_inv_sh=c_sh,
                         bhat_mod_d=mo.u32_tensor(mat, device),
-                        bhat_mod_d_sh=mo.u32_tensor(mat_sh, device))
+                        bhat_mod_d_sh=mo.u32_tensor(mat_sh, device),
+                        b_mod_d=bm, b_mod_d_sh=bm_sh,
+                        b_inv_f32=torch.from_numpy(inv.reshape(-1, 1)).to(
+                            device))
 
 
 def switch_crt_basis_approx(x: torch.Tensor, in_basis: Basis,
@@ -65,6 +77,23 @@ def _accumulate_converted(y: torch.Tensor, tab: SwitchTables,
     """sum_i y_i * [B/b_i]_{d_j} mod d_j: the base-conversion kernel."""
     return mod_matmul_rowmod(y, tab.bhat_mod_d, tab.bhat_mod_d_sh,
                              out_basis.q, out_basis.red64)
+
+
+def switch_crt_basis_exact(x: torch.Tensor, in_basis: Basis,
+                           out_basis: Basis,
+                           tab: SwitchTables) -> torch.Tensor:
+    """SwitchCRTBasis (HPS, dcrtpoly.h:251): x mod D for x < B, with the
+    overflow count u = floor(sum_i y_i / b_i) estimated in float32 as the
+    JAX package does (each product in float32, the sum over the input
+    towers in float32). Within about B 2^-23 of 0 or B the estimate can be
+    off by one, and the result then moves by B mod D; the bootstrap's
+    EvalMod absorbs that (a multiple of q0)."""
+    y = mo.mul_mod_shoup(x, tab.bhat_inv, tab.bhat_inv_sh, in_basis.q)
+    frac = mo.u32(y).float() * tab.b_inv_f32
+    u = torch.floor(frac.sum(dim=-2, keepdim=True)).int()
+    acc = _accumulate_converted(y, tab, out_basis)
+    corr = mo.mul_mod_shoup(u, tab.b_mod_d, tab.b_mod_d_sh, out_basis.q)
+    return mo.sub_mod(acc, corr, out_basis.q)
 
 
 # ---------------------------------------------------------------------------

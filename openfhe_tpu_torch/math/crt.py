@@ -22,14 +22,20 @@ def crt_precompute(moduli):
     return big, coeffs
 
 
-def interpolate_centered(residues: np.ndarray, moduli) -> np.ndarray:
-    """Exact CRT lift of [k, N] residues centered to (-Q/2, Q/2], as an
-    object (Python int) array."""
+def interpolate(residues: np.ndarray, moduli) -> tuple:
+    """Exact CRT lift of [k, N] residues -> (object array of Python ints
+    in [0, Q), Q)."""
     big, coeffs = crt_precompute(moduli)
     acc = np.zeros(residues.shape[-1], dtype=object)
     for i, c in enumerate(coeffs):
         acc = acc + residues[i].astype(np.int64).astype(object) * c
-    acc = acc % big
+    return acc % big, big
+
+
+def interpolate_centered(residues: np.ndarray, moduli) -> np.ndarray:
+    """Exact CRT lift of [k, N] residues centered to (-Q/2, Q/2], as an
+    object (Python int) array."""
+    acc, big = interpolate(residues, moduli)
     return np.where(acc > big >> 1, acc - big, acc)
 
 

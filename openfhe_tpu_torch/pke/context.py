@@ -39,11 +39,23 @@ mult chain with t. The extended-basis family: KeySwitchExt,
 EvalFastRotationExt, EvalAddExt / EvalSubExt, KeySwitchDown and
 KeySwitchDownFirstElement, and SparseKeyGen.
 
+CKKS bootstrapping (`fhe/ckks_bootstrap.py`, `fhe/fft_transform.py`):
+EvalBootstrapSetup / Precompute / KeyGen, GetBootstrapDepth,
+SetCKKSBootCorrectionFactor, EvalBootstrap (one round and Meta-BTS's
+two) and EvalBootstrapStCFirst, with the diagonals' encodings cached per
+context (`_cached_plaintext`); functional bootstrapping (`fhe/fbt.py`
+over the RLWE schemelet of `schemelet.py`): EvalFBTSetup / KeyGen,
+EvalFBT(NoDecoding), EvalMVBPrecompute, EvalMVB(NoDecoding) and
+EvalHomDecoding. The key stores: EvalMultKeysGen, InsertEvalMultKey /
+InsertEvalSumKey, the Clear* methods (this context's stores only) and
+SetPrivateKey / GetPrivateKey; JitPipeline returns its function, run
+eagerly.
+
 Not ported (NotImplementedError or absent): EvalHermiteTrigSeries,
-JitPipeline, serialization, multiparty (NOISE_FLOODING_MULTIPARTY raises
-for BGV and BFV), PRE, the bootstrap and scheme switching. Ciphertexts of
-three or more elements are refused where the JAX package reads two and
-drops the rest.
+serialization, multiparty and interactive bootstrapping
+(NOISE_FLOODING_MULTIPARTY raises for BGV and BFV), PRE and scheme
+switching. Ciphertexts of three or more elements are refused where the
+JAX package reads two and drops the rest.
 
 Devices are explicit: the context's tensors live on `device`, `cuda` when
 None (it raises if there is no GPU). Randomness comes from one
@@ -82,6 +94,7 @@ from openfhe_tpu_torch.pke.constants import (DecryptionNoiseMode,
                                              SecretKeyDist)
 from openfhe_tpu_torch.pke.encoding import ckks_packed
 from openfhe_tpu_torch.pke.encoding.packed import coef_encode, string_encode
+from openfhe_tpu_torch.pke.fhe import ckks_bootstrap, fbt
 from openfhe_tpu_torch.pke.keys import EvalKey, KeyPair, PrivateKey, PublicKey
 from openfhe_tpu_torch.pke.keyswitch import bv, hybrid, ks_fused
 from openfhe_tpu_torch.pke.schemes import bfv, bgv, rns_pke
@@ -132,7 +145,13 @@ class CryptoContext:
         self._rescale_cache: dict = {}
         self.eval_mult_keys: dict = {}
         self.eval_automorphism_keys: dict = {}   # key_tag -> {g: EvalKey}
+        self.eval_sum_keys: dict = {}            # key_tag -> True
         self._auto_idx_cache: dict = {}
+        # the bootstrap's state: its precompute per slot count, the
+        # composite ModRaise's tables and the encoded diagonals
+        self._boot_precom: dict = {}
+        self._modraise_cache: dict = {}
+        self._pt_cache: dict = {}
 
     # ------------------------------------------------------------------
     # parameter generation
@@ -254,6 +273,11 @@ class CryptoContext:
 
     def SetKeyGenLevel(self, level: int) -> None:
         self._keygen_level = level
+
+    def SetCKKSBootCorrectionFactor(self, factor: int) -> None:
+        """The bootstrap correction factor for the next Setup (reference
+        SetCKKSBootCorrectionFactor)."""
+        self._boot_correction_override = int(factor)
 
     def GetCKKSDataType(self):
         return self.params.ckks_data_type
@@ -378,6 +402,9 @@ class CryptoContext:
         sk2 = PrivateKey(s_qp=s_sq, key_tag=sk.key_tag)
         self.eval_mult_keys[sk.key_tag] = self.KeySwitchGen(sk2, sk)
 
+    def EvalMultKeysGen(self, sk: PrivateKey) -> None:
+        self.EvalMultKeyGen(sk)
+
     def _automorphism_keygen(self, sk: PrivateKey, g: int) -> EvalKey:
         """Key switching s(X^g) -> s."""
         s_g = torch.index_select(sk.s_qp, -1, self._auto_idx(g))
@@ -404,6 +431,43 @@ class CryptoContext:
     def InsertEvalAutomorphismKey(self, key_map: dict, key_tag: str) -> None:
         self.eval_automorphism_keys.setdefault(key_tag, {}).update(key_map)
 
+    def InsertEvalMultKey(self, ek: EvalKey, key_tag: str | None = None
+                          ) -> None:
+        self.eval_mult_keys[key_tag or ek.key_tag] = ek
+
+    def InsertEvalSumKey(self, key_map: dict, key_tag: str) -> None:
+        """Sum keys are automorphism keys (reference InsertEvalSumKey)."""
+        self.InsertEvalAutomorphismKey(key_map, key_tag)
+
+    # the key stores (the reference's static maps, cryptocontext.h:243-245)
+    # belong to this context: Clear* empties this context's stores only
+    def ClearEvalMultKeys(self, key_tag: str | None = None) -> None:
+        if key_tag is None:
+            self.eval_mult_keys.clear()
+        else:
+            self.eval_mult_keys.pop(key_tag, None)
+
+    def ClearEvalAutomorphismKeys(self, key_tag: str | None = None) -> None:
+        if key_tag is None:
+            self.eval_automorphism_keys.clear()
+        else:
+            self.eval_automorphism_keys.pop(key_tag, None)
+
+    ClearEvalSumKeys = ClearEvalAutomorphismKeys
+
+    def ClearStaticMapsAndVectors(self) -> None:
+        self.ClearEvalMultKeys()
+        self.ClearEvalAutomorphismKeys()
+        self.eval_sum_keys.clear()
+
+    def SetPrivateKey(self, sk: PrivateKey) -> None:
+        """Keep a secret key in the context for noise inspection
+        (reference cryptocontext.h:469-482, always available here)."""
+        self._debug_private_key = sk
+
+    def GetPrivateKey(self) -> PrivateKey | None:
+        return getattr(self, "_debug_private_key", None)
+
     # ------------------------------------------------------------------
     # encoding
     # ------------------------------------------------------------------
@@ -429,6 +493,21 @@ class CryptoContext:
         return Plaintext(poly=poly, fmt=EVAL, level=level,
                          noise_deg=scale_deg, scale=scale, slots=slots,
                          values=np.asarray(values))
+
+    def _cached_plaintext(self, values, level: int, slots: int,
+                          scale_deg: int = 1) -> Plaintext:
+        """The CKKS encoding of a long-lived array (the bootstrap's
+        diagonal tables), made once per context, level, slot count and
+        degree. Keyed by the array's identity as in the JAX package; an
+        entry also holds the array, so its id cannot pass to another
+        array while the entry lives, and an entry made for another array
+        is never returned."""
+        key = (id(values), level, slots, scale_deg)
+        hit = self._pt_cache.get(key)
+        if hit is None or hit[0] is not values:
+            hit = self._pt_cache[key] = (values, self.MakeCKKSPackedPlaintext(
+                values, scale_deg=scale_deg, level=level, slots=slots))
+        return hit[1]
 
     def MakePackedPlaintext(self, values, noise_deg: int = 1,
                             level: int = 0) -> Plaintext:
@@ -1083,6 +1162,7 @@ class CryptoContext:
 
     def EvalSumKeyGen(self, sk: PrivateKey, batch_size=None) -> None:
         advanced.eval_sum_keygen(self, sk, batch_size)
+        self.eval_sum_keys[sk.key_tag] = True
 
     def EvalSum(self, ct: Ciphertext, batch_size=None) -> Ciphertext:
         return advanced.eval_sum(self, ct, batch_size)
@@ -1171,6 +1251,97 @@ class CryptoContext:
 
     def EvalDivide(self, ct: Ciphertext, a, b, degree) -> Ciphertext:
         return advanced.eval_divide(self, ct, a, b, degree)
+
+    def JitPipeline(self, fn):
+        """`fn` itself, run eagerly. The JAX package compiles a pipeline
+        into one XLA program with the key maps and the plaintext cache as
+        arguments; here every op launches as it is called, so there is
+        nothing to compile and `cc.JitPipeline(fn)(ct)` is `fn(ct)`."""
+        return fn
+
+    # ------------------------------------------------------------------
+    # CKKS bootstrapping (reference cryptocontext.h:3513-3548;
+    # `fhe/ckks_bootstrap.py`)
+    # ------------------------------------------------------------------
+
+    def GetBootstrapDepth(self, level_budget=(1, 1)) -> int:
+        """(reference FHECKKSRNS::GetBootstrapDepth)"""
+        return ckks_bootstrap.get_bootstrap_depth(
+            level_budget, self.params.secret_key_dist, self.ring_dim)
+
+    def EvalBootstrapSetup(self, level_budget=(1, 1), dim1=(0, 0),
+                           slots: int = 0, correction_factor: int = 0):
+        if correction_factor == 0:
+            correction_factor = getattr(self, "_boot_correction_override", 0)
+        self._boot_setup_args = (level_budget, dim1, correction_factor)
+        ckks_bootstrap.eval_bootstrap_setup(self, level_budget, dim1, slots,
+                                            correction_factor)
+
+    def EvalBootstrapPrecompute(self, slots: int = 0):
+        """The precompute for another slot count with the Setup's level
+        budgets (reference EvalBootstrapPrecompute,
+        cryptocontext.h:3526)."""
+        args = getattr(self, "_boot_setup_args", None)
+        if args is None:
+            raise RuntimeError("call EvalBootstrapSetup first")
+        level_budget, dim1, correction = args
+        ckks_bootstrap.eval_bootstrap_setup(self, level_budget, dim1, slots,
+                                            correction)
+
+    def EvalBootstrapKeyGen(self, sk: PrivateKey, slots: int = 0):
+        ckks_bootstrap.eval_bootstrap_keygen(self, sk, slots)
+
+    def EvalBootstrap(self, ct: Ciphertext, num_iterations: int = 1,
+                      precision: int = 0) -> Ciphertext:
+        return ckks_bootstrap.eval_bootstrap(self, ct, num_iterations,
+                                             precision)
+
+    def EvalBootstrapStCFirst(self, ct: Ciphertext, num_iterations: int = 1,
+                              precision: int = 0) -> Ciphertext:
+        """SlotsToCoeffs first, the output in slot form (reference
+        EvalBootstrapStCFirst, ckksrns-fhe.cpp:839)."""
+        return ckks_bootstrap.eval_bootstrap_stc_first(
+            self, ct, num_iterations, precision)
+
+    # ------------------------------------------------------------------
+    # vectorized functional bootstrapping (reference cryptocontext.h:3568
+    # EvalFBT / EvalMVB over the RLWE schemelet; `fhe/fbt.py`)
+    # ------------------------------------------------------------------
+
+    def EvalFBTSetup(self, num_slots: int = 0, p_in: int = 8,
+                     correction_factor: int = 0):
+        fbt.eval_fbt_setup(self, num_slots, p_in, correction_factor)
+
+    def EvalFBTKeyGen(self, sk: PrivateKey, slots: int = 0):
+        fbt.eval_fbt_keygen(self, sk, slots)
+
+    def EvalFBT(self, ct: Ciphertext, lut, p_in: int, decode: bool = True,
+                p_out: int = 0) -> Ciphertext:
+        return fbt.eval_fbt(self, ct, lut, p_in, decode, p_out)
+
+    def EvalFBTNoDecoding(self, ct: Ciphertext, lut,
+                          p_in: int) -> Ciphertext:
+        """(reference cryptocontext.h:3576) The FBT left in slot form."""
+        return fbt.eval_fbt(self, ct, lut, p_in, decode=False)
+
+    def EvalMVBPrecompute(self, ct: Ciphertext, p_in: int):
+        """(reference cryptocontext.h:3588) The exponential powers that
+        every LUT of a multi-value bootstrap shares."""
+        return fbt.eval_mvb_precompute(self, ct, p_in)
+
+    def EvalMVB(self, powers, lut, p_in: int, decode: bool = True,
+                p_out: int = 0) -> Ciphertext:
+        """(reference cryptocontext.h:3596) One LUT on precomputed
+        powers."""
+        return fbt.eval_mvb(self, powers, lut, p_in, decode, p_out)
+
+    def EvalMVBNoDecoding(self, powers, lut, p_in: int) -> Ciphertext:
+        return fbt.eval_mvb(self, powers, lut, p_in, decode=False)
+
+    def EvalHomDecoding(self, ct: Ciphertext, p_out: int,
+                        slots: int | None = None) -> Ciphertext:
+        """(reference cryptocontext.h:3585)"""
+        return fbt.eval_hom_decoding(self, ct, p_out, slots)
 
 
 def GenCryptoContext(params: prm.CCParams, seed: int = 0,

@@ -140,6 +140,20 @@ def bgv_bench_params() -> CCParams:
                     scaling_technique=ScalingTechnique.FLEXIBLEAUTO)
 
 
+def boot_bench_params(ring_dim: int = 1 << 16,
+                      mult_depth: int = 24) -> CCParams:
+    """CKKS bootstrapping as the JAX repo benchmarks it (`bench.py`
+    `bench_boot16`: N=2^16, depth 24; `bench_boot`: N=2^12, depth 20):
+    COMPOSITESCALINGAUTO with 50-bit scales over two towers a level, a
+    51-bit first level (q0 within 2x of the scale), 26-bit P towers, 3
+    digits, HEStd_NotSet."""
+    return CCParams(scheme=Scheme.CKKSRNS_SCHEME, ring_dim=ring_dim,
+                    mult_depth=mult_depth, scaling_mod_size=50,
+                    first_mod_size=51, aux_mod_size=26,
+                    security_level=SecurityLevel.HEStd_NotSet,
+                    scaling_technique=ScalingTechnique.COMPOSITESCALINGAUTO)
+
+
 def bfv_bench_params() -> CCParams:
     """BFV as `bench_bfvbgv` runs it: N=2^14, depth 2, t = 65537,
     HEStd_NotSet, HPS (6 Q towers of 26 bits, 2 P towers, 3 digits)."""

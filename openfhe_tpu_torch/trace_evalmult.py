@@ -41,13 +41,19 @@ tower one inverse NTT of the dropped tower and one forward NTT of the
 others, plain int64 torch around them), `bfvmult` EvalMult on BFV at
 `bench_bfvbgv`'s N=2^14, depth 2 (the tensor product: NTTs and
 conversions, plain int64 torch around them, then Relinearize on the
-fused chain); the integer ops share their scheme's context. Prints the
+fused chain); the integer ops share their scheme's context. `--op
+bootstrap` builds CKKS at the JAX repo's bootstrap benchmark (`bench.py`
+`bench_boot16`: N=2^16, depth 24, COMPOSITESCALINGAUTO, 2^11 slots,
+level budget (3, 3), seed 7) and traces one warm EvalBootstrap of a
+ciphertext two levels from the end (after one warm-up that encodes and
+caches the transforms' diagonals), with the host's encodes. Prints the
 device time of every kernel name (summed over the calls, divided by
 their number) with its launches per call, the share taken by the port's
 own kernels (`csrc/`) against the plain torch ops around them (the
 plain-torch time and share of the busy time), and the device's busy
-share of the wall time measured with CUDA events. Needs a
-CUDA card; exits non-zero without one.
+share of the wall time measured with CUDA events, and the idle gaps
+between the traced device kernels (their sum, count and the largest).
+Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -65,7 +71,11 @@ import torch
 CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "rescale": 5,
          "fastrotation": 5, "encrypt": 5, "decrypt": 5, "ginx": 2,
          "lmkcdey": 2, "sharded": 5, "logistic": 2, "logistic119": 2,
-         "bgvmult": 5, "bgvmodreduce": 5, "bfvmult": 5}
+         "bgvmult": 5, "bgvmodreduce": 5, "bfvmult": 5, "bootstrap": 1}
+# warm-up calls before the timed ones (3 unless named)
+WARMUPS = {"bootstrap": 1}
+# idle gaps listed, the largest first
+TOP_GAPS = 5
 # --op logistic / logistic119: (a, b, degree) of EvalLogistic
 LOGISTIC = {"logistic": (-1.0, 1.0, 32), "logistic119": (-8.0, 8.0, 119)}
 SHARDED_LEVEL = 3
@@ -107,7 +117,8 @@ def main(argv=None) -> int:
               "logistic119": lambda: _logistic_op(name),
               "bgvmult": lambda: _integer_op(name),
               "bgvmodreduce": lambda: _integer_op(name),
-              "bfvmult": lambda: _integer_op(name)}.get(
+              "bfvmult": lambda: _integer_op(name),
+              "bootstrap": _bootstrap_op}.get(
                   name, lambda: _ckks_op(name))()
         worst = max(worst, _trace(name, op, CALLS[name]))
     return worst
@@ -116,7 +127,7 @@ def main(argv=None) -> int:
 def _trace(name: str, op, calls: int) -> int:
     """Time `calls` calls of op with CUDA events, then trace as many and
     print the breakdown; 1 if the profiler saw no device time."""
-    for _ in range(3):
+    for _ in range(WARMUPS.get(name, 3)):
         op()
     torch.cuda.synchronize()
 
@@ -137,19 +148,9 @@ def _trace(name: str, op, calls: int) -> int:
                 "encode_ms": encodes["s"] * 1e3 / calls,
                 "host_encode_share": encodes["s"] * 1e3 / calls / wall_ms}
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            op()
-        torch.cuda.synchronize()
-    per_name = collections.Counter()
-    launches = collections.Counter()
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[ev.name] += ev.time_range.elapsed_us() / 1e3 / calls
-            launches[ev.name] += 1
-    busy_ms = sum(per_name.values())
+    prof = profile_device(op, calls)
+    per_name, launches = prof["per_name"], prof["launches"]
+    busy_ms = prof["busy_ms"]
     own = [n for n in per_name
            if any(f"{o}(" in n or f"{o}<" in n for o in OWN)]
     own_ms = sum(per_name[n] for n in own)
@@ -168,6 +169,9 @@ def _trace(name: str, op, calls: int) -> int:
     for kname, t in per_name.most_common(20):
         print(f"  {t:8.4f} ms  {launches[kname] // calls:4d} launches  "
               f"{kname[:90]}")
+    print(f"  idle gaps between device kernels: {prof['idle_ms']:.3f} ms a "
+          f"call in {prof['gaps']} gaps; largest "
+          f"{[round(g, 3) for g in prof['largest_gaps_ms']]} ms")
     print(json.dumps({
         "op": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
@@ -178,8 +182,51 @@ def _trace(name: str, op, calls: int) -> int:
         "kernel_launches": sum(launches.values()) // calls,
         "launches_by_kernel": {k: v // calls
                                for k, v in by_kernel.most_common()},
+        "idle_gaps_ms_per_call": prof["idle_ms"], "idle_gaps": prof["gaps"],
+        "largest_idle_gaps_ms": prof["largest_gaps_ms"],
         **host, "device": torch.cuda.get_device_name(0)}))
     return 0
+
+
+def profile_device(fn, calls: int = 1) -> dict:
+    """Trace `calls` calls of fn with torch.profiler: per device kernel
+    name its ms and launches a call (`per_name`, `launches` counts all
+    calls), the busy ms a call, and the idle gaps between the device
+    kernels (the card waiting on the host): their ms a call, number and
+    the TOP_GAPS largest. The profiler's first step runs the calls once
+    more, unrecorded, so that the tracing runs before the recorded step
+    begins (a session that records from its first call can miss the
+    kernels launched first)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    per_name = collections.Counter()
+    launches = collections.Counter()
+    spans = []
+    for ev in prof.events():
+        # the step's own range on the device timeline is no kernel
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)
+                and not ev.name.startswith("ProfilerStep")):
+            per_name[ev.name] += ev.time_range.elapsed_us() / 1e3 / calls
+            launches[ev.name] += 1
+            spans.append((ev.time_range.start, ev.time_range.end))
+    gaps, last = [], None
+    for start, end in sorted(spans):
+        if last is not None and start > last:
+            gaps.append((start - last) / 1e3)
+        last = end if last is None else max(last, end)
+    gaps.sort(reverse=True)
+    return dict(per_name=per_name, launches=launches,
+                busy_ms=sum(per_name.values()),
+                idle_ms=sum(gaps) / calls, gaps=len(gaps),
+                largest_gaps_ms=gaps[:TOP_GAPS])
 
 
 def _ginx_op():
@@ -296,6 +343,30 @@ def time_encodes(cc) -> dict:
 
     cc.MakeCKKSPackedPlaintext = timed_encode
     return encodes
+
+
+def _bootstrap_op():
+    """EvalBootstrap at `bench_boot16`'s configuration; the op carries the
+    encodes' host time."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch.pke import parameters as prm
+
+    cc = fhe.GenCryptoContext(prm.boot_bench_params(), seed=7)
+    slots = 1 << 11
+    cc.EvalBootstrapSetup(level_budget=(3, 3), slots=slots)
+    kp = cc.KeyGen()
+    cc.EvalMultKeyGen(kp.secret_key)
+    cc.EvalBootstrapKeyGen(kp.secret_key, slots)
+    z = np.random.default_rng(0).uniform(-0.5, 0.5, size=slots)
+    ct = cc.LevelReduce(cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(
+        z, slots=slots)), cc.params.mult_depth - 2)
+    encodes = time_encodes(cc)
+
+    def op():
+        return cc.EvalBootstrap(ct)
+
+    op.encodes = encodes
+    return op
 
 
 @functools.lru_cache(maxsize=None)
