@@ -212,7 +212,48 @@ is not beside it. Phases, none of which catches its own failure:
    configuration on N=2^12 (FBT_CONFIG): the LUT back exactly after
    rounding. Every kernel of the path must have been launched in (a)'s
    runs and no former form;
-10. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+10. BinFHE's composite-Q ring and CKKS <-> FHEW scheme switching
+   (`binfhe/rgsw_wide.py`, `pke/schemeswitch.py`), which launch only
+   kernels the phases above hold: (a) GINX at STD192 (Q = q1 q2 of 38
+   bits, n = 821, N = 2048, d2 = 4) over `bench.py`'s binfhe batch of 256
+   gates with a = i % 2, b = (i // 2) % 2, counted from the context on:
+   context, KeyGen, BTKeyGen, Encrypt, EvalBinGate AND/OR/NAND/XOR/XNOR,
+   EvalNOT, Bootstrap and MAJORITY, every decryption against the truth
+   table; one AND launches kernel m alone, n + 1 times each way (a
+   forward NTT of the digits and an inverse NTT of both accumulator
+   halves each step, the test vector's and the extraction's), with plain
+   torch around it; 4 of its gates equal the port's plain path on the CPU
+   with the same keys; the batch's wall (CUDA events), gates/s, the device
+   busy share under torch.profiler and the peak memory; EvalFunc x^2 mod 4
+   at batch 4; STD192Q (34 bits) one AND; STD192_LMKCDEY raises
+   ValueError; (b) `examples/scheme_switching.py` at 128-bit security:
+   N=2^16 under HEStd_128_classic, FLEXIBLEAUTO, 28/30-bit moduli, depth
+   16, 16 slots, the STD128 FHEW side (n = 1305) at q_LWE = 2^17: setup
+   and keys (the inner BinFHE context on the card), EvalCKKStoFHEW of the
+   integers 0 ... 15 (every LWE sample decrypts to its value) and one
+   EvalCompareSchemeSwitching of 16 pairs, each with its wall, its host
+   encodes and their share, its launches by kernel and the plaintext
+   cache's entries before and after; the compare's FHEW half (EvalSign of
+   EvalCKKStoFHEW(ct1 - ct2), the same words) must give every sign right
+   and its result must decrypt to finite values; its error against the
+   signs and the first stages of its FHEW -> CKKS half (the partial
+   decryption A s, B - A s, the Chebyshev seed, the double-angle steps,
+   each against its exact value) are printed: at N=2^16 the 28-bit
+   scales of the JAX package's design leave the partial decryption an
+   error that the STD128 side's K = 128 amplifies past the signs (PERF.md
+   §6, ROADMAP queue 3), which (c) holds at N=2^12;
+   the compare may add only its S2C diagonals to the cache (none of
+   EvalFHEWtoCKKS's 2048) and keep less than SSW_MEM_LIMIT_GB of device
+   memory, and must launch every kernel of the path (the NTTs, the
+   conversion, the fused key switches, kernel m and `blind_rotate_cggi`)
+   and no former form; (c) at N=2^12, depth 20, the TOY FHEW side:
+   EvalCompareSchemeSwitching and EvalMin / EvalMaxSchemeSwitching over 4
+   values on the card word-equal to the port's plain path on the CPU from
+   the same keys and ciphertexts (the tournament's encryption of ones is
+   one, on both sides), the min, max and argmin indicator within their
+   limits, the compare's FHEW -> CKKS stage errors printed as in (b),
+   `blind_rotate_cggi` launched;
+11. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    line.
 
 bound_ms is the least time the card could take for a call: the larger of
@@ -530,6 +571,44 @@ TWO_ROUND_GAIN = 0.3      # tests/test_bootstrap.py:93
 FBT_CONFIG = (1 << 12, 22, 8, 8)
 FBT_DIGITS = np.array([0, 3, 1, 7, 2, 6, 5, 4])
 FBT_LUT = np.array([1, 2, 4, 0, 6, 3, 7, 5])
+
+# phase 10: BinFHE's composite-Q ring (a) and CKKS <-> FHEW scheme
+# switching (b, c)
+WIDE_SET = "STD192"       # Q = q1 q2 of 38 bits, n = 821, N = 2048
+WIDE_Q_SET = "STD192Q"    # 34 bits: one AND
+WIDE_SEED = 13
+# (b) examples/scheme_switching.py at 128-bit security: N=2^16 under
+# HEStd_128_classic, FLEXIBLEAUTO, 28/30-bit moduli, the STD128 FHEW side
+# and 16 slots (the example's sparse packing), q_LWE = 2^17 (the
+# example's; at SchSwchParams' default 2^25 the JAX package's EvalSign
+# returns wrong signs, ROADMAP queue 3). Depth 16: the compare's
+# FHEW -> CKKS half ends at level 14 at STD128 (K = 128: 257 Chebyshev
+# coefficients)
+SSW_SEED = 19
+SSW_RING = 1 << 16
+SSW_DEPTH = 16
+SSW_SLOTS = 16
+SSW_LARGE_PREC = 17
+SSW_P_LWE = 16            # EvalCKKStoFHEW of the integers 0 ... 15
+SSW_CMP_P = 8             # EvalCompareSwitchPrecompute's p_LWE (example)
+# least |x1 - x2| of the compared pairs. EvalSign's floors at q_LWE =
+# 2^17 carry the functional bootstraps' noise, which at the STD128 side
+# (n = 1305, N = 2048, the 27-bit Q and baseG = 128 of the JAX package's
+# switching ring) is of the order of beta = 128 units of 2^17 or above: a
+# floor can slip by one digit, 2^11 units, which flips a sign only for
+# |x1 - x2| below about 1/8 (p_LWE = 8 puts 1 at 2^14 units)
+SSW_GAP = 0.3
+SSW_CMP_TOL = 0.1         # tests/test_schemeswitch.py's limit
+# the 2048 diagonals would keep ~9.7 GB at 18 towers; the compare must
+# leave far less behind (it keeps the key-switch and rescale tables of
+# the 14 levels it passes: 0.79 GiB on an H100 80GB HBM3 at 700 W)
+SSW_MEM_LIMIT_GB = 2.0
+# (c) the card against the CPU's plain path: N=2^12, depth 20 (two
+# tournament rounds), the TOY FHEW side (the CPU's per-step STD128 EvalSign
+# takes minutes), min / max over 4 values
+SSW_TWIN = (1 << 12, 20, "TOY")
+SSW_VALS = np.array([0.6, 0.2, 0.8, 0.4])
+SSW_MINMAX_TOL = 0.05
 
 # phase 8: the integer schemes and the extended basis
 INT_SEED = 23
@@ -2402,6 +2481,420 @@ def bootstrap_phase(card, names) -> dict:
     return res
 
 
+def wide_binfhe(card, names) -> dict:
+    """Phase 10 (a): GINX on the composite-Q ring at STD192 over a gate
+    batch (see the module docstring); raises on any fault."""
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD, BINGATE
+    from openfhe_tpu_torch.binfhe.context import BinFHEContext
+    from openfhe_tpu_torch.trace_evalmult import profile_device
+    res = {}
+    i = np.arange(GATE_BATCH)
+    bits = {"a": i % 2, "b": (i // 2) % 2, "c": (i // 4) % 2}
+    a, b, c = bits["a"], bits["b"], bits["c"]
+    truth = {"AND": a & b, "OR": a | b, "NAND": 1 - (a & b),
+             "XOR": a ^ b, "XNOR": 1 - (a ^ b)}
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    cc = BinFHEContext(seed=WIDE_SEED).GenerateBinFHEContext(WIDE_SET)
+    require(cc.device.type == "cuda" and cc.wide,
+            f"{WIDE_SET} is not on the card's composite-Q ring")
+    sk = cc.KeyGen()
+    cc.BTKeyGen(sk)
+    ct = {k: cc.Encrypt(sk, v) for k, v in bits.items()}
+    torch.cuda.synchronize()
+    res["keygen_encrypt_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    wrong, outs = {}, {}
+    for g, want in truth.items():
+        outs[g], per = count_launches(
+            lambda g=g: cc.EvalBinGate(BINGATE[g], ct["a"], ct["b"]), names)
+        if g == "AND":
+            per_and = per
+        wrong[g] = int((cc.Decrypt(sk, outs[g]) != want).sum())
+    wrong["NOT"] = int((cc.Decrypt(sk, cc.EvalNOT(ct["a"])) != 1 - a).sum())
+    wrong["Bootstrap"] = int((cc.Decrypt(sk, cc.Bootstrap(ct["a"]))
+                              != a).sum())
+    maj = cc.EvalBinGate(BINGATE.MAJORITY, [ct["a"], ct["b"], ct["c"]])
+    wrong["MAJORITY"] = int((cc.Decrypt(sk, maj)
+                             != (a + b + c >= 2)).sum())
+    res["launches"] = {k: _build.LAUNCHES[k] for k in names
+                       if _build.LAUNCHES[k]}
+    res["per_and"] = per_and
+    res["wrong"] = wrong
+    rw = cc.rgsw_w
+    print(f"(a) GINX {WIDE_SET} (n={cc.n}, N={cc.N}, Q = {rw.moduli[0]} x "
+          f"{rw.moduli[1]} ({cc.Q.bit_length()} bits), d2={rw.digits_g2}), "
+          f"batch {GATE_BATCH}: wrong decryptions {wrong}; launches per AND "
+          f"{ {k: v for k, v in per_and.items() if v} }; whole phase "
+          f"{res['launches']}")
+    require(all(v == 0 for v in wrong.values()),
+            f"{WIDE_SET} decryptions differ from the truth table: {wrong}")
+    # one inverse NTT a step and the extraction's; one forward NTT of the
+    # digits a step and the test vector's: kernel m and plain torch only
+    want_and = {k: (cc.n + 1) * (k in SMALL) for k in names}
+    require(per_and == want_and,
+            f"{WIDE_SET} AND launches {per_and}, expected {want_and}")
+
+    # 4 gates on the port's plain path on the CPU, with the same keys
+    t0 = time.perf_counter()
+    cpu = BinFHEContext(seed=WIDE_SEED, device="cpu").GenerateBinFHEContext(
+        WIDE_SET)
+    cpu.ks_key = dataclasses.replace(cc.ks_key, a=cc.ks_key.a.cpu(),
+                                     b=cc.ks_key.b.cpu())
+    cpu.bt_key = cc.bt_key.cpu()
+    four = lambda x: x.replace(a=x.a[:4].cpu(), b=x.b[:4].cpu())
+    on_cpu = cpu.EvalBinGate(BINGATE.AND, four(ct["a"]), four(ct["b"]))
+    res["cpu_four_same"] = same = (
+        torch.equal(on_cpu.a, outs["AND"].a[:4].cpu())
+        and torch.equal(on_cpu.b, outs["AND"].b[:4].cpu()))
+    res["cpu_four_s"] = time.perf_counter() - t0
+    print(f"(a) 4 AND gates on the card == plain path on the CPU: {same} "
+          f"({res['cpu_four_s']:.1f} s on the CPU)")
+    require(same, f"{WIDE_SET} words on the card differ from the plain path")
+    del cpu
+
+    # the batch's wall, its device busy share and the peak memory
+    and_fn = lambda: cc.EvalBinGate(BINGATE.AND, ct["a"], ct["b"])
+    res["batch_ms"] = cuda_ms(and_fn, GATE_REPS, 1)
+    res["gates_per_s"] = GATE_BATCH / res["batch_ms"] * 1e3
+    prof = profile_device(and_fn)
+    res["device_busy_ms"] = prof["busy_ms"]
+    res["device_busy_share"] = prof["busy_ms"] / res["batch_ms"]
+    res["device_launches"] = sum(prof["launches"].values())
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"(a) {WIDE_SET} AND: {res['batch_ms']:.1f} ms per batch of "
+          f"{GATE_BATCH} ({res['gates_per_s']:.1f} gates/s; median of "
+          f"{GATE_REPS}, CUDA events, {card}); device busy "
+          f"{prof['busy_ms']:.1f} ms ({res['device_busy_share']:.0%}) in "
+          f"{res['device_launches']} device launches; peak memory "
+          f"{res['peak_memory_gb']:.2f} GiB")
+
+    # EvalFunc x^2 mod 4 at batch 4 (the JAX sweep's STD192 function)
+    p = 4
+    x4 = np.arange(FUNC_BATCH) % p
+    lut = cc.GenerateLUTviaFunction(lambda m, pp: (m * m) % pp, p)
+    got = cc.Decrypt(sk, cc.EvalFunc(cc.Encrypt(sk, x4, p=p), lut), p=p)
+    print(f"(a) EvalFunc x^2 mod 4 on {x4.tolist()}: {got.tolist()}")
+    require(np.array_equal(got, x4 * x4 % p), "EvalFunc decrypts wrong")
+    del cc, ct, outs
+    torch.cuda.empty_cache()
+
+    # STD192Q: one AND; STD192_LMKCDEY refuses
+    cq = BinFHEContext(seed=WIDE_SEED).GenerateBinFHEContext(WIDE_Q_SET)
+    skq = cq.KeyGen()
+    cq.BTKeyGen(skq)
+    out = cq.EvalBinGate(BINGATE.AND, cq.Encrypt(skq, a), cq.Encrypt(skq, b))
+    res["wrong_q"] = bad = int((cq.Decrypt(skq, out) != (a & b)).sum())
+    print(f"(a) {WIDE_SET[:-1] + 'Q'} AND (Q of {cq.Q.bit_length()} bits, "
+          f"n={cq.n}), batch {GATE_BATCH}: wrong {bad}")
+    require(bad == 0, f"{WIDE_Q_SET} AND decrypts wrong")
+    del cq
+    try:
+        BinFHEContext().GenerateBinFHEContext("STD192_LMKCDEY",
+                                             BINFHE_METHOD.LMKCDEY)
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"(a) STD192_LMKCDEY refused with ValueError: {refused}")
+    require(refused, "STD192_LMKCDEY did not raise ValueError")
+    return res
+
+
+def switch_context(ring, depth, level, security):
+    """A FLEXIBLEAUTO context with scheme switching set up and keyed:
+    (cc, key pair, LWE secret)."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch.pke.schemeswitch import SchSwchParams
+    cc = fhe.GenCryptoContext(fhe.CCParams(
+        scheme=fhe.Scheme.CKKSRNS_SCHEME, ring_dim=ring, mult_depth=depth,
+        scaling_mod_size=28, first_mod_size=30, batch_size=SSW_SLOTS,
+        security_level=security,
+        scaling_technique=fhe.ScalingTechnique.FLEXIBLEAUTO), seed=SSW_SEED)
+    for f in ("PKE", "KEYSWITCH", "LEVELEDSHE", "ADVANCEDSHE",
+              "SCHEMESWITCH", "FHE"):
+        cc.Enable(fhe.pke.constants.PKESchemeFeature[f])
+    lwe_sk = cc.EvalSchemeSwitchingSetup(SchSwchParams(
+        security_level_fhew=level, num_slots_ckks=SSW_SLOTS,
+        ctxt_mod_size_fhew_large_prec=SSW_LARGE_PREC))
+    kp = cc.KeyGen()
+    cc.EvalMultKeyGen(kp.secret_key)
+    cc.EvalSchemeSwitchingKeyGen(kp, lwe_sk)
+    cc.GetBinCCForSchemeSwitch().BTKeyGen(lwe_sk)
+    return cc, kp, lwe_sk
+
+
+def compare_inputs(cc, kp, seed: int = 0):
+    """16 pairs in [0, 1), SSW_GAP to 2 SSW_GAP apart, either one the
+    larger, encrypted."""
+    rng = np.random.default_rng(seed)
+    gap = rng.uniform(SSW_GAP, 2 * SSW_GAP, SSW_SLOTS)
+    lo = rng.uniform(0, 1 - gap)
+    first_low = rng.integers(0, 2, SSW_SLOTS) == 1
+    x1 = np.where(first_low, lo, lo + gap)
+    x2 = np.where(first_low, lo + gap, lo)
+    enc = lambda v: cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(
+        v, slots=SSW_SLOTS))
+    return x1, x2, enc(x1), enc(x2)
+
+
+def switch_state_to_cpu(cc, cpu, on_cpu) -> None:
+    """cc's scheme-switching keys into the CPU twin's state (made by its
+    own setup of the same parameters)."""
+    from openfhe_tpu_torch.binfhe import lwe
+    from openfhe_tpu_torch.pke import schemeswitch as ssw
+    from openfhe_tpu_torch.pke.keys import EvalKey
+    src, dst = cc._schswch, cpu._schswch
+    dst.lwe_sk = lwe.LWEPrivateKey(s=src.lwe_sk.s.cpu())
+    dst.swk = EvalKey(bv=src.swk.bv.cpu(), av=src.swk.av.cpu(),
+                      key_tag=src.swk.key_tag)
+    dst.swk_tabs = ssw.switch_tables(dst, ssw.aux_modulus(cpu, dst.q_prime))
+    dst.s2c_bstep = src.s2c_bstep
+    dst.fhew_to_ckks_swk = on_cpu(src.fhew_to_ckks_swk)
+    dst.k_bound, dst.cheb_fhew = src.k_bound, list(src.cheb_fhew)
+    ks = src.cc_lwe.ks_key
+    dst.cc_lwe.ks_key = dataclasses.replace(ks, a=ks.a.cpu(), b=ks.b.cpu())
+    dst.cc_lwe.bt_key = src.cc_lwe.bt_key.cpu()
+
+
+def f2c_stage_errors(cc, sk, lwe_sk, lwe_cts) -> dict:
+    """EvalFHEWtoCKKS's first stages on lwe_cts, each decrypted against its
+    exact value (max error over the meaningful slots, in the prescaled
+    units 1 / (q K) of the Chebyshev range [-1, 1]): the partial
+    decryption A s (the linear transform's key switches), B - A s, the
+    Chebyshev seed and the double-angle steps (`schemeswitch.py`)."""
+    from openfhe_tpu_torch.math.modops import to_u32
+    from openfhe_tpu_torch.pke import schemeswitch as ssw
+    from openfhe_tpu_torch.pke.fhe.ckks_bootstrap import (
+        apply_double_angle, eval_linear_transform)
+    st = cc._schswch
+    a = to_u32(lwe_cts.a).astype(np.float64)
+    b = to_u32(lwe_cts.b).astype(np.float64)
+    s = lwe_sk.s.cpu().numpy().astype(np.float64)
+    nv, n = a.shape
+    n_po2 = 1 << int(math.ceil(math.log2(n)))
+    half = cc.ring_dim // 2
+    big_k = st.k_bound
+    pre = 1.0 / float(lwe_cts.modulus) / big_k
+    bstep = max(1, int(math.ceil(math.sqrt(n_po2))))
+    amat = np.zeros((nv, n_po2))
+    amat[:, :n] = a * pre
+    dec = lambda c: np.asarray(cc.Decrypt(sk, c).values).real[:nv]
+    errs = {}
+    a_s = cc.ModReduce(eval_linear_transform(
+        cc, st.fhew_to_ckks_swk, ssw._Diagonals(amat, half, bstep), bstep,
+        half, cache=False))
+    errs["A s"] = float(np.abs(dec(a_s) - (a @ s) * pre).max())
+    bvec = np.zeros(half)
+    bvec[:nv] = b * pre
+    x = cc.EvalAdd(cc.EvalNegate(a_s), cc.MakeCKKSPackedPlaintext(
+        bvec, level=a_s.level, slots=half))
+    exact = (b - a @ s) * pre
+    errs["B - A s"] = float(np.abs(dec(x) - exact).max())
+    y = cc.EvalChebyshevSeries(x, st.cheb_fhew, -1.0, 1.0)
+    if y.noise_deg > 1:
+        y = cc.ModReduce(y)
+    seed = (2 * np.pi) ** (-1 / 8) * np.cos(2 * np.pi * big_k * exact / 8
+                                            - np.pi / 16)
+    errs["Chebyshev seed"] = float(np.abs(dec(y) - seed).max())
+    y = apply_double_angle(cc, y, 3)
+    errs["double angle"] = float(np.abs(
+        dec(y) - np.sin(2 * np.pi * big_k * exact) / (2 * np.pi)).max())
+    return errs
+
+
+def scheme_switch_phase(card, names) -> dict:
+    """Phase 10 (b) and (c): CKKS <-> FHEW scheme switching (see the module
+    docstring); raises on any fault."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.trace_evalmult import time_encodes
+    res = {"ops": {}, "same": {}}
+    path = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod") + FUSED + SMALL + (
+        "blind_rotate_cggi",)
+
+    # (b) at N=2^16, 128-bit security on both sides
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cc, kp, lwe_sk = switch_context(SSW_RING, SSW_DEPTH, "STD128",
+                                    fhe.SecurityLevel.HEStd_128_classic)
+    inner = cc.GetBinCCForSchemeSwitch()
+    st = cc._schswch
+    torch.cuda.synchronize()
+    res["keys_s"] = time.perf_counter() - t0
+    print(f"(b) scheme switching: N=2^{SSW_RING.bit_length() - 1}, "
+          f"{len(cc.moduli_q)} Q + {len(cc.moduli_p)} P towers, "
+          f"{SSW_SLOTS} slots; FHEW n={inner.n}, N={inner.N}, q={inner.q}, "
+          f"q_LWE=2^{SSW_LARGE_PREC}, Q'={st.q_prime}; inner context on "
+          f"{inner.device}; "
+          f"{len(cc.eval_automorphism_keys[kp.secret_key.key_tag])} "
+          f"rotation keys; context and keys {res['keys_s']:.1f} s")
+    require(inner.device == cc.device, "the inner BinFHE context is not on "
+            "the CKKS context's device")
+    encodes = time_encodes(cc)
+
+    def run(label, fn):
+        """fn() from a cleared counter: its wall (CUDA events), encodes,
+        launches and the plaintext cache's entries before and after."""
+        before_enc = dict(encodes)
+        cache_before = set(cc._pt_cache)
+        mem_before = torch.cuda.memory_allocated()
+        _build.LAUNCHES.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end)
+        enc_ms = (encodes["s"] - before_enc["s"]) * 1e3
+        added = set(cc._pt_cache) - cache_before
+        row = res["ops"][label] = dict(
+            wall_ms=wall, encodes=encodes["n"] - before_enc["n"],
+            encode_ms=enc_ms, host_encode_share=enc_ms / wall,
+            launches={k: _build.LAUNCHES[k] for k in names
+                      if _build.LAUNCHES[k]},
+            cache_entries=(len(cache_before), len(cc._pt_cache)),
+            memory_growth_gb=(torch.cuda.memory_allocated() - mem_before)
+            / 2 ** 30)
+        print(f"(b) {label}: wall {wall:.1f} ms (CUDA events, {card}); "
+              f"{row['encodes']} encodes {enc_ms:.1f} ms on the host "
+              f"({enc_ms / wall:.0%} of the wall); plaintext cache "
+              f"{row['cache_entries'][0]} -> {row['cache_entries'][1]} "
+              f"entries; allocated memory {row['memory_growth_gb']:+.3f} "
+              f"GiB; launches {row['launches']}")
+        return out, added
+
+    x = np.arange(SSW_SLOTS) % SSW_P_LWE
+    cc.EvalCKKStoFHEWPrecompute(1.0 / SSW_P_LWE)
+    ct = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(
+        x.astype(np.float64), slots=SSW_SLOTS))
+    lwe_ct, _ = run("EvalCKKStoFHEW", lambda: cc.EvalCKKStoFHEW(ct,
+                                                                SSW_SLOTS))
+    got = inner.Decrypt(lwe_sk, lwe_ct.replace(pt_modulus=SSW_P_LWE))
+    res["to_fhew_exact"] = ok = bool(np.array_equal(got, x))
+    print(f"(b) EvalCKKStoFHEW of {x.tolist()}: {got.tolist()}")
+    require(ok, "(b) EvalCKKStoFHEW's LWE samples decrypt wrong")
+
+    cc.EvalCompareSwitchPrecompute(p_lwe=SSW_CMP_P, scale_sign=1.0)
+    x1, x2, c1, c2 = compare_inputs(cc, kp)
+    out, added = run("EvalCompareSchemeSwitching",
+                     lambda: cc.EvalCompareSchemeSwitching(
+                         c1, c2, SSW_SLOTS, SSW_SLOTS))
+    dec = np.asarray(cc.Decrypt(kp.secret_key, out).values).real
+    want = (x1 < x2).astype(np.float64)
+    res["compare_err"] = err = float(np.abs(dec[:SSW_SLOTS] - want).max())
+    row = res["ops"]["EvalCompareSchemeSwitching"]
+    # the compare caches its S2C diagonals (first use after the
+    # precompute) and nothing else: no entry of FHEW -> CKKS's diagonals
+    s2c = {id(d) for d in st.s2c_diags}
+    res["cache_added_only_s2c"] = only_s2c = all(k[0] in s2c for k in added)
+    # its FHEW half on its own (the same words: no step draws randomness):
+    # EvalSign of EvalCKKStoFHEW(ct1 - ct2) gives 1 where x1 < x2, else 3
+    signs = inner.EvalSign(cc.EvalCKKStoFHEW(cc.EvalSub(c1, c2), SSW_SLOTS),
+                           scheme_switch=True)
+    got_s = inner.Decrypt(lwe_sk, signs, p=4)
+    res["fhew_signs_right"] = signs_ok = bool(np.array_equal(
+        got_s, np.where(x1 < x2, 1, 3)))
+    res["f2c_stage_errors"] = stages = f2c_stage_errors(cc, kp.secret_key,
+                                                        lwe_sk, signs)
+    print(f"(b) EvalCompareSchemeSwitching of {SSW_SLOTS} pairs: EvalSign's "
+          f"LWE signs right {signs_ok}; the CKKS result's max error "
+          f"{err:.3e} ({SSW_CMP_TOL} at N=2^12 in (c)), rounded right "
+          f"{bool(np.array_equal(np.round(dec[:SSW_SLOTS]), want))}; "
+          f"EvalFHEWtoCKKS's stages, max error over the slots against "
+          f"the exact values: {stages}; cache entries added {len(added)}, "
+          f"all S2C diagonals {only_s2c}; memory growth "
+          f"{row['memory_growth_gb']:.3f} GiB (limit {SSW_MEM_LIMIT_GB}); "
+          f"output level {out.level}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    require(signs_ok, "(b) EvalSign's signs wrong")
+    require(dec.shape == (SSW_SLOTS,) and bool(np.isfinite(dec).all()),
+            "(b) the compare's decryption is not finite or of the wrong "
+            "shape")
+    require(only_s2c and len(added) <= len(st.s2c_diags),
+            "(b) the compare left other encodings in the plaintext cache")
+    require(row["memory_growth_gb"] < SSW_MEM_LIMIT_GB,
+            f"(b) the compare kept {row['memory_growth_gb']:.2f} GiB")
+    res["per_compare"] = per = row["launches"]
+    require(all(per.get(k, 0) > 0 for k in path),
+            f"(b) a kernel of the switch's path was not launched: {per}")
+    require(not any(per.get(k, 0) for k in STAGED),
+            f"(b) the compare ran a staged form: {per}")
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cc, kp, ct, c1, c2, out, lwe_ct, encodes, signs
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU's plain path, from the same keys
+    ring, depth, level = SSW_TWIN
+    cc, kp, lwe_sk = switch_context(ring, depth, level,
+                                    fhe.SecurityLevel.HEStd_NotSet)
+    t0 = time.perf_counter()
+    cpu, on_cpu = cpu_twin(cc, SSW_SEED)
+    cpu.EvalSchemeSwitchingSetup(dataclasses.replace(cc._schswch.params))
+    switch_state_to_cpu(cc, cpu, on_cpu)
+    _build.LAUNCHES.clear()
+    x1, x2, c1, c2 = compare_inputs(cc, kp, 1)
+    outs = {}
+    for side, ctx, mv in (("card", cc, lambda v: v), ("cpu", cpu, on_cpu)):
+        ctx.EvalCompareSwitchPrecompute(p_lwe=SSW_CMP_P, scale_sign=1.0)
+        outs[side, "compare"] = ctx.EvalCompareSchemeSwitching(
+            mv(c1), mv(c2), SSW_SLOTS, SSW_SLOTS)
+    signs = cc.GetBinCCForSchemeSwitch().EvalSign(cc.EvalCKKStoFHEW(
+        cc.EvalSub(c1, c2), SSW_SLOTS), scheme_switch=True)
+    res["twin_f2c_stage_errors"] = f2c_stage_errors(cc, kp.secret_key,
+                                                    lwe_sk, signs)
+    vals = np.zeros(SSW_SLOTS)
+    vals[:len(SSW_VALS)] = SSW_VALS
+    cv = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(
+        vals, slots=SSW_SLOTS))
+    # the tournament's fresh encryption of ones: one, on both sides
+    ones = cc.Encrypt(kp.public_key, cc.MakeCKKSPackedPlaintext(
+        np.ones(len(SSW_VALS)), slots=SSW_SLOTS))
+    cc.Encrypt = lambda *args, **kw: ones
+    cpu.Encrypt = lambda *args, **kw: on_cpu(ones)
+    for side, ctx, mv in (("card", cc, lambda v: v), ("cpu", cpu, on_cpu)):
+        for op in ("Min", "Max"):
+            outs[side, op] = getattr(ctx, f"Eval{op}SchemeSwitching")(
+                mv(cv), None, len(SSW_VALS), SSW_SLOTS, p_lwe=SSW_CMP_P)
+    del cc.Encrypt, cpu.Encrypt
+    res["twin_launches"] = twin = {k: _build.LAUNCHES[k] for k in names
+                                   if _build.LAUNCHES[k]}
+    res["twin_s"] = time.perf_counter() - t0
+    for op in ("compare", "Min", "Max"):
+        got, want_ = outs["card", op], outs["cpu", op]
+        pairs = [(got, want_)] if op == "compare" else list(zip(got, want_))
+        res["same"][f"(c) {op}"] = all(same_ct(g, w) for g, w in pairs)
+    decv = lambda c: np.asarray(cc.Decrypt(kp.secret_key, c).values).real
+    cmp_ok = bool(np.array_equal(np.round(decv(outs["card", "compare"])[
+        :SSW_SLOTS]), (x1 < x2).astype(np.float64)))
+    mn, ind = (decv(c) for c in outs["card", "Min"])
+    mx = decv(outs["card", "Max"][0])
+    onehot = (SSW_VALS == SSW_VALS.min()).astype(np.float64)
+    res["twin_errors"] = errs = dict(
+        min=float(abs(mn[0] - SSW_VALS.min())),
+        max=float(abs(mx[0] - SSW_VALS.max())),
+        argmin=float(np.abs(ind[:len(SSW_VALS)] - onehot).max()))
+    print(f"(c) N=2^{ring.bit_length() - 1}, depth {depth}, {level} FHEW "
+          f"side: card == CPU {res['same']}; compare signs right {cmp_ok}; "
+          f"min {mn[0]:.4f}, max {mx[0]:.4f}, argmin "
+          f"{np.round(ind[:len(SSW_VALS)], 3).tolist()} (errors {errs}); "
+          f"the compare's FHEW -> CKKS stages "
+          f"{res['twin_f2c_stage_errors']}; "
+          f"launches {twin}; {res['twin_s']:.1f} s with the CPU")
+    require(all(res["same"].values()),
+            f"(c) card words differ from the CPU: {res['same']}")
+    require(cmp_ok, "(c) comparison signs wrong")
+    require(errs["min"] < SSW_MINMAX_TOL and errs["max"] < SSW_MINMAX_TOL
+            and errs["argmin"] < SSW_CMP_TOL,
+            f"(c) min / max / argmin wrong: {errs}")
+    require(twin.get("blind_rotate_cggi", 0) > 0,
+            "(c) EvalSign did not launch blind_rotate_cggi")
+    del cc, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -2875,7 +3368,14 @@ def main() -> int:
     # 9. CKKS bootstrapping, counted over (a)'s two EvalBootstraps
     boot = bootstrap_phase(card, names)
 
-    # 10. the kernels line, then the device line
+    # 10. BinFHE's composite-Q ring, then scheme switching
+    t0 = time.perf_counter()
+    wide = wide_binfhe(card, names)
+    switch = scheme_switch_phase(card, names)
+    switch_s = time.perf_counter() - t0
+    print(f"composite-Q and scheme-switching phase: {switch_s:.1f} s")
+
+    # 11. the kernels line, then the device line
     kernels = []
     for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
@@ -2901,6 +3401,8 @@ def main() -> int:
             launches_per_bootstrap=boot["launches"].get(name, 0),
             launches_per_cold_bootstrap=boot["boot16"]["cold"][
                 "launches"].get(name, 0),
+            launches_per_std192_and=wide["per_and"].get(name, 0),
+            launches_per_compare_switch=switch["per_compare"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -2940,7 +3442,18 @@ def main() -> int:
                       "bootstrap": {k: boot[k] for k in (
                           "boot16", "precision_bits", "same",
                           "levels_after", "peak_memory_gb",
-                          "fbt_lut_exact", "seconds")}}))
+                          "fbt_lut_exact", "seconds")},
+                      "wide_binfhe": {k: wide[k] for k in (
+                          "batch_ms", "gates_per_s", "device_busy_ms",
+                          "device_busy_share", "device_launches",
+                          "peak_memory_gb", "wrong", "cpu_four_same",
+                          "keygen_encrypt_s")},
+                      "scheme_switch": {k: switch[k] for k in (
+                          "ops", "same", "keys_s", "compare_err",
+                          "fhew_signs_right", "f2c_stage_errors",
+                          "twin_errors", "twin_f2c_stage_errors", "twin_s",
+                          "peak_memory_gb")},
+                      "switch_phase_s": switch_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

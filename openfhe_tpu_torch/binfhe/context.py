@@ -6,8 +6,12 @@ binfhe-base-scheme.cpp: EvalBinGate :79, BootstrapGateCore :511,
 EvalFunc :261, EvalFloor :335, EvalSign :380, EvalDecomp :452). Every op
 takes batched ciphertexts: leading axes run through the whole pipeline,
 blind rotation included, which is how the sequential n-step loop fills
-the card. The composite-Q rings (number_bits > 31, `rgsw_wide.py`) are a
-later slice of the port and raise NotImplementedError.
+the card. Parameter sets with more than 31 bits of Q (STD192 and the rest
+of its class, custom contexts with q_bits > 31) run GINX on the
+composite-Q ring of `rgsw_wide.py`: a 2-tower accumulator, the per-step
+blind rotation on kernel m, and the sample extracted mod Q as int64 words
+before the switch down to (n, q). AP and LMKCDEY refuse such sets, and so
+does BTKeyGen's PUB_ENCRYPT, as in the JAX package.
 
     cc = BinFHEContext(seed=1).GenerateBinFHEContext("STD128")   # on cuda
     sk = cc.KeyGen(); cc.BTKeyGen(sk)
@@ -20,14 +24,12 @@ import numpy as np
 import torch
 
 from openfhe_tpu_torch._device import resolve_device
-from openfhe_tpu_torch.binfhe import blind_rotate, lwe, rgsw
+from openfhe_tpu_torch.binfhe import blind_rotate, lwe, rgsw, rgsw_wide
 from openfhe_tpu_torch.binfhe.constants import (BINFHE_METHOD, BINGATE,
                                                 KEYGEN_MODE, PARAM_SETS,
                                                 PRIME, gate_constants)
-from openfhe_tpu_torch.math import nbtheory
-
-WIDE_SLICE = ("composite-Q rings (more than 31 bits of Q, rgsw_wide.py) are "
-              "a later slice of the port")
+from openfhe_tpu_torch.math import nbtheory, sampling
+from openfhe_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
 
 
 class BinFHEContext:
@@ -42,6 +44,8 @@ class BinFHEContext:
         self.ks_key = None
         self.sk_n = None
         self.pk = None
+        self.wide = False
+        self.rgsw_w = None
 
     # ------------------------------------------------------------------
     # context generation (binfhecontext.cpp:108)
@@ -51,18 +55,27 @@ class BinFHEContext:
                   base_g: int, method) -> None:
         if isinstance(method, str):
             method = BINFHE_METHOD[method]
-        if q_bits > 31:
+        self.method = method
+        self.n, self.N, self.q = n, big_n, q
+        self.wide = q_bits > 31
+        if self.wide:
+            # more than 31 bits of Q: the 2-tower composite ring
             if method != BINFHE_METHOD.GINX:
                 raise ValueError(
                     f"a {q_bits}-bit accumulator modulus needs the "
-                    "composite-Q ring, which only GINX supports")
-            raise NotImplementedError(WIDE_SLICE)
-        self.method = method
-        self.n, self.N, self.q = n, big_n, q
-        # LastPrime(bits, 2N): largest `bits`-bit prime = 1 mod 2N
-        self.Q = nbtheory.previous_prime(1 << q_bits, 2 * big_n)
-        self.rgsw = rgsw.make_rgsw_params(n, big_n, self.Q, q, base_g,
-                                          self.device)
+                    "composite-Q ring, which only GINX supports (AP / "
+                    "LMKCDEY: use a set with Q < 2^31, e.g. "
+                    "STD256_LMKCDEY)")
+            self.rgsw_w = rgsw_wide.make_rgsw_wide_params(
+                n, big_n, q_bits, q, base_g, self.device)
+            self.Q = self.rgsw_w.big_q
+            self.rgsw = None
+        else:
+            # LastPrime(bits, 2N): largest `bits`-bit prime = 1 mod 2N
+            self.Q = nbtheory.previous_prime(1 << q_bits, 2 * big_n)
+            self.rgsw = rgsw.make_rgsw_params(n, big_n, self.Q, q, base_g,
+                                              self.device)
+            self.rgsw_w = None
         self.gate_const = gate_constants(q)
 
     def GenerateBinFHEContext(self, param_set: str = "STD128",
@@ -94,7 +107,9 @@ class BinFHEContext:
         self._set_ring(n, N, q, q_bits, base_g, method)
         self.std = std
         self.base_ks = base_ks
-        self.q_ks = self.Q
+        # a wide Q does not fit the switching key's words: a power of two
+        # of about half its bits (the JAX package's choice)
+        self.q_ks = 1 << max(10, q_bits // 2 - 4) if self.wide else self.Q
         self.base_r = base_r
         self.num_auto_keys = num_auto_keys
         return self
@@ -134,6 +149,9 @@ class BinFHEContext:
         if self.sk_n is None:
             self.sk_n = lwe.key_gen(self.gen, self.N)
         sk_n = self.sk_n
+        if self.wide:
+            self._bt_keygen_wide(sk, sk_n, keygen_mode)
+            return
         if keygen_mode == KEYGEN_MODE.PUB_ENCRYPT:
             self.pk = lwe.pub_key_gen(self.gen, sk_n, self.Q)
         params = self.rgsw
@@ -167,8 +185,26 @@ class BinFHEContext:
                     self.device),
                 w)
 
+    def _bt_keygen_wide(self, sk, sk_n, keygen_mode) -> None:
+        """BTKeyGen on the composite-Q ring: the switching key from the
+        ring secret and the 2-tower GINX key."""
+        if keygen_mode == KEYGEN_MODE.PUB_ENCRYPT:
+            raise ValueError("public-key workflows are not supported on "
+                             "composite-Q (wide) parameter sets")
+        bw = self.rgsw_w.basis
+        sk_n_eval = ntt_fwd(sampling.to_residues(sk_n.s, bw), bw)
+        self.ks_key = lwe.key_switch_gen(self.gen, sk, sk_n, self.q_ks,
+                                         self.base_ks, self.std)
+        self.bt_key = rgsw_wide.keygen_cggi_pair_wide(
+            self.gen, self.rgsw_w, sk_n_eval, sk.s, self.std)
+
     def _eval_acc(self, acc0, acc1, a, q_lwe: int | None = None):
-        """Dispatch blind rotation on the configured method."""
+        """Dispatch blind rotation on the configured method (the
+        composite-Q ring's GINX on a wide set)."""
+        if self.wide:
+            return rgsw_wide.eval_acc_cggi_wide(
+                self.rgsw_w.replace(q_lwe=q_lwe or self.q), self.bt_key,
+                acc0, acc1, a)
         params = self.rgsw if q_lwe is None \
             else self.rgsw.replace(q_lwe=q_lwe)
         if self.method == BINFHE_METHOD.GINX:
@@ -240,35 +276,61 @@ class BinFHEContext:
         # row i (i < q/2): value depends on (b - i) mod q in [lb, ub)
         i_idx = torch.arange(q_half, device=b.device)
         bi = torch.remainder(b.long()[..., None] - i_idx, q)
-        vals = torch.where((bi >= lb) & (bi < ub), lv, uv)
-        m = torch.zeros(tuple(b.shape) + (big_n,), dtype=torch.int32,
-                        device=b.device)
+        return self._test_poly(torch.where((bi >= lb) & (bi < ub), lv, uv),
+                               factor)
+
+    def _test_poly(self, vals: torch.Tensor, factor: int) -> torch.Tensor:
+        """A test vector's values [..., N / factor] (int64 mod Q) at every
+        factor-th coefficient: [..., N] int32, or its residues [..., 2, N]
+        on the composite-Q ring."""
+        lead = tuple(vals.shape[:-1])
+        if self.wide:
+            vals = torch.remainder(vals[..., None, :], self.rgsw_w.q_col)
+            lead += (2,)
+        m = torch.zeros(lead + (self.N,), dtype=torch.int32,
+                        device=vals.device)
         m[..., ::factor] = vals.int()
         return m
 
+    def _acc_init(self, m: torch.Tensor) -> tuple:
+        """(acc0, acc1) = (0, NTT(m)) for a test polynomial m."""
+        acc1 = (ntt_fwd(m, self.rgsw_w.basis) if self.wide
+                else rgsw._fwd1(m, self.rgsw.basis))
+        return torch.zeros_like(acc1), acc1
+
     def _extract(self, acc0, acc1, extra_b: int, pt_modulus: int):
         """INTT the accumulator (one call over both halves) and read it as
-        an LWE sample mod Q: a = Transpose(acc0), b = acc1[0] + extra_b."""
+        an LWE sample mod Q: a = Transpose(acc0), b = acc1[0] + extra_b. On
+        the composite-Q ring the coefficients come back from their two
+        residues by Garner, and the sample holds int64 words."""
         big_q, big_n = self.Q, self.N
-        p = rgsw._inv1(torch.stack([acc0, acc1], dim=-2), self.rgsw.basis)
+        if self.wide:
+            p = rgsw_wide.garner(self.rgsw_w, ntt_inv(
+                torch.stack([acc0, acc1], dim=-3), self.rgsw_w.basis))
+        else:
+            p = rgsw._inv1(torch.stack([acc0, acc1], dim=-2),
+                           self.rgsw.basis)
         # Transpose: a(X) -> a(X^-1): a'_0 = a_0, a'_k = -a_{N-k}
         rev = torch.cat([torch.zeros(1, dtype=torch.int64),
                          torch.arange(big_n - 1, 0, -1)]).to(self.device)
         a_t = p[..., 0, :][..., rev].long()
         a_t[..., 1:] = torch.remainder(-a_t[..., 1:], big_q)
         b = torch.remainder(p[..., 1, 0].long() + extra_b, big_q)
-        return lwe.LWECiphertext(a=a_t.int(), b=b.int(), modulus=big_q,
-                                 pt_modulus=pt_modulus)
+        dtype = lwe.word_dtype(big_q)
+        return lwe.LWECiphertext(a=a_t.to(dtype), b=b.to(dtype),
+                                 modulus=big_q, pt_modulus=pt_modulus)
 
     def _bootstrap_core(self, ct, gate: BINGATE, p: int, extra_b: int):
         """Init the accumulator with the test vector, run blind rotation,
-        extract the constant coefficient as an LWE sample mod Q."""
+        extract the constant coefficient as an LWE sample mod Q. The
+        composite-Q ring rotates by the ciphertext's own modulus, as the
+        JAX package's wide path does."""
         if self.bt_key is None:
             raise ValueError("bootstrapping keys have not been generated; "
                              "call BTKeyGen before gate evaluation")
-        acc1 = rgsw._fwd1(self._test_vector(ct.b, gate, p), self.rgsw.basis)
-        acc0 = torch.zeros_like(acc1)
-        acc0, acc1 = self._eval_acc(acc0, acc1, ct.a)
+        acc0, acc1 = self._acc_init(self._test_vector(ct.b, gate, p))
+        acc0, acc1 = self._eval_acc(acc0, acc1, ct.a, q_lwe=(
+            int(ct.modulus) if self.wide else None))
         return self._extract(acc0, acc1, extra_b, p)
 
     def _to_small(self, ct: lwe.LWECiphertext) -> lwe.LWECiphertext:
@@ -366,11 +428,7 @@ class BinFHEContext:
         bi = torch.remainder(ct.b.long()[..., None]
                              - torch.arange(q_ct >> 1, device=self.device),
                              q_ct)
-        m = torch.zeros(tuple(ct.b.shape) + (big_n,), dtype=torch.int32,
-                        device=self.device)
-        m[..., ::factor] = fv[bi].int()
-        acc1 = rgsw._fwd1(m, self.rgsw.basis)
-        acc0 = torch.zeros_like(acc1)
+        acc0, acc1 = self._acc_init(self._test_poly(fv[bi], factor))
         # blind rotation indices use the ciphertext modulus of `ct`
         acc0, acc1 = self._eval_acc(acc0, acc1, ct.a, q_lwe=q_ct)
         ct_ext = self._extract(acc0, acc1, 0, ct.pt_modulus)

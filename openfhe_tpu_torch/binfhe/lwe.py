@@ -6,12 +6,16 @@ Decrypt, ModSwitch :242 RoundqQ, KeySwitchGen :252, KeySwitch :323,
 SwitchCTtoqn :153, NoiselessEmbedding :349).
 
 LWE ciphertexts are batched int32 tensors on one device (`[..., n]` for
-a, `[...]` for b), holding the JAX package's uint32 words (every modulus
-is below 2^31). Arithmetic widens to int64. The JAX package's modular
+a, `[...]` for b), holding the JAX package's uint32 words, for every
+modulus below 2^31. A sample extracted from a composite-Q ring
+(`rgsw_wide.py`, Q up to about 2^40) holds int64 words until it is
+switched down. Arithmetic widens to int64. The JAX package's modular
 sums are pairwise add_mod trees; any exact modular sum gives the same
 words, so here they are int64 sums reduced once. Mod switching is the
-exact int64 rounding (v * q_to + floor(q_from / 2)) // q_from mod q_to,
-whose words equal both of the JAX package's paths.
+exact rounding (v * q_to + floor(q_from / 2)) // q_from mod q_to, whose
+words equal both of the JAX package's paths: int64 on the ciphertext's
+device while the product fits, else Python integers on the host, as the
+JAX package does past 62 bits.
 """
 
 from __future__ import annotations
@@ -185,24 +189,39 @@ def reduce_mod(ct: LWECiphertext, q: int) -> LWECiphertext:
 
 
 def _check_narrow(*moduli) -> None:
+    """Switching keys hold int32 words: every qKS of the parameter sets
+    (and of custom contexts, wide ones included) is below 2^31."""
     if any(int(m) >= 1 << 31 for m in moduli):
-        raise NotImplementedError(
-            "moduli of 2^31 and above are the composite-Q (rgsw_wide) "
-            "rings, a later slice of the port")
+        raise ValueError("a key-switching modulus of 2^31 or more does not "
+                         "fit the int32 words of a switching key")
+
+
+def word_dtype(q: int) -> torch.dtype:
+    """The dtype of an LWE word mod q: int32 below 2^31, else int64."""
+    return torch.int32 if int(q) < 1 << 31 else torch.int64
 
 
 def mod_switch(q_to: int, ct: LWECiphertext) -> LWECiphertext:
     """Round(v * q_to / q_from) per entry (lwe-pke.cpp:242 RoundqQ).
 
     (v * q_to + floor(q_from / 2)) // q_from equals (2 v q_to + q_from) //
-    (2 q_from) for odd and even q_from alike, and v * q_to < 2^62."""
-    q_from = int(ct.modulus)
-    _check_narrow(q_from, q_to)
+    (2 q_from) for odd and even q_from alike. int64 on the device while
+    (q_from - 1) * q_to + q_from / 2 stays below 2^63 (every STD192-class
+    switch: Q < 2^40, qKS <= 2^17); past it, exact Python integers on the
+    host (a custom 50-bit Q into a 21-bit qKS)."""
+    q_from, q_to = int(ct.modulus), int(q_to)
     half = q_from >> 1
+    dtype = word_dtype(q_to)
+    fits = (q_from - 1) * q_to + half < 1 << 63
 
     def rq(v):
-        return torch.remainder((v.long() * q_to + half) // q_from,
-                               q_to).int()
+        if fits:
+            return torch.remainder((v.long() * q_to + half) // q_from,
+                                   q_to).to(dtype)
+        x = v.cpu().numpy().astype(np.int64).astype(object)
+        r = ((x * q_to + half) // q_from % q_to).astype(np.int64)
+        return torch.from_numpy(np.asarray(r, np.int64).reshape(
+            tuple(v.shape))).to(device=v.device, dtype=dtype)
 
     return ct.replace(a=rq(ct.a), b=rq(ct.b), modulus=q_to)
 

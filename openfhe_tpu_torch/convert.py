@@ -9,7 +9,9 @@ RNGs never agree, so word-exact comparisons feed JAX-made keys and
 ciphertexts into the port through this module: CKKS, BGV and BFV
 ciphertexts with their metadata (`ciphertext_from_numpy`), plaintexts
 (`plaintext_from_numpy`), hybrid and BV key-switch keys. The `lwe_*`,
-`switching_key_*` and `bt_key_*` functions carry BinFHE state.
+`switching_key_*` and `bt_key_*` functions carry BinFHE state (the
+composite-Q GINX key too), and `scheme_switch_keys_from_jax` the keys of
+a scheme-switching state.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from openfhe_tpu_torch.binfhe import lwe
 from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD
 from openfhe_tpu_torch.math.modops import to_u32, u32_tensor
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext, Plaintext
+from openfhe_tpu_torch.pke import schemeswitch
 from openfhe_tpu_torch.pke.keys import EvalKey, PrivateKey, PublicKey
 from openfhe_tpu_torch.pke.keyswitch.hybrid import shoup_companions
 
@@ -155,7 +158,8 @@ def lwe_ciphertext_from_numpy(a, b, modulus: int, pt_modulus: int = 4,
 
 def bt_key_from_numpy(method, bt_key, device=None):
     """A blind-rotation key in the JAX package's form for `method`: GINX
-    the tensor [n, 2, d2, 2, N]; AP (ek [n, dR, BR, d2, 2, N], digits_r);
+    the tensor [n, 2, d2, 2, N], or [n, 2, d2, 2, 2, N] (pair, tower) on
+    the composite-Q ring; AP (ek [n, dR, BR, d2, 2, N], digits_r);
     LMKCDEY (key_bank, perm_table, w)."""
     dev = resolve_device(device)
     method = BINFHE_METHOD(getattr(method, "value", method))
@@ -166,6 +170,39 @@ def bt_key_from_numpy(method, bt_key, device=None):
         return u32_tensor(ek, dev), int(digits_r)
     key_bank, perm_table, w = bt_key
     return u32_tensor(key_bank, dev), _i32(perm_table, dev), int(w)
+
+
+def scheme_switch_keys_from_jax(cc, st, device=None):
+    """The keys of a JAX package scheme-switching state (anything with the
+    fields of its SchemeSwitchState) into the port context `cc`, whose own
+    EvalSchemeSwitchingSetup made a state of the same parameters: the LWE
+    secret, the Q' switching key (Shoup companions from the Q' and P
+    moduli), the FHEW -> CKKS key with its Chebyshev seed, the S2C step and
+    the inner BinFHE context's switching and bootstrapping keys, where
+    the JAX state has them. Returns the port's LWE secret key. The CKKS
+    context's own eval keys travel as usual (`eval_key_map_from_numpy`)."""
+    dev = resolve_device(device)
+    mine = cc._schswch
+    lwe_sk = lwe_secret_from_numpy(np.asarray(st.lwe_sk.s), dev)
+    mine.lwe_sk = lwe_sk
+    p_aux = schemeswitch.aux_modulus(cc, mine.q_prime)
+    mine.swk = eval_key_from_numpy(
+        np.asarray(st.swk.bv), np.asarray(st.swk.av),
+        key_tag=st.swk.key_tag, device=dev,
+        moduli_qp=(mine.q_prime, p_aux))
+    mine.swk_tabs = schemeswitch.switch_tables(mine, p_aux)
+    mine.s2c_bstep = st.s2c_bstep
+    if st.fhew_to_ckks_swk is not None:
+        mine.fhew_to_ckks_swk = ciphertext_from_jax(st.fhew_to_ckks_swk,
+                                                    dev)
+        mine.k_bound, mine.cheb_fhew = st.k_bound, list(st.cheb_fhew)
+    src, dst = st.cc_lwe, mine.cc_lwe
+    if getattr(src, "ks_key", None) is not None:
+        ks = src.ks_key
+        dst.ks_key = switching_key_from_numpy(
+            np.asarray(ks.a), np.asarray(ks.b), ks.mod_ks, ks.base_ks, dev)
+        dst.bt_key = bt_key_from_numpy(src.method, src.bt_key, dev)
+    return lwe_sk
 
 
 def to_numpy(x) -> np.ndarray:

@@ -46,16 +46,22 @@ two) and EvalBootstrapStCFirst, with the diagonals' encodings cached per
 context (`_cached_plaintext`); functional bootstrapping (`fhe/fbt.py`
 over the RLWE schemelet of `schemelet.py`): EvalFBTSetup / KeyGen,
 EvalFBT(NoDecoding), EvalMVBPrecompute, EvalMVB(NoDecoding) and
-EvalHomDecoding. The key stores: EvalMultKeysGen, InsertEvalMultKey /
+EvalHomDecoding. CKKS <-> FHEW scheme switching (`schemeswitch.py`):
+EvalCKKStoFHEWSetup / KeyGen / Precompute, EvalCKKStoFHEW,
+EvalFHEWtoCKKSSetup / KeyGen, EvalFHEWtoCKKS, EvalSchemeSwitchingSetup /
+KeyGen, EvalCompareSwitchPrecompute, EvalCompareSchemeSwitching,
+EvalMin / EvalMaxSchemeSwitching (and their Alt names), Get /
+SetBinCCForSchemeSwitch and Get / SetSwkFC; the inner BinFHE context sits
+on this context's device. The key stores: EvalMultKeysGen, InsertEvalMultKey /
 InsertEvalSumKey, the Clear* methods (this context's stores only) and
 SetPrivateKey / GetPrivateKey; JitPipeline returns its function, run
 eagerly.
 
 Not ported (NotImplementedError or absent): EvalHermiteTrigSeries,
 serialization, multiparty and interactive bootstrapping
-(NOISE_FLOODING_MULTIPARTY raises for BGV and BFV), PRE and scheme
-switching. Ciphertexts of three or more elements are refused where the
-JAX package reads two and drops the rest.
+(NOISE_FLOODING_MULTIPARTY raises for BGV and BFV) and PRE. Ciphertexts
+of three or more elements are refused where the JAX package reads two and
+drops the rest.
 
 Devices are explicit: the context's tensors live on `device`, `cuda` when
 None (it raises if there is no GPU). Randomness comes from one
@@ -80,7 +86,7 @@ from openfhe_tpu_torch.lattice.dcrt import COEFF, EVAL, Poly
 from openfhe_tpu_torch.math import crt
 from openfhe_tpu_torch.math import modops as mo
 from openfhe_tpu_torch.ops.ntt import ntt_fwd
-from openfhe_tpu_torch.pke import advanced
+from openfhe_tpu_torch.pke import advanced, schemeswitch as ssw
 from openfhe_tpu_torch.pke import parameters as prm
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext, Plaintext
 from openfhe_tpu_torch.math import sampling
@@ -152,6 +158,7 @@ class CryptoContext:
         self._boot_precom: dict = {}
         self._modraise_cache: dict = {}
         self._pt_cache: dict = {}
+        self._schswch: ssw.SchemeSwitchState | None = None
 
     # ------------------------------------------------------------------
     # parameter generation
@@ -1342,6 +1349,100 @@ class CryptoContext:
                         slots: int | None = None) -> Ciphertext:
         """(reference cryptocontext.h:3585)"""
         return fbt.eval_hom_decoding(self, ct, p_out, slots)
+
+    # ------------------------------------------------------------------
+    # CKKS <-> FHEW scheme switching (reference cryptocontext.h:3653-3753;
+    # `schemeswitch.py`)
+    # ------------------------------------------------------------------
+
+    def EvalCKKStoFHEWSetup(self, params: ssw.SchSwchParams | None = None):
+        """The inner BinFHE context, on this context's device, and Q';
+        returns the LWE secret key."""
+        return ssw.eval_ckks_to_fhew_setup(self, params
+                                           or ssw.SchSwchParams())
+
+    def EvalCKKStoFHEWKeyGen(self, keys: KeyPair, lwe_sk) -> None:
+        ssw.eval_ckks_to_fhew_keygen(self, keys, lwe_sk)
+
+    def EvalCKKStoFHEWPrecompute(self, scale: float = 1.0) -> None:
+        ssw.eval_ckks_to_fhew_precompute(self, scale)
+
+    def EvalCKKStoFHEW(self, ct: Ciphertext, num_ctxts: int = 0):
+        return ssw.eval_ckks_to_fhew(self, ct, num_ctxts)
+
+    def EvalFHEWtoCKKSKeyGen(self, keys: KeyPair, lwe_sk) -> None:
+        ssw.eval_fhew_to_ckks_keygen(self, keys, lwe_sk)
+
+    def EvalFHEWtoCKKS(self, lwe_cts, num_ctxts: int = 0,
+                       num_slots: int = 0, p: int = 4, pmin: float = 0.0,
+                       pmax: float = 2.0) -> Ciphertext:
+        return ssw.eval_fhew_to_ckks(self, lwe_cts, num_ctxts, num_slots,
+                                     p, pmin, pmax)
+
+    def EvalSchemeSwitchingSetup(self,
+                                 params: ssw.SchSwchParams | None = None):
+        return self.EvalCKKStoFHEWSetup(params)
+
+    def EvalFHEWtoCKKSSetup(self, cc_lwe=None, num_slots: int = 0,
+                            logq: int = 25) -> None:
+        """(reference EvalFHEWtoCKKSSetup, cryptocontext.h:3734) One
+        switching state serves both directions: made here when there is
+        none, with `cc_lwe` wired in when given."""
+        if self._schswch is None:
+            self.EvalCKKStoFHEWSetup(None)
+        if cc_lwe is not None:
+            self._schswch.cc_lwe = cc_lwe
+
+    def EvalSchemeSwitchingKeyGen(self, keys: KeyPair, lwe_sk) -> None:
+        self.EvalCKKStoFHEWKeyGen(keys, lwe_sk)
+        self.EvalFHEWtoCKKSKeyGen(keys, lwe_sk)
+
+    def EvalCompareSwitchPrecompute(self, p_lwe: int = 0,
+                                    scale_sign: float = 1.0) -> None:
+        ssw.eval_compare_switch_precompute(self, p_lwe, scale_sign)
+
+    def EvalCompareSchemeSwitching(self, ct1: Ciphertext, ct2: Ciphertext,
+                                   num_ctxts: int = 0,
+                                   num_slots: int = 0) -> Ciphertext:
+        return ssw.eval_compare_scheme_switching(self, ct1, ct2, num_ctxts,
+                                                 num_slots)
+
+    def EvalMinSchemeSwitching(self, ct: Ciphertext, public_key,
+                               num_values: int, num_slots: int = 0,
+                               p_lwe: int = 0, scale_sign: float = 1.0):
+        """(min, argmin one-hot indicator)"""
+        return ssw.eval_min_scheme_switching(self, ct, public_key,
+                                             num_values, num_slots, p_lwe,
+                                             scale_sign)
+
+    def EvalMaxSchemeSwitching(self, ct: Ciphertext, public_key,
+                               num_values: int, num_slots: int = 0,
+                               p_lwe: int = 0, scale_sign: float = 1.0):
+        """(max, argmax one-hot indicator)"""
+        return ssw.eval_max_scheme_switching(self, ct, public_key,
+                                             num_values, num_slots, p_lwe,
+                                             scale_sign)
+
+    # the reference's *Alt variants (cryptocontext.h:3810-3850) trade a
+    # level for fewer switches on long vectors; the tournament already
+    # batches every comparison of a round, so both names share it
+    EvalMinSchemeSwitchingAlt = EvalMinSchemeSwitching
+    EvalMaxSchemeSwitchingAlt = EvalMaxSchemeSwitching
+
+    def GetBinCCForSchemeSwitch(self):
+        return self._schswch.cc_lwe
+
+    def SetBinCCForSchemeSwitch(self, cc_lwe) -> None:
+        """(reference cryptocontext.h:3944)"""
+        self._schswch.cc_lwe = cc_lwe
+
+    def GetSwkFC(self) -> Ciphertext:
+        """The FHEW -> CKKS switching key: the CKKS encryption of the LWE
+        secret (reference cryptocontext.h:3954)."""
+        return self._schswch.fhew_to_ckks_swk
+
+    def SetSwkFC(self, swk: Ciphertext) -> None:
+        self._schswch.fhew_to_ckks_swk = swk
 
 
 def GenCryptoContext(params: prm.CCParams, seed: int = 0,

@@ -269,6 +269,12 @@ def _drop_encodings(cc, p: CKKSBootstrapPrecom) -> None:
     arrays = list(p.c2s_diags) + list(p.s2c_diags)
     for stages in (p.c2s_stages or [], p.s2c_stages or []):
         arrays += [d for st in stages for d in st.diags.values()]
+    drop_cached(cc, arrays)
+
+
+def drop_cached(cc, arrays) -> None:
+    """Forget the context's cached encodings of `arrays` (every level,
+    slot count and degree)."""
     mine = {id(a): a for a in arrays}
     for key in [k for k, (values, _) in cc._pt_cache.items()
                 if mine.get(k[0]) is values]:
@@ -396,12 +402,14 @@ def mult_by_integer(cc, ct: Ciphertext, value: int) -> Ciphertext:
         mo.mul_mod_shoup(e, c, c_sh, q) for e in ct.elements))
 
 
-def eval_linear_transform(cc, ct: Ciphertext, diags: list, bstep: int,
-                          pt_slots: int) -> Ciphertext:
+def eval_linear_transform(cc, ct: Ciphertext, diags, bstep: int,
+                          pt_slots: int, cache: bool = True) -> Ciphertext:
     """BSGS diagonal-method linear transform (reference
     EvalLinearTransform): out = sum_j rot_{b*j}(sum_i diag'_{b*j+i} *
     rot_i(ct)), the diagonals pre-rotated by -b*j at setup, the baby-step
-    rotations hoisted over one digit decomposition of c1."""
+    rotations hoisted over one digit decomposition of c1. `diags` is any
+    sequence of arrays; their encodings enter the context's cache unless
+    `cache` is False (diagonals made for one call)."""
     n_diags = len(diags)
     gstep = int(math.ceil(n_diags / bstep))
     rots = {0: ct}
@@ -415,7 +423,9 @@ def eval_linear_transform(cc, ct: Ciphertext, diags: list, bstep: int,
             d = bstep * j + i
             if d >= n_diags:
                 break
-            pt = cc._cached_plaintext(diags[d], ct.level, pt_slots)
+            pt = (cc._cached_plaintext(diags[d], ct.level, pt_slots)
+                  if cache else cc.MakeCKKSPackedPlaintext(
+                      diags[d], level=ct.level, slots=pt_slots))
             term = cc._eval_mult_plain(rots[i], pt)
             inner = term if inner is None else cc.EvalAdd(inner, term)
         if j:

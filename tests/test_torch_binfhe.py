@@ -293,12 +293,13 @@ def test_port_keygen_round_trip():
 
 def test_context_defaults_and_wide_sets():
     """Without a device the context asks for the card (and raises here
-    without one); composite-Q sets are a later slice."""
+    without one); composite-Q sets build on their 2-tower ring
+    (`test_torch_binfhe_wide.py` holds it against JAX) for GINX only."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BinFHEContext()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        BinFHEContext(device="cpu").GenerateBinFHEContext("STD192")
+    cc = BinFHEContext(device="cpu").GenerateBinFHEContext("STD192")
+    assert cc.wide and cc.rgsw is None and cc.Q.bit_length() > 31
     with pytest.raises(ValueError, match="only GINX"):
         BinFHEContext(device="cpu").GenerateBinFHEContext(
             "STD192_LMKCDEY", BINFHE_METHOD.LMKCDEY)
