@@ -253,7 +253,61 @@ is not beside it. Phases, none of which catches its own failure:
    one, on both sides), the min, max and argmin indicator within their
    limits, the compare's FHEW -> CKKS stage errors printed as in (b),
    `blind_rotate_cggi` launched;
-11. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+11. the protocols (`pke/multiparty.py`, `pke/pre.py`,
+   `utils/serialization.py`), which launch only kernels the phases above
+   hold (rows a, b and k, the mult chain and the general chain), each part
+   counted from its context's creation (or its first op) to its last op
+   with its wall (CUDA events), launches by kernel, host share (the CRT
+   lifts and lowers, the encodes and decodes, ShareKeys' Horner,
+   (de)serialization: HOST_STEPS) and peak memory, every oracle outside those windows: (a)
+   threshold CKKS at phase 7(a)'s widths (N=2^16, depth 30, 26/27-bit, 2
+   digits, HEStd_128_classic, FLEXIBLEAUTO; 31 Q + 16 P towers) with
+   MULTIPARTY: three parties' MultipartyKeyGen, the joint relinearization
+   key (KeySwitchGen, two MultiKeySwitchGen and MultiAddEvalKeys, three
+   MultiMultEvalKey, MultiAddEvalMultKeys) and joint rotation keys for
+   +-1 (MultiEvalAutomorphismKeyGen, MultiAddAutomorphismKeys), all with
+   their Shoup companions; encryptions of |z| <= Z_MAX under the joint
+   key, EvalMult (one launch of each kernel of the mult chain; MULT_KERNELS
+   device kernels under the profiler, all of csrc/), Rescale, EvalRotate
+   +-1 (one launch of each kernel of the general chain), EvalMult at level
+   1; Lead, Main, Main and Fusion within MP_TOL / MP_MULT_TOL (twice phase
+   4's TOL / MULT_TOL: the joint secret of three shares has three times a
+   key's variance); fused == unfused (`unfused_view`) at levels 0 and 1 and
+   the level-1 EvalMult word-equal to the port's plain path on the CPU
+   (`cpu_twin`) from the same keys; ShareKeys(5, 3) and RecoverSharedKey
+   over parties 1, 3, 5 giving back party 1's key word for word; (b) on
+   (a)'s context, inputs brought down to IB_TOWERS towers: 2-party IntBoot
+   (AdjustScale, Decrypt twice, Encrypt, Add) under the first two
+   parties' key and 3-party IntMPBoot (AdjustScale, RandomElementGen,
+   three Decrypts, Add, Encrypt) under the joint key, each step's wall and
+   host share printed, both outputs on the full chain within IB_NOISE
+   times a fresh threshold decryption's error under the same key (and
+   IB_TOL), then EvalMult of the IntMPBoot output under the joint
+   relinearization key (the mult chain once) within the same limit after
+   Rescale; (e) serialization
+   on the card of (a)'s ciphertext, joint public key, party 2's secret
+   share, joint relinearization key and rotation map, binary and JSON:
+   each round trip gives the words back (keys with their companions) and
+   the same bytes again, the reloaded relinearization key's EvalMult the
+   original's words on MULT_KERNELS device kernels of csrc/, the blobs'
+   bytes and times printed, the context record deduplicated on the card;
+   (f) EvalHermiteTrigSeries of x^2 mod 4 (p = HERMITE_P, order 1) on an
+   encryption of exp(2 pi i x / 4), against the series in numpy within
+   HERMITE_NOISE times the series' gain at (b)'s fresh error (and
+   HERMITE_TOL); (c) PRE at `bench_bfvbgv`'s BGV (N=2^15, depth 10, t = 65537;
+   21 Q + 7 P towers, 3 digits) under INDCPA, FIXED_NOISE_HRA and
+   NOISE_FLOODING_HRA: Alice -> Bob by secret key, Bob -> Carol by public
+   key, at level 0 and after an EvalMult; each ReEncrypt one launch of
+   each kernel of the general chain with t in K6's tables and c0 (plus
+   the mode's noise) as its addends, and besides only the noise's
+   `ntt_fwd` (three for FIXED_NOISE_HRA's encryption of zero under
+   Carol's key, one for flooding); Carol's decryptions equal numpy mod t;
+   fused == unfused on the same draws; (d) NOISE_FLOODING_MULTIPARTY for
+   BFV at `bench_bfvbgv`'s N=2^14, depth 2, and BGV at (c)'s widths: the
+   towers with flooding and without printed, 2-party keys and joint
+   relinearization key, EvalMult, an exact threshold decryption whose
+   extra-limb mask is switched exactly Q' -> Q on the card;
+12. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    line.
 
 bound_ms is the least time the card could take for a call: the larger of
@@ -623,6 +677,50 @@ EXT_CPU_LEVEL = 20        # the CPU twin's level: 11 Q towers, one digit
 # (complex), so a max over 32768 slots near 4.5 std of the sum, ~3e-3:
 # twice MULT_TOL, the limit of one rotation's two roundings in phase 4.
 EXT_SUM_TOL = 2 * MULT_TOL
+
+PROTO_SEED = 29
+MP_PARTIES = 3
+# The joint secret s1 + s2 + s3 of three ternary shares has variance 2 a
+# coefficient (one key's 2/3), so the noise terms that carry s grow by
+# sqrt(3) ~ 1.73 and the threshold decryption's smudging (sigma 3.19 a
+# party) adds nothing visible at scale 2^26: twice phase 4's limits.
+MP_MULT_TOL = 2 * MULT_TOL
+MP_TOL = 2 * TOL
+IB_TOWERS = 5             # the interactive bootstrap's input: 5 Q towers
+# A refreshed ciphertext carries its input's noise and the noise of the
+# refresh's fresh encryption, each about that of a fresh encryption under
+# the same joint key, so sqrt(2) of one: its error is held to IB_NOISE
+# times the error of a fresh threshold decryption of the same values
+# under the same key, measured in the same run (at N=2^16 and scales near
+# 2^26 that error is itself ~1e-2, so tests/test_interactive_boot.py's
+# 1e-2 at N=512 does not carry over), and below IB_TOL.
+IB_NOISE = 3.0
+IB_TOL = 0.1
+SHARE = (5, 3)            # ShareKeys(5, 3), recovered from parties 1, 3, 5
+HERMITE_P = 4             # EvalHermiteTrigSeries of x^2 mod 4, order 1
+# The series sum_j c_j z^j moves an input error e by at most
+# sum_j j |c_j| e (0.5 e here: c = 0.25, 0, -0.25), and the input is a
+# fresh encryption under the joint key of values of modulus 1: its error
+# is held to HERMITE_NOISE times that bound at the fresh threshold
+# decryption's error measured in (b), and below HERMITE_TOL.
+HERMITE_NOISE = 3.0
+HERMITE_TOL = 0.1
+PRE_MODES = ("INDCPA", "FIXED_NOISE_HRA", "NOISE_FLOODING_HRA")
+# the port's host-side steps, timed for each part's host share: the CRT
+# lifts and lowers (encode, decode, the interactive bootstrap's exact
+# extensions and rounding), ShareKeys' Horner and (de)serialization (its
+# copies between the card and the host included)
+HOST_STEPS = (("openfhe_tpu_torch.math.crt",
+               ("interpolate", "interpolate_centered",
+                "interpolate_centered_float", "to_residues_host")),
+              ("openfhe_tpu_torch.pke.encoding.ckks_packed",
+               ("encode_to_coeffs", "decode_from_coeffs")),
+              ("openfhe_tpu_torch.pke.multiparty", ("share_keys",)),
+              ("openfhe_tpu_torch.utils.serialization",
+               ("serialize", "deserialize", "serialize_eval_mult_keys",
+                "deserialize_eval_mult_keys",
+                "serialize_eval_automorphism_keys",
+                "deserialize_eval_automorphism_keys")))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2895,6 +2993,540 @@ def scheme_switch_phase(card, names) -> dict:
     return res
 
 
+def host_clock():
+    """Make the HOST_STEPS add the host seconds of their outermost calls
+    to the returned dict's "s"; returns it and a function that undoes the
+    patches."""
+    import importlib
+    clock = {"s": 0.0, "depth": 0}
+    saved = []
+    for mod_name, fns in HOST_STEPS:
+        mod = importlib.import_module(mod_name)
+        for name in fns:
+            orig = getattr(mod, name)
+
+            def timed(*args, _f=orig, **kw):
+                clock["depth"] += 1
+                t = time.perf_counter()
+                try:
+                    return _f(*args, **kw)
+                finally:
+                    clock["depth"] -= 1
+                    if not clock["depth"]:
+                        clock["s"] += time.perf_counter() - t
+            setattr(mod, name, timed)
+            saved.append((mod, name, orig))
+    return clock, lambda: [setattr(m, n, f) for m, n, f in saved]
+
+
+def protocols_phase(card, names) -> dict:
+    """Multiparty, interactive bootstrapping, PRE, NOISE_FLOODING_MULTIPARTY,
+    serialization and EvalHermiteTrigSeries (see the module docstring,
+    phase 11); raises on any fault. Each part is counted from its context's
+    creation (or its first op) to its last op; every oracle runs outside
+    those windows."""
+    import openfhe_tpu_torch as fhe
+    from openfhe_tpu_torch import _build
+    from openfhe_tpu_torch.lattice.automorph import \
+        rotation_automorphism_index
+    from openfhe_tpu_torch.math.hermite import get_hermite_trig_coefficients
+    from openfhe_tpu_torch.pke import pre
+    from openfhe_tpu_torch.pke import parameters as prm
+    from openfhe_tpu_torch.pke.constants import (MultipartyMode,
+                                                 PKESchemeFeature,
+                                                 ProxyReEncryptionMode)
+    from openfhe_tpu_torch.trace_evalmult import OWN
+    from openfhe_tpu_torch.utils import serialization as ser
+    t_phase = time.perf_counter()
+    res = {"parts": {}, "steps": {}, "same": {}, "errors": {}, "limits": {},
+           "exact": {}, "per_op": {}}
+    launches = collections.Counter()
+    clock, unpatch = host_clock()
+    want_mult = {k: int(k in MULT_CHAIN) for k in names}
+    want_ks = {k: int(k in KS_CHAIN) for k in names}
+
+    def window(label, fn):
+        """fn() from a cleared counter: its wall (CUDA events), launches
+        by kernel, host share and peak memory; its launches join the
+        phase's."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        host0 = clock["s"]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end)
+        per = {k: _build.LAUNCHES[k] for k in names if _build.LAUNCHES[k]}
+        host_ms = (clock["s"] - host0) * 1e3
+        part = res["parts"][label] = dict(
+            wall_ms=wall, host_ms=host_ms, host_share=host_ms / wall,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=per)
+        launches.update(per)
+        print(f"{label}: wall {wall:.1f} ms (CUDA events, {card}); host "
+              f"steps {host_ms:.1f} ms ({host_ms / wall:.1%}); peak memory "
+              f"{part['peak_memory_gb']:.2f} GiB; launches {per}")
+        return out
+
+    def step(label, fn):
+        """One protocol step inside a window: its wall and host share."""
+        host0 = clock["s"]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, per = count_launches(fn, names)
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end)
+        host_ms = (clock["s"] - host0) * 1e3
+        res["steps"][label] = dict(wall_ms=wall, host_ms=host_ms,
+                                   host_share=host_ms / wall,
+                                   launches={k: v for k, v in per.items()
+                                             if v})
+        return out
+
+    def limit(label, got, want, tol):
+        err = float(np.abs(np.asarray(got)[:len(want)] - want).max())
+        res["errors"][label], res["limits"][label] = err, tol
+        require(np.isfinite(err) and err <= tol,
+                f"{label}: error {err:.3e} above {tol:.1e}")
+
+    def own_kernels(label, fn, want):
+        kernels = device_kernels(fn, want)
+        own = [k for k in kernels
+               if any(f"{o}(" in k or f"{o}<" in k for o in OWN)]
+        print(f"{label} on the card: {len(kernels)} device kernels, "
+              f"{len(own)} of csrc/")
+        require(len(kernels) == want == len(own),
+                f"{label} ran {len(kernels)} device kernels ({len(own)} of "
+                f"csrc/), expected {want}, all of csrc/")
+
+    def threshold(cc, sks, ct):
+        """Lead, Main, ..., Fusion: the decrypted values."""
+        parts = ([cc.MultipartyDecryptLead(ct, sks[0])]
+                 + [cc.MultipartyDecryptMain(ct, s) for s in sks[1:]])
+        return np.asarray(cc.MultipartyDecryptFusion(parts, ct).values)
+
+    def joint_keys(cc, sks, gs):
+        """The joint relinearization key (KeySwitchGen, a MultiKeySwitchGen
+        and MultiAddEvalKeys per later party, MultiMultEvalKey per party,
+        MultiAddEvalMultKeys) and, for `gs`, the joint rotation keys, all
+        under the last party's joint tag."""
+        tag = sks[-1].key_tag
+        ek = cc.KeySwitchGen(sks[0], sks[0])
+        for s in sks[1:]:
+            ek = cc.MultiAddEvalKeys(ek, cc.MultiKeySwitchGen(s, s, ek), tag)
+        joint = None
+        for s in sks:
+            share = cc.MultiMultEvalKey(ek, s, tag)
+            joint = (share if joint is None
+                     else cc.MultiAddEvalMultKeys(joint, share, tag))
+        cc.InsertEvalMultKey(joint, tag)
+        if gs:
+            cc.EvalAutomorphismKeyGen(sks[0], gs)
+            amap = cc.eval_automorphism_keys[sks[0].key_tag]
+            for s in sks[1:]:
+                amap = cc.MultiAddAutomorphismKeys(
+                    amap, cc.MultiEvalAutomorphismKeyGen(s, amap, gs), tag)
+            cc.InsertEvalAutomorphismKey(amap, tag)
+        return joint
+
+    def parties(cc, count):
+        kps = [cc.MultipartyKeyGen()]
+        for _ in range(count - 1):
+            kps.append(cc.MultipartyKeyGen(kps[-1].public_key))
+        return kps
+
+    # (a) threshold CKKS at the main path's widths, FLEXIBLEAUTO
+    params = dataclasses.replace(prm.main_path_params(),
+                                 scaling_technique=fhe.ScalingTechnique
+                                 .FLEXIBLEAUTO)
+    rng = np.random.default_rng(PROTO_SEED)
+
+    def threshold_run():
+        cc = fhe.GenCryptoContext(params, seed=PROTO_SEED)
+        cc.Enable(PKESchemeFeature.MULTIPARTY | PKESchemeFeature.PRE)
+        kps = parties(cc, MP_PARTIES)
+        sks = [k.secret_key for k in kps]
+        n = cc.ring_dim
+        gs = [rotation_automorphism_index(r, n) for r in (1, -1)]
+        joint_keys(cc, sks, gs)
+        jpk = kps[-1].public_key
+        z = rng.uniform(-Z_MAX, Z_MAX, cc.slots)
+        w = rng.uniform(-Z_MAX, Z_MAX, cc.slots)
+        a = cc.Encrypt(jpk, cc.MakeCKKSPackedPlaintext(z))
+        b = cc.Encrypt(jpk, cc.MakeCKKSPackedPlaintext(w))
+        prod, per_mult = count_launches(lambda: cc.EvalMult(a, b), names)
+        resc, per_resc = count_launches(lambda: cc.Rescale(prod), names)
+        rot, per_rot = {}, {}
+        for r in (1, -1):
+            rot[r], per_rot[r] = count_launches(
+                lambda r=r: cc.EvalRotate(a, r), names)
+        rot_p = {r: cc.Rescale(cc.EvalRotate(prod, r)) for r in (1, -1)}
+        prod1, per_mult1 = count_launches(lambda: cc.EvalMult(resc, resc),
+                                          names)
+        rot1 = cc.EvalRotate(resc, 1)
+        decs = {"a": threshold(cc, sks, a), "b": threshold(cc, sks, b),
+                "resc": threshold(cc, sks, resc),
+                "resc1": threshold(cc, sks, cc.Rescale(prod1)),
+                **{f"rot_p{r:+d}": threshold(cc, sks, rot_p[r])
+                   for r in (1, -1)}}
+        shares = cc.ShareKeys(sks[0], *SHARE)
+        rec = cc.RecoverSharedKey({i: shares[i] for i in (1, 3, 5)},
+                                  key_tag=sks[0].key_tag)
+        return dict(cc=cc, kps=kps, sks=sks, z=z, w=w, a=a, b=b, prod=prod,
+                    resc=resc, rot=rot, prod1=prod1, rot1=rot1, decs=decs,
+                    rec=rec, per=dict(mult=per_mult, mult1=per_mult1,
+                                      rescale=per_resc, rot=per_rot))
+
+    A = window("(a) threshold CKKS", threshold_run)
+    cc, sks, kps = A["cc"], A["sks"], A["kps"]
+    jpk, tag = kps[-1].public_key, sks[-1].key_tag
+    z, w, decs = A["z"], A["w"], A["decs"]
+    require((len(cc.moduli_q), len(cc.moduli_p)) == (31, 16)
+            and cc.hybrid_tables(cc.size_ql(0)).fused is not None,
+            "unexpected threshold chain or no fused tables")
+    joint = cc.eval_mult_keys[tag]
+    require(joint.bv_sh is not None and all(
+        k.bv_sh is not None for k in cc.eval_automorphism_keys[tag].values()),
+        "a joint key has no Shoup companions")
+    print(f"(a) {MP_PARTIES} parties, joint tag {tag}; {len(cc.moduli_q)} Q "
+          f"+ {len(cc.moduli_p)} P towers, N=2^{cc.ring_dim.bit_length() - 1}")
+    per = A["per"]
+    res["per_op"]["threshold EvalMult"] = per["mult"]
+    require(per["mult"] == want_mult and per["mult1"] == want_mult,
+            f"threshold EvalMult launches {per['mult']} / {per['mult1']}, "
+            f"expected {want_mult}")
+    for r in (1, -1):
+        require(per["rot"][r] == want_ks, f"EvalRotate {r:+d} under the "
+                f"joint key launches {per['rot'][r]}, expected {want_ks}")
+    own_kernels("threshold EvalMult", lambda: cc.EvalMult(A["a"], A["b"]),
+                MULT_KERNELS)
+    limit("(a) threshold Rescale(EvalMult) - z w", decs["resc"].real,
+          z * w, MP_TOL)
+    limit("(a) threshold Rescale(EvalMult) - dec(a) dec(b)",
+          decs["resc"].real, decs["a"].real * decs["b"].real, MP_MULT_TOL)
+    limit("(a) threshold level-1 product - (z w)^2", decs["resc1"].real,
+          (z * w) ** 2, MP_TOL)
+    for r in (1, -1):
+        limit(f"(a) threshold Rescale(EvalRotate(prod, {r:+d}))",
+              decs[f"rot_p{r:+d}"].real, np.roll(decs["resc"].real, -r),
+              MP_MULT_TOL)
+    unf = unfused_view(cc)
+    a_ct, b_ct, resc = A["a"], A["b"], A["resc"]
+    res["same"].update({
+        "(a) EvalMult fused == unfused": same_ct(A["prod"],
+                                                 unf.EvalMult(a_ct, b_ct)),
+        "(a) EvalMult level 1 fused == unfused": same_ct(
+            A["prod1"], unf.EvalMult(resc, resc)),
+        **{f"(a) EvalRotate {r:+d} fused == unfused": same_ct(
+            A["rot"][r], unf.EvalRotate(a_ct, r)) for r in (1, -1)},
+        "(a) EvalRotate level 1 fused == unfused": same_ct(
+            A["rot1"], unf.EvalRotate(resc, 1))})
+    t0 = time.perf_counter()
+    cpu, on_cpu = cpu_twin(cc, PROTO_SEED)
+    res["same"]["(a) EvalMult level 1 card == CPU"] = same_ct(
+        A["prod1"], cpu.EvalMult(on_cpu(resc), on_cpu(resc)))
+    print(f"(a) the CPU's plain path: {time.perf_counter() - t0:.1f} s")
+    del cpu
+    res["same"]["(a) RecoverSharedKey == party 1's key"] = torch.equal(
+        A["rec"].s_qp, sks[0].s_qp)
+    res["times"] = {
+        "threshold EvalMult": cuda_ms(lambda: cc.EvalMult(a_ct, b_ct),
+                                      reps=10),
+        "EvalRotate +1 under the joint key": cuda_ms(
+            lambda: cc.EvalRotate(a_ct, 1), reps=10)}
+
+    # (b) interactive bootstrapping on (a)'s context
+    def int_boot_run():
+        lvl = len(cc.moduli_q) - IB_TOWERS
+        x2 = cc.LevelReduce(cc.Encrypt(kps[1].public_key,
+                                       cc.MakeCKKSPackedPlaintext(z)), lvl)
+        x3 = cc.LevelReduce(cc.Encrypt(jpk, cc.MakeCKKSPackedPlaintext(w)),
+                            lvl)
+        torch.cuda.synchronize()
+        adj = step("IntBootAdjustScale", lambda: cc.IntBootAdjustScale(x2))
+        s1 = step("IntBootDecrypt (lead)",
+                  lambda: cc.IntBootDecrypt(sks[0], adj))
+        c1 = dataclasses.replace(adj, elements=(adj.elements[1],))
+        s2 = step("IntBootDecrypt (c1 only)",
+                  lambda: cc.IntBootDecrypt(sks[1], c1))
+        e2 = step("IntBootEncrypt",
+                  lambda: cc.IntBootEncrypt(kps[1].public_key, s2))
+        out2 = step("IntBootAdd", lambda: cc.IntBootAdd(e2, s1))
+        before = dict(_build.LAUNCHES)
+        ctc = step("IntMPBootAdjustScale",
+                   lambda: cc.IntMPBootAdjustScale(x3))
+        crp = step("IntMPBootRandomElementGen",
+                   lambda: cc.IntMPBootRandomElementGen(jpk))
+        c1 = dataclasses.replace(ctc, elements=(ctc.elements[1],))
+        shares = [step(f"IntMPBootDecrypt party {i + 1}",
+                       lambda s=s: cc.IntMPBootDecrypt(s, c1, crp))
+                  for i, s in enumerate(sks)]
+        agg = step("IntMPBootAdd", lambda: cc.IntMPBootAdd(shares))
+        out3 = step("IntMPBootEncrypt",
+                    lambda: cc.IntMPBootEncrypt(jpk, agg, crp, ctc))
+        torch.cuda.synchronize()
+        round_launches = {k: _build.LAUNCHES[k] - before.get(k, 0)
+                          for k in names}
+        sq, per_sq = count_launches(lambda: cc.EvalMult(out3, out3), names)
+        return dict(x2=x2, out2=out2, out3=out3, sq=sq, per_sq=per_sq,
+                    round=round_launches)
+
+    B = window("(b) interactive bootstrapping", int_boot_run)
+    res["per_op"]["IntMPBoot round"] = B["round"]
+    res["per_op"]["EvalMult after IntMPBoot"] = B["per_sq"]
+    for label, s in res["steps"].items():
+        print(f"  {label:28s} wall {s['wall_ms']:8.2f} ms, host steps "
+              f"{s['host_ms']:8.2f} ms ({s['host_share']:.0%}); launches "
+              f"{s['launches']}")
+    require(cc.size_ql(B["x2"].level) == IB_TOWERS
+            and cc.size_ql(B["out2"].level) == len(cc.moduli_q)
+            and cc.size_ql(B["out3"].level) == len(cc.moduli_q),
+            "the refreshed ciphertexts do not have the full chain")
+    fresh = {
+        2: float(np.abs(threshold(cc, sks[:2], cc.Encrypt(
+            kps[1].public_key, cc.MakeCKKSPackedPlaintext(z))).real
+            - z).max()),
+        3: float(np.abs(threshold(cc, sks, cc.Encrypt(
+            jpk, cc.MakeCKKSPackedPlaintext(w))).real - w).max())}
+    res["errors"].update({f"(b) fresh threshold decryption, {p} parties": e
+                          for p, e in fresh.items()})
+    ib_tol = {p: min(IB_NOISE * e, IB_TOL) for p, e in fresh.items()}
+    limit("(b) 2-party IntBoot", threshold(cc, sks[:2], B["out2"]).real, z,
+          ib_tol[2])
+    limit("(b) 3-party IntMPBoot", threshold(cc, sks, B["out3"]).real, w,
+          ib_tol[3])
+    limit("(b) EvalMult after IntMPBoot, Rescale",
+          threshold(cc, sks, cc.Rescale(B["sq"])).real, w * w, ib_tol[3])
+    require(B["per_sq"] == want_mult,
+            f"EvalMult after IntMPBoot launches {B['per_sq']}")
+
+    # (e) serialization of (a)'s objects on the card
+    objs = {"Ciphertext": a_ct, "PublicKey (joint)": jpk,
+            "PrivateKey (party 2's share)": sks[1], "EvalKey (joint relin)":
+            joint}
+    blobs = {}
+
+    def ser_run():
+        for st in ser.SerType:
+            for label, obj in objs.items():
+                t = time.perf_counter()
+                data = ser.serialize(obj, st)
+                t_w = time.perf_counter() - t
+                t = time.perf_counter()
+                back = ser.deserialize(data, st, cc=cc)
+                torch.cuda.synchronize()
+                blobs[(st.name, label)] = dict(
+                    bytes=len(data), write_ms=t_w * 1e3,
+                    read_ms=(time.perf_counter() - t) * 1e3, obj=back,
+                    same_bytes=ser.serialize(back, st) == data)
+            t = time.perf_counter()
+            amap = cc.SerializeEvalAutomorphismKey(st)
+            t_w = time.perf_counter() - t
+            t = time.perf_counter()
+            again = copy.copy(cc)
+            again.eval_automorphism_keys = {}
+            again.DeserializeEvalAutomorphismKey(amap)
+            torch.cuda.synchronize()
+            blobs[(st.name, "rotation maps (every tag)")] = dict(
+                bytes=len(amap), write_ms=t_w * 1e3,
+                read_ms=(time.perf_counter() - t) * 1e3,
+                obj=again.eval_automorphism_keys[tag],
+                same_bytes=again.SerializeEvalAutomorphismKey(st) == amap)
+        record = ser.serialize_context(cc)
+        return (ser.deserialize_context(record),
+                ser.deserialize_context(record))
+
+    c1_ctx, c2_ctx = window("(e) serialization", ser_run)
+    res["same"]["(e) context record deduplicated"] = (
+        c1_ctx is c2_ctx and c1_ctx.device.type == "cuda")
+    ser.CryptoContextFactory.release_all_contexts()
+    del c1_ctx, c2_ctx
+    res["serialization"] = {}
+
+    def same_obj(x, y):
+        if isinstance(y, type(a_ct)):
+            return same_ct(x, y)
+        return all(torch.equal(getattr(x, f.name), getattr(y, f.name))
+                   for f in dataclasses.fields(y)
+                   if isinstance(getattr(y, f.name), torch.Tensor))
+
+    for (st, label), b in blobs.items():
+        obj = b.pop("obj")
+        if label == "rotation maps (every tag)":
+            want_map = cc.eval_automorphism_keys[tag]
+            same = sorted(obj) == sorted(want_map) and all(
+                same_obj(obj[g], k) for g, k in want_map.items())
+        else:
+            same = same_obj(obj, objs[label])
+        res["same"][f"(e) {st} {label} round trip"] = (same
+                                                       and b["same_bytes"])
+        res["serialization"][f"{st} {label}"] = b
+        print(f"  {st:6s} {label:30s} {b['bytes']:>11d} bytes, write "
+              f"{b['write_ms']:8.1f} ms, read {b['read_ms']:8.1f} ms")
+    reloaded = copy.copy(cc)
+    reloaded.eval_mult_keys = {tag: ser.deserialize(ser.serialize(joint),
+                                                    cc=cc)}
+    res["same"]["(e) reloaded relin key's EvalMult"] = same_ct(
+        reloaded.EvalMult(a_ct, b_ct), A["prod"])
+    own_kernels("EvalMult under the reloaded relin key",
+                lambda: reloaded.EvalMult(a_ct, b_ct), MULT_KERNELS)
+    del reloaded
+
+    # (f) EvalHermiteTrigSeries on (a)'s context
+    f = lambda j: j * j % HERMITE_P
+    zz = np.exp(2j * np.pi * (np.arange(cc.slots) % HERMITE_P) / HERMITE_P)
+    coeffs = get_hermite_trig_coefficients(f, HERMITE_P)
+    series = sum(complex(c) * zz ** j for j, c in enumerate(coeffs))
+    ct_h = window("(f) EvalHermiteTrigSeries",
+                  lambda: cc.EvalHermiteTrigSeries(cc.Encrypt(
+                      jpk, cc.MakeCKKSPackedPlaintext(zz)), f, HERMITE_P))
+    gain = max(1.0, sum(j * abs(complex(c)) for j, c in enumerate(coeffs)))
+    limit("(f) EvalHermiteTrigSeries x^2 mod 4", threshold(cc, sks, ct_h),
+          series, min(HERMITE_NOISE * gain * fresh[3], HERMITE_TOL))
+    del cc, unf, A, B, objs, blobs, joint, a_ct, b_ct, resc, ct_h, kps, sks
+    torch.cuda.empty_cache()
+
+    # (c) PRE at bench_bfvbgv's BGV, each mode
+    bgv = prm.bgv_bench_params()
+    res["pre_launches"] = {}
+    for mode in PRE_MODES:
+        vals = {}
+
+        def pre_run():
+            cp = fhe.GenCryptoContext(dataclasses.replace(
+                bgv, pre_mode=ProxyReEncryptionMode[mode]), seed=PROTO_SEED)
+            cp.Enable(PKESchemeFeature.PRE)
+            alice, bob, carol = (cp.KeyGen() for _ in range(3))
+            cp.EvalMultKeyGen(alice.secret_key)
+            n, t = cp.ring_dim, cp.plaintext_modulus
+            u, v = (rng.integers(0, t, n) for _ in range(2))
+            x = cp.Encrypt(alice.public_key, cp.MakePackedPlaintext(u))
+            y = cp.Encrypt(alice.public_key, cp.MakePackedPlaintext(v))
+            ab = cp.ReKeyGen(alice.secret_key, bob.secret_key)
+            bc = cp.ReKeyGen(bob.secret_key, carol.public_key)
+            hops = []
+            for label, c in (("level 0", x),
+                             ("after EvalMult", cp.EvalMult(x, y))):
+                to_bob, per_b = count_launches(lambda: cp.ReEncrypt(c, ab),
+                                               names)
+                to_carol, per_c = count_launches(
+                    lambda: cp.ReEncrypt(to_bob, bc, carol.public_key),
+                    names)
+                hops.append((label, c, to_bob, to_carol, per_b, per_c))
+            vals.update(cp=cp, carol=carol, bc=bc, u=u, v=v, hops=hops)
+
+        window(f"(c) PRE {mode}", pre_run)
+        cp, t = vals["cp"], vals["cp"].plaintext_modulus
+        tabs0 = cp.hybrid_tables(cp.size_ql(0))
+        require((len(cp.moduli_q), len(cp.moduli_p), len(tabs0.parts))
+                == (21, 7, 3) and not tabs0.fused.t_is_one,
+                "unexpected BGV chain or fused tables without t")
+        unf = unfused_view(cp)
+        u, v = vals["u"], vals["v"]
+        extra = {"INDCPA": 0, "FIXED_NOISE_HRA": 3,
+                 "NOISE_FLOODING_HRA": 1}[mode]
+        for label, c, to_bob, to_carol, per_b, per_c in vals["hops"]:
+            want = u if label == "level 0" else u * v % t
+            got = np.asarray(cp.Decrypt(vals["carol"].secret_key,
+                                        to_carol).values)
+            res["exact"][f"(c) {mode} {label}"] = ok = bool(
+                np.array_equal(np.mod(got, t), np.mod(want, t)))
+            require(ok, f"(c) {mode} {label}: decryption differs from numpy "
+                    "mod t")
+            # by secret key: the general chain alone; by public key also the
+            # mode's noise lifts (FIXED_NOISE_HRA u, e0, e1; flooding one)
+            want_b = dict(want_ks)
+            want_b["ntt_fwd"] = want_b.get("ntt_fwd", 0) + (
+                extra if mode == "NOISE_FLOODING_HRA" else 0)
+            want_c = dict(want_ks)
+            want_c["ntt_fwd"] = want_c.get("ntt_fwd", 0) + extra
+            require(per_b == want_b and per_c == want_c,
+                    f"(c) {mode} {label}: ReEncrypt launches {per_b} / "
+                    f"{per_c}, expected {want_b} / {want_c}")
+            res["pre_launches"][f"{mode} {label}"] = (per_b, per_c)
+            draws = pre.re_encrypt_draws(cp, vals["carol"].public_key)
+            one, two = (pre.re_encrypt_core(ctx, to_bob, vals["bc"],
+                                            vals["carol"].public_key, draws)
+                        for ctx in (cp, unf))
+            res["same"][f"(c) {mode} {label} fused == unfused"] = same_ct(
+                one, two)
+        res["per_op"][f"ReEncrypt {mode}"] = vals["hops"][0][5]
+        to_bob = vals["hops"][0][2]
+        res["times"][f"ReEncrypt {mode}, by public key"] = cuda_ms(
+            lambda: cp.ReEncrypt(to_bob, vals["bc"], vals["carol"].public_key),
+            reps=10)
+        del cp, unf, vals
+        torch.cuda.empty_cache()
+
+    # (d) NOISE_FLOODING_MULTIPARTY: BFV at bench_bfvbgv's widths, BGV at
+    # (c)'s
+    flood = MultipartyMode.NOISE_FLOODING_MULTIPARTY
+    res["flooding_towers"] = {}
+    for label, base in (("BFV", prm.bfv_bench_params()), ("BGV", bgv)):
+        vals = {}
+
+        def flood_run():
+            cf = fhe.GenCryptoContext(dataclasses.replace(
+                base, multiparty_mode=flood), seed=PROTO_SEED)
+            cf.Enable(PKESchemeFeature.MULTIPARTY)
+            kf = parties(cf, 2)
+            sf = [k.secret_key for k in kf]
+            joint_keys(cf, sf, [])
+            n, t = cf.ring_dim, cf.plaintext_modulus
+            u, v = (rng.integers(0, t, n) for _ in range(2))
+            x, y = (cf.Encrypt(kf[-1].public_key, cf.MakePackedPlaintext(p))
+                    for p in (u, v))
+            prod, per_m = count_launches(lambda: cf.EvalMult(x, y), names)
+            lead = cf.MultipartyDecryptLead(prod, sf[0])
+            main = cf.MultipartyDecryptMain(prod, sf[1])
+            got = np.asarray(cf.MultipartyDecryptFusion([lead, main],
+                                                        prod).values)
+            vals.update(cf=cf, got=got, want=u * v % t, per_m=per_m,
+                        mask_device=lead.elements[0].device.type)
+
+        window(f"(d) NOISE_FLOODING_MULTIPARTY {label}", flood_run)
+        cf = vals["cf"]
+        fixed = fhe.GenCryptoContext(dataclasses.replace(
+            base, multiparty_mode=MultipartyMode.FIXED_NOISE_MULTIPARTY),
+            seed=PROTO_SEED)
+        towers = res["flooding_towers"][label] = dict(
+            flooding=len(cf.moduli_q), fixed=len(fixed.moduli_q),
+            p=len(cf.moduli_p), flood_cache=len(cf._flood_cache))
+        print(f"(d) {label} N=2^{cf.ring_dim.bit_length() - 1}: Q towers "
+              f"{towers['flooding']} flooding, {towers['fixed']} fixed; "
+              f"{towers['p']} P; the mask's switch tables "
+              f"{towers['flood_cache']} on {vals['mask_device']}")
+        res["exact"][f"(d) {label} threshold EvalMult"] = ok = bool(
+            np.array_equal(np.mod(vals["got"], cf.plaintext_modulus),
+                           vals["want"]))
+        require(ok, f"(d) {label}: threshold decryption is not exact")
+        require(towers["flooding"] > towers["fixed"]
+                and towers["flood_cache"] > 0
+                and vals["mask_device"] == "cuda",
+                f"(d) {label}: no flooding towers or the mask off the card")
+        if label == "BGV":
+            require(vals["per_m"] == want_mult, f"(d) BGV EvalMult launches "
+                    f"{vals['per_m']}, expected {want_mult}")
+        del cf, fixed, vals
+        torch.cuda.empty_cache()
+
+    unpatch()
+    print(f"op times (median of 10, CUDA events, {card}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in res["times"].items()))
+    res["launches"] = dict(launches)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"fused == unfused / word checks: {res['same']}")
+    require(all(res["same"].values()), f"a word check failed: {res['same']}")
+    print(f"protocols phase: {res['seconds']:.1f} s")
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -3375,7 +4007,11 @@ def main() -> int:
     switch_s = time.perf_counter() - t0
     print(f"composite-Q and scheme-switching phase: {switch_s:.1f} s")
 
-    # 11. the kernels line, then the device line
+    # 11. the protocols, each part counted over its own window
+    protocols = protocols_phase(card, names)
+    per_proto = protocols["per_op"]
+
+    # 12. the kernels line, then the device line
     kernels = []
     for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
@@ -3403,6 +4039,12 @@ def main() -> int:
                 "launches"].get(name, 0),
             launches_per_std192_and=wide["per_and"].get(name, 0),
             launches_per_compare_switch=switch["per_compare"].get(name, 0),
+            launches_protocols_phase=protocols["launches"].get(name, 0),
+            launches_per_threshold_mult=per_proto[
+                "threshold EvalMult"].get(name, 0),
+            launches_per_reencrypt=per_proto["ReEncrypt INDCPA"].get(name, 0),
+            launches_per_intmpboot_round=per_proto[
+                "IntMPBoot round"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -3453,7 +4095,11 @@ def main() -> int:
                           "fhew_signs_right", "f2c_stage_errors",
                           "twin_errors", "twin_f2c_stage_errors", "twin_s",
                           "peak_memory_gb")},
-                      "switch_phase_s": switch_s}))
+                      "switch_phase_s": switch_s,
+                      "protocols": {k: protocols[k] for k in (
+                          "parts", "steps", "errors", "limits", "exact",
+                          "same", "per_op", "flooding_towers",
+                          "serialization", "times", "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,10 @@ ciphertexts with their metadata (`ciphertext_from_numpy`), plaintexts
 (`plaintext_from_numpy`), hybrid and BV key-switch keys. The `lwe_*`,
 `switching_key_*` and `bt_key_*` functions carry BinFHE state (the
 composite-Q GINX key too), and `scheme_switch_keys_from_jax` the keys of
-a scheme-switching state.
+a scheme-switching state. The protocol objects of `pke/multiparty.py`
+travel too: ShareKeys' share dicts (`shares_from_numpy`), IntMPBootDecrypt's
+share pairs (`share_pair_from_jax`) and joint keys, which get their Shoup
+companions here as every carried hybrid key does.
 """
 
 from __future__ import annotations
@@ -203,6 +206,27 @@ def scheme_switch_keys_from_jax(cc, st, device=None):
             np.asarray(ks.a), np.asarray(ks.b), ks.mod_ks, ks.base_ks, dev)
         dst.bt_key = bt_key_from_numpy(src.method, src.bt_key, dev)
     return lwe_sk
+
+
+def shares_from_numpy(shares: dict, device=None) -> dict:
+    """ShareKeys' {party: [kQP, N] uint32 words} on a device."""
+    dev = resolve_device(device)
+    return {int(p): u32_tensor(np.asarray(w), dev)
+            for p, w in shares.items()}
+
+
+def share_pair_from_jax(pair, device=None) -> list:
+    """An IntMPBootDecrypt / IntMPBootAdd share pair [h0, h1] (JAX
+    package Ciphertexts) on a device."""
+    return [ciphertext_from_jax(h, device) for h in pair]
+
+
+def eval_key_from_jax(ek, moduli_qp, device=None) -> EvalKey:
+    """A JAX package hybrid EvalKey (a joint key has no companions) with
+    the companions over `moduli_qp`."""
+    return eval_key_from_numpy(np.asarray(ek.bv), np.asarray(ek.av),
+                               key_tag=ek.key_tag, device=device,
+                               moduli_qp=moduli_qp)
 
 
 def to_numpy(x) -> np.ndarray:

@@ -57,11 +57,23 @@ InsertEvalSumKey, the Clear* methods (this context's stores only) and
 SetPrivateKey / GetPrivateKey; JitPipeline returns its function, run
 eagerly.
 
-Not ported (NotImplementedError or absent): EvalHermiteTrigSeries,
-serialization, multiparty and interactive bootstrapping
-(NOISE_FLOODING_MULTIPARTY raises for BGV and BFV) and PRE. Ciphertexts
-of three or more elements are refused where the JAX package reads two and
-drops the rest.
+The protocols (`multiparty.py`, `pre.py`): MultipartyKeyGen,
+MultipartyDecryptLead / Main / Fusion (NOISE_FLOODING_MULTIPARTY's
+extra-limb mask for BGV and BFV, whose chains carry its 128 extra bits),
+MultiAddPubKeys, the joint eval-key protocol (MultiKeySwitchGen,
+MultiAddEvalKeys, MultiMultEvalKey, MultiAddEvalMultKeys,
+MultiEvalAutomorphismKeyGen, MultiAddAutomorphismKeys: every key with its
+Shoup companions, so joint keys run the fused chains), ShareKeys /
+RecoverSharedKey, interactive bootstrapping (IntBootAdjustScale /
+Decrypt / Encrypt / Add and IntMPBootAdjustScale / RandomElementGen /
+Decrypt / Add / Encrypt) and ReKeyGen / ReEncrypt under INDCPA,
+FIXED_NOISE_HRA and NOISE_FLOODING_HRA (HYBRID only: ReEncrypt is one
+general fused chain with c0 as its addend). Serialization
+(`utils/serialization.py`, the JAX package's format byte for byte):
+Serialize / DeserializeEvalMultKey, EvalAutomorphismKey and EvalSumKey.
+EvalHermiteTrigSeries (`math/hermite.py`). Ciphertexts of three or more
+elements are refused where the JAX package reads two and drops the
+rest.
 
 Devices are explicit: the context's tensors live on `device`, `cuda` when
 None (it raises if there is no GPU). Randomness comes from one
@@ -86,7 +98,9 @@ from openfhe_tpu_torch.lattice.dcrt import COEFF, EVAL, Poly
 from openfhe_tpu_torch.math import crt
 from openfhe_tpu_torch.math import modops as mo
 from openfhe_tpu_torch.ops.ntt import ntt_fwd
-from openfhe_tpu_torch.pke import advanced, schemeswitch as ssw
+from openfhe_tpu_torch.math.hermite import get_hermite_trig_coefficients
+from openfhe_tpu_torch.pke import advanced, multiparty as mp, pre
+from openfhe_tpu_torch.pke import schemeswitch as ssw
 from openfhe_tpu_torch.pke import parameters as prm
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext, Plaintext
 from openfhe_tpu_torch.math import sampling
@@ -104,6 +118,7 @@ from openfhe_tpu_torch.pke.fhe import ckks_bootstrap, fbt
 from openfhe_tpu_torch.pke.keys import EvalKey, KeyPair, PrivateKey, PublicKey
 from openfhe_tpu_torch.pke.keyswitch import bv, hybrid, ks_fused
 from openfhe_tpu_torch.pke.schemes import bfv, bgv, rns_pke
+from openfhe_tpu_torch.utils import serialization as ser
 
 
 def mult_relin_hybrid(a0, a1, b0, b1, ek: EvalKey,
@@ -159,6 +174,8 @@ class CryptoContext:
         self._modraise_cache: dict = {}
         self._pt_cache: dict = {}
         self._schswch: ssw.SchemeSwitchState | None = None
+        # NOISE_FLOODING_MULTIPARTY's exact Q' -> Q switch tables
+        self._flood_cache: dict = {}
 
     # ------------------------------------------------------------------
     # parameter generation
@@ -288,6 +305,23 @@ class CryptoContext:
 
     def GetCKKSDataType(self):
         return self.params.ckks_data_type
+
+    # the eval-key maps' (de)serialization under the reference's names;
+    # deserialized keys land on this context's device with companions
+    def SerializeEvalMultKey(self, sertype=None) -> str:
+        return ser.serialize_eval_mult_keys(self)
+
+    def DeserializeEvalMultKey(self, data) -> None:
+        ser.deserialize_eval_mult_keys(self, data)
+
+    def SerializeEvalAutomorphismKey(self, sertype=None) -> str:
+        return ser.serialize_eval_automorphism_keys(self)
+
+    def DeserializeEvalAutomorphismKey(self, data) -> None:
+        ser.deserialize_eval_automorphism_keys(self, data)
+
+    SerializeEvalSumKey = SerializeEvalAutomorphismKey
+    DeserializeEvalSumKey = DeserializeEvalAutomorphismKey
 
     def GetAllEvalMultKeys(self) -> dict:
         return self.eval_mult_keys
@@ -1349,6 +1383,119 @@ class CryptoContext:
                         slots: int | None = None) -> Ciphertext:
         """(reference cryptocontext.h:3585)"""
         return fbt.eval_hom_decoding(self, ct, p_out, slots)
+
+    def EvalHermiteTrigSeries(self, ct_exp: Ciphertext, func, p: int,
+                              order: int = 1,
+                              scale: float = 1.0) -> Ciphertext:
+        """A Hermite trigonometric interpolation of `func` on a ciphertext
+        of exp(2 pi i x / p) (reference EvalHermiteTrigSeries,
+        cryptocontext.h:3609; coefficients from `math/hermite.py`): the
+        real part of the result is func(x)."""
+        coeffs = get_hermite_trig_coefficients(func, p, order, scale)
+        return advanced.eval_poly_linear(self, ct_exp,
+                                         [complex(c) for c in coeffs])
+
+    # ------------------------------------------------------------------
+    # PRE (reference ReKeyGen / ReEncrypt, cryptocontext.h:3043)
+    # ------------------------------------------------------------------
+
+    def ReKeyGen(self, old_sk: PrivateKey, new_key) -> EvalKey:
+        return pre.re_key_gen(self, old_sk, new_key)
+
+    def ReEncrypt(self, ct: Ciphertext, re_key: EvalKey,
+                  public_key: PublicKey | None = None) -> Ciphertext:
+        return pre.re_encrypt(self, ct, re_key, public_key)
+
+    # ------------------------------------------------------------------
+    # multiparty (reference cryptocontext.h:3088-3151, 3337)
+    # ------------------------------------------------------------------
+
+    def MultipartyKeyGen(self, prev_pk: PublicKey | None = None) -> KeyPair:
+        return mp.multiparty_key_gen(self, prev_pk)
+
+    def MultipartyDecryptLead(self, cts, sk: PrivateKey):
+        """One ciphertext or a list of them."""
+        if isinstance(cts, (list, tuple)):
+            return [mp.multiparty_decrypt_lead(self, c, sk) for c in cts]
+        return mp.multiparty_decrypt_lead(self, cts, sk)
+
+    def MultipartyDecryptMain(self, cts, sk: PrivateKey):
+        if isinstance(cts, (list, tuple)):
+            return [mp.multiparty_decrypt_main(self, c, sk) for c in cts]
+        return mp.multiparty_decrypt_main(self, cts, sk)
+
+    def MultipartyDecryptFusion(self, partials, ct_meta=None) -> Plaintext:
+        return mp.multiparty_decrypt_fusion(self, partials,
+                                            ct_meta or partials[0])
+
+    def MultiAddPubKeys(self, pk1: PublicKey, pk2: PublicKey,
+                        key_tag: str = "") -> PublicKey:
+        return mp.multi_add_pub_keys(self, pk1, pk2, key_tag)
+
+    def MultiKeySwitchGen(self, original_sk: PrivateKey, new_sk: PrivateKey,
+                          ek_prev: EvalKey) -> EvalKey:
+        return mp.multi_key_switch_gen(self, original_sk, new_sk, ek_prev)
+
+    def MultiAddEvalKeys(self, ek1: EvalKey, ek2: EvalKey,
+                         key_tag: str = "") -> EvalKey:
+        return mp.multi_add_evalkeys(self, ek1, ek2, key_tag)
+
+    def MultiMultEvalKey(self, ek: EvalKey, sk: PrivateKey,
+                         key_tag: str = "") -> EvalKey:
+        return mp.multi_mult_eval_key(self, ek, sk, key_tag)
+
+    def MultiAddEvalMultKeys(self, ek1: EvalKey, ek2: EvalKey,
+                             key_tag: str = "") -> EvalKey:
+        return mp.multi_add_evalmult_keys(self, ek1, ek2, key_tag)
+
+    def MultiEvalAutomorphismKeyGen(self, sk: PrivateKey, ek_prev_map: dict,
+                                    g_list, key_tag: str = "") -> dict:
+        return mp.multi_eval_automorphism_keygen(self, sk, ek_prev_map,
+                                                 g_list, key_tag)
+
+    def MultiAddAutomorphismKeys(self, m1: dict, m2: dict,
+                                 key_tag: str = "") -> dict:
+        return mp.multi_add_automorphism_keys(self, m1, m2, key_tag)
+
+    def ShareKeys(self, sk: PrivateKey, num_parties: int, threshold: int,
+                  seed: int = 0) -> dict:
+        return mp.share_keys(self, sk, num_parties, threshold, seed)
+
+    def RecoverSharedKey(self, shares: dict, key_tag: str = "") -> PrivateKey:
+        return mp.recover_shared_key(self, shares, key_tag)
+
+    # interactive (two-round) bootstrapping (reference cryptocontext.h
+    # IntBoot* / IntMPBoot*)
+
+    def IntBootAdjustScale(self, ct: Ciphertext) -> Ciphertext:
+        return mp.int_boot_adjust_scale(self, ct)
+
+    def IntBootDecrypt(self, sk: PrivateKey, ct: Ciphertext) -> Ciphertext:
+        return mp.int_boot_decrypt(self, sk, ct)
+
+    def IntBootEncrypt(self, pk: PublicKey, ct_share: Ciphertext
+                       ) -> Ciphertext:
+        return mp.int_boot_encrypt(self, pk, ct_share)
+
+    def IntBootAdd(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        return mp.int_boot_add(self, ct1, ct2)
+
+    def IntMPBootAdjustScale(self, ct: Ciphertext) -> Ciphertext:
+        return mp.int_mp_boot_adjust_scale(self, ct)
+
+    def IntMPBootRandomElementGen(self, pk: PublicKey) -> Ciphertext:
+        return mp.int_mp_boot_random_element_gen(self, pk)
+
+    def IntMPBootDecrypt(self, sk: PrivateKey, ct: Ciphertext,
+                         a: Ciphertext) -> list:
+        return mp.int_mp_boot_decrypt(self, sk, ct, a)
+
+    def IntMPBootAdd(self, shares_vec: list) -> list:
+        return mp.int_mp_boot_add(self, shares_vec)
+
+    def IntMPBootEncrypt(self, pk: PublicKey, shares: list, a: Ciphertext,
+                         ct: Ciphertext) -> Ciphertext:
+        return mp.int_mp_boot_encrypt(self, pk, shares, a, ct)
 
     # ------------------------------------------------------------------
     # CKKS <-> FHEW scheme switching (reference cryptocontext.h:3653-3753;

@@ -111,28 +111,86 @@ def keyswitch_gen(gen: torch.Generator, s_old: PrivateKey,
     """Generate the hybrid KS key s_old -> s_new over QP.
 
     p_modq(+_sh): [P mod q_i] per Q tower, zero over the P towers; ns_int
-    the noise scale (BGV's t, else 1), which multiplies the error.
+    the noise scale (BGV's t, else 1), which multiplies the error. The
+    draws are a uniform `a` and an error per digit, in that order.
     """
     n = basis_qp.ring_dim
+    draws = []
+    for _ in range(num_parts):
+        draws.append(sampling.uniform_residues(gen, basis_qp))  # EVAL
+        draws.append(sampling.discrete_gaussian(gen, (n,)))
+    return keyswitch_gen_core(draws, s_old, s_new, basis_qp, k_q, num_parts,
+                              p_modq, p_modq_sh, ns_int)
+
+
+def add_ps_old(b: torch.Tensor, ps_old: torch.Tensor, part: int,
+                alpha: int, k_q: int, basis_qp: Basis) -> torch.Tensor:
+    """b + P * s_old on digit `part`'s towers only (the CRT mask)."""
+    rows = torch.arange(basis_qp.k, device=basis_qp.device)[:, None]
+    start, end = alpha * part, min(alpha * (part + 1), k_q)
+    mask = (rows >= start) & (rows < end)
+    return torch.where(mask, mo.add_mod(b, ps_old, basis_qp.q), b)
+
+
+def keyswitch_gen_core(draws, s_old: PrivateKey, s_new: PrivateKey,
+                       basis_qp: Basis, k_q: int, num_parts: int, p_modq,
+                       p_modq_sh, ns_int: int = 1) -> EvalKey:
+    """`keyswitch_gen` on given draws: (a, e) per digit, a uniform [kQP, N]
+    EVAL, e a small signed [N]."""
     alpha = -(-k_q // num_parts)
     ps_old = mo.mul_mod_shoup(s_old.s_qp, p_modq, p_modq_sh, basis_qp.q)
-    rows = torch.arange(basis_qp.k, device=basis_qp.device)[:, None]
     bs, as_ = [], []
     for part in range(num_parts):
-        a = sampling.uniform_residues(gen, basis_qp)           # EVAL-uniform
-        e = ntt_fwd(sampling.to_residues(
-            sampling.discrete_gaussian(gen, (n,)), basis_qp), basis_qp)
+        a, e_small = draws[2 * part], draws[2 * part + 1]
+        e = ntt_fwd(sampling.to_residues(e_small, basis_qp), basis_qp)
         if ns_int != 1:
             e = mul_const_int(e, ns_int, basis_qp)
         b = mo.sub_mod(e, mo.mul_mod(a, s_new.s_qp, basis_qp.q), basis_qp.q)
-        # + P * s_old on this digit's towers only (the CRT mask)
-        start, end = alpha * part, min(alpha * (part + 1), k_q)
-        mask = (rows >= start) & (rows < end)
-        b = torch.where(mask, mo.add_mod(b, ps_old, basis_qp.q), b)
-        bs.append(b)
+        bs.append(add_ps_old(b, ps_old, part, alpha, k_q, basis_qp))
         as_.append(a)
     return shoup_companions(EvalKey(bv=torch.stack(bs), av=torch.stack(as_),
                                     key_tag=s_new.key_tag), basis_qp.moduli)
+
+
+def keyswitch_gen_pk(gen: torch.Generator, s_old: PrivateKey, new_pk,
+                     basis_qp: Basis, k_q: int, num_parts: int, p_modq,
+                     p_modq_sh, ns_int: int = 1) -> EvalKey:
+    """PK-based hybrid KS keygen (reference keyswitch-hybrid.cpp, its
+    second overload): digit j is an encryption of P * s_old * mask_j
+    under `new_pk`. Unidirectional PRE's ReKeyGen, which has no access to
+    the new secret. The draws are a ternary u and two errors per digit."""
+    n = basis_qp.ring_dim
+    draws = []
+    for _ in range(num_parts):
+        draws.append(sampling.ternary(gen, (n,)))
+        draws.append(sampling.discrete_gaussian(gen, (n,)))
+        draws.append(sampling.discrete_gaussian(gen, (n,)))
+    return keyswitch_gen_pk_core(draws, s_old, new_pk, basis_qp, k_q,
+                                 num_parts, p_modq, p_modq_sh, ns_int)
+
+
+def keyswitch_gen_pk_core(draws, s_old: PrivateKey, new_pk,
+                          basis_qp: Basis, k_q: int, num_parts: int, p_modq,
+                          p_modq_sh, ns_int: int = 1) -> EvalKey:
+    """`keyswitch_gen_pk` on given draws: (u, e0, e1) per digit, each a
+    small signed [N]: a_j = a_pk u + e1, b_j = b_pk u + e0 + P s_old
+    mask_j, the errors times ns_int."""
+    alpha = -(-k_q // num_parts)
+    q = basis_qp.q
+    lift = lambda x: ntt_fwd(sampling.to_residues(x, basis_qp), basis_qp)
+    ps_old = mo.mul_mod_shoup(s_old.s_qp, p_modq, p_modq_sh, q)
+    bs, as_ = [], []
+    for part in range(num_parts):
+        u, e0, e1 = (lift(x) for x in draws[3 * part:3 * part + 3])
+        if ns_int != 1:
+            e0 = mul_const_int(e0, ns_int, basis_qp)
+            e1 = mul_const_int(e1, ns_int, basis_qp)
+        a = mo.add_mod(mo.mul_mod(new_pk.a, u, q), e1, q)
+        b = mo.add_mod(mo.mul_mod(new_pk.b, u, q), e0, q)
+        bs.append(add_ps_old(b, ps_old, part, alpha, k_q, basis_qp))
+        as_.append(a)
+    return shoup_companions(EvalKey(bv=torch.stack(bs), av=torch.stack(as_),
+                                    key_tag=new_pk.key_tag), basis_qp.moduli)
 
 
 def mul_const_int(x: torch.Tensor, c: int, basis: Basis) -> torch.Tensor:

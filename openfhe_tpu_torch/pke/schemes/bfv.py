@@ -52,9 +52,6 @@ from openfhe_tpu_torch.pke.schemes import rns_pke
 def init_context(cc) -> None:
     p = cc.params
     t = p.plaintext_modulus
-    if p.multiparty_mode == MultipartyMode.NOISE_FLOODING_MULTIPARTY:
-        raise NotImplementedError(
-            "NOISE_FLOODING_MULTIPARTY (its 128 extra bits) is not ported")
     if p.ring_dim == 0:
         # the smallest standardized N whose largest log QP covers the
         # chain at that N (the chain grows with log N)
@@ -86,6 +83,10 @@ def init_context(cc) -> None:
     # the noise-driven chain (reference bfvrns-parametergeneration.cpp)
     bits_per_mult = math.log2(t) + math.log2(n) + 14
     log_q = 34 + math.log2(t) + p.mult_depth * bits_per_mult
+    if p.multiparty_mode == MultipartyMode.NOISE_FLOODING_MULTIPARTY:
+        # the extra-limb flooding headroom: the reference adds two 60-bit
+        # towers (Threshold_FHE.md:28-40), here the same 128 bits
+        log_q += 128
     k_q = max(2, math.ceil(log_q / p.scaling_mod_size))
     moduli = prm._distinct_prime_chain(2 * n, [p.scaling_mod_size] * k_q)
     cc._init_common(moduli)

@@ -39,9 +39,6 @@ from openfhe_tpu_torch.pke.encoding.packed import decode_packed, encode_packed
 def init_context(cc) -> None:
     p = cc.params
     t = p.plaintext_modulus
-    if p.multiparty_mode == MultipartyMode.NOISE_FLOODING_MULTIPARTY:
-        raise NotImplementedError(
-            "NOISE_FLOODING_MULTIPARTY (its flooding towers) is not ported")
     if p.ring_dim == 0:
         # the smallest standardized N covering the chain at that N
         if p.security_level == SecurityLevel.HEStd_NotSet:
@@ -74,7 +71,14 @@ def init_context(cc) -> None:
     drops = max(1, math.ceil(per_level_bits / p.scaling_mod_size))
     cc.bgv_drops_per_level = drops
     cc.L = p.mult_depth * drops
-    cc.bgv_flood_towers = 0
+    # NOISE_FLOODING_MULTIPARTY's extra-limb headroom (reference
+    # Threshold_FHE.md:28-40: two extra 60-bit towers), as about 128 bits
+    # of base towers that ModReduce never drops
+    cc.bgv_flood_towers = (
+        math.ceil(128 / p.scaling_mod_size)
+        if p.multiparty_mode == MultipartyMode.NOISE_FLOODING_MULTIPARTY
+        else 0)
+    cc.L += cc.bgv_flood_towers
     moduli = prm._distinct_prime_chain(
         2 * n, [p.first_mod_size] + [p.scaling_mod_size] * cc.L)
     cc._init_common(moduli)

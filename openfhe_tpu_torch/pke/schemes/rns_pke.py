@@ -19,8 +19,8 @@ from openfhe_tpu_torch.pke.keys import KeyPair, PrivateKey, PublicKey
 from openfhe_tpu_torch.pke.keyswitch.hybrid import mul_const_int
 
 
-def _small_eval(small: torch.Tensor, basis: Basis,
-                ns_int: int = 1) -> torch.Tensor:
+def small_eval(small: torch.Tensor, basis: Basis,
+               ns_int: int = 1) -> torch.Tensor:
     """A small signed polynomial lifted to `basis` in EVAL form, times the
     noise scale."""
     x = ntt_fwd(sampling.to_residues(small, basis), basis)
@@ -40,9 +40,9 @@ def keygen(gen: torch.Generator, basis_qp: Basis, key_tag: str,
         s_small = sampling.ternary(gen, (n,), hamming_weight=192)
     else:
         s_small = sampling.ternary(gen, (n,))
-    s_qp = _small_eval(s_small, basis_qp)
+    s_qp = small_eval(s_small, basis_qp)
     a = sampling.uniform_residues(gen, basis_qp)
-    e = _small_eval(sampling.discrete_gaussian(gen, (n,), sigma), basis_qp,
+    e = small_eval(sampling.discrete_gaussian(gen, (n,), sigma), basis_qp,
                     ns_int)
     b = mo.sub_mod(e, mo.mul_mod(a, s_qp, basis_qp.q), basis_qp.q)
     return KeyPair(public_key=PublicKey(b=b, a=a, key_tag=key_tag),
@@ -53,15 +53,32 @@ def encrypt_zero_pk(gen: torch.Generator, pk: PublicKey, basis_ql: Basis,
                     secret_key_dist=SecretKeyDist.UNIFORM_TERNARY,
                     ns_int: int = 1):
     """(c0, c1) = (b*u + ns*e0, a*u + ns*e1) over Q_l, EVAL format."""
-    n = basis_ql.ring_dim
-    k = basis_ql.k
+    return encrypt_zero_pk_core(
+        encrypt_zero_pk_draws(gen, basis_ql.ring_dim, secret_key_dist), pk,
+        basis_ql, ns_int)
+
+
+def encrypt_zero_pk_draws(gen: torch.Generator, n: int,
+                          secret_key_dist=SecretKeyDist.UNIFORM_TERNARY):
+    """The draws of an encryption of zero under a public key: u (ternary,
+    or Gaussian under a Gaussian secret), e0, e1, each a small signed
+    [n]."""
     if secret_key_dist == SecretKeyDist.GAUSSIAN:
         u_small = sampling.discrete_gaussian(gen, (n,))
     else:
         u_small = sampling.ternary(gen, (n,))
-    u = _small_eval(u_small, basis_ql)
-    e0 = _small_eval(sampling.discrete_gaussian(gen, (n,)), basis_ql, ns_int)
-    e1 = _small_eval(sampling.discrete_gaussian(gen, (n,)), basis_ql, ns_int)
+    return (u_small, sampling.discrete_gaussian(gen, (n,)),
+            sampling.discrete_gaussian(gen, (n,)))
+
+
+def encrypt_zero_pk_core(draws, pk: PublicKey, basis_ql: Basis,
+                         ns_int: int = 1):
+    """`encrypt_zero_pk` on given draws (u, e0, e1)."""
+    k = basis_ql.k
+    u_small, e0_small, e1_small = draws
+    u = small_eval(u_small, basis_ql)
+    e0 = small_eval(e0_small, basis_ql, ns_int)
+    e1 = small_eval(e1_small, basis_ql, ns_int)
     c0 = mo.add_mod(mo.mul_mod(pk.b[:k], u, basis_ql.q), e0, basis_ql.q)
     c1 = mo.add_mod(mo.mul_mod(pk.a[:k], u, basis_ql.q), e1, basis_ql.q)
     return c0, c1
@@ -73,7 +90,7 @@ def encrypt_zero_sk(gen: torch.Generator, sk: PrivateKey, basis_ql: Basis,
     n = basis_ql.ring_dim
     k = basis_ql.k
     a = sampling.uniform_residues(gen, basis_ql)
-    e = _small_eval(sampling.discrete_gaussian(gen, (n,)), basis_ql, ns_int)
+    e = small_eval(sampling.discrete_gaussian(gen, (n,)), basis_ql, ns_int)
     c0 = mo.sub_mod(e, mo.mul_mod(a, sk.s_qp[:k], basis_ql.q), basis_ql.q)
     return c0, a
 

@@ -292,12 +292,18 @@ def test_unported_options_raise(option):
     """BGV, BFV and BV key switching are ported
     (tests/test_torch_bgv.py, test_torch_bfv.py, test_torch_bv.py): each
     builds its context on the CPU with its scheme and key-switch
-    technique. Multiparty is not: NOISE_FLOODING_MULTIPARTY, which changes
-    the integer schemes' chains, still raises."""
+    technique. So is NOISE_FLOODING_MULTIPARTY
+    (tests/test_torch_multiparty.py): BGV's chain gains its
+    ceil(128 / scaling_mod_size) flooding towers."""
     p = dataclasses.replace(_port_params(), **option)
     if "multiparty_mode" in option:
-        with pytest.raises(NotImplementedError):
-            fhe.GenCryptoContext(p, device="cpu")
+        cc = fhe.GenCryptoContext(p, device="cpu")
+        fixed = fhe.GenCryptoContext(dataclasses.replace(
+            p, multiparty_mode=fhe.pke.constants.MultipartyMode
+            .FIXED_NOISE_MULTIPARTY), device="cpu")
+        towers = -(-128 // p.scaling_mod_size)
+        assert cc.bgv_flood_towers == towers
+        assert len(cc.moduli_q) == len(fixed.moduli_q) + towers
         return
     cc = fhe.GenCryptoContext(p, device="cpu")
     assert cc.GetScheme() == p.scheme
