@@ -307,7 +307,27 @@ is not beside it. Phases, none of which catches its own failure:
    towers with flooding and without printed, 2-party keys and joint
    relinearization key, EvalMult, an exact threshold decryption whose
    extra-limb mask is switched exactly Q' -> Q on the card;
-12. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+12. the lattice toolbox (`lattice/trapdoor.py`, `dgsampling.py`,
+   `field2n.py`, `ringq.py`, `math/dgg.py`, `cyclotomic.py`), the native
+   host library (`native.py`) and `examples_torch/`, each part counted
+   from a cleared counter with its host wall: (a) TrapdoorGen and
+   GaussSamp at n = 1024, q = first_prime(28, 2n), base 2 (k = 28), on
+   kernel m and nothing else of a, b, m; (b) the same at n = 16384
+   (dgsampling's N_MAX), base 32 (k = 6), on kernels a/b; each with A [e;
+   r; I] == G, A x == u word for word (GaussSamp twice) and |x| below
+   LAT_NORM_FACTOR spectral bounds; (c) the CPU's plain path on (a)'s
+   recorded variates giving its A, T and x word for word, and Field2n at
+   n = 16384 (round trip, Times, Inverse) within FIELD_TOL of the CPU's;
+   (d) `sample_integers` over 2^20 random centers at sigma 3.19, 40 (the
+   table) and 2^22 (the rounding path), mean and spread within SAMPLE_SE
+   standard errors, 2^16 of them replayed on the CPU equal; (e)
+   multiply_arb and the round trip at m = 4095 (phi 1728, the convolution
+   at 2 x 8192: three launches each of kernels a and b) word-equal to the
+   CPU's; (f) the CKKS decode of phase 4's ciphertext (N=2^16, 31 towers)
+   through the native library and the exact Python path, both timed,
+   within 2 ulps; (g) the five examples at their own sizes, BFV and BGV
+   exact, CKKS within EXAMPLE_CKKS_TOL, the samplers' statistics;
+13. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    line.
 
 bound_ms is the least time the card could take for a call: the larger of
@@ -721,6 +741,29 @@ HOST_STEPS = (("openfhe_tpu_torch.math.crt",
                 "deserialize_eval_mult_keys",
                 "serialize_eval_automorphism_keys",
                 "deserialize_eval_automorphism_keys")))
+
+# phase 12: the lattice toolbox, the native host library and the examples
+LAT_SEED = 31
+# (ring, gadget base): n = 1024 with base 2 (k = 28) runs kernel m; n =
+# 16384, dgsampling's N_MAX (the largest ring its error constant covers),
+# with base 32 (k = 6) runs kernels a/b; q = first_prime(28, 2n)
+LAT_RINGS = ((1 << 10, 2), (1 << 14, 32))
+LAT_Q_BITS = 28
+# GaussSamp's x has its largest coefficient near 4.3 spectral bounds at
+# n = 1024-16384 (the port's plain path on the CPU, a scratch run);
+# tests/test_trapdoor.py holds the JAX package's to 10: the same here
+LAT_NORM_FACTOR = 10.0
+# Field2n on the card against the CPU: cuFFT and the CPU's FFT round
+# differently, about 1e-15 relative at n = 2^14
+FIELD_TOL = 1e-9
+SAMPLE_LOG_COUNT = 20
+SAMPLE_SIGMAS = (3.19, 40.0, float(1 << 22))    # table, table, rounding
+SAMPLE_REPLAY = 1 << 16     # centers the CPU replays from the card's draws
+SAMPLE_SE = 5.0             # statistical limits, in standard errors
+BLUESTEIN_M = 4095          # phi 1728; its convolution a ring of 2 x 8192
+EXAMPLES = ("simple_integers", "simple_real_numbers", "pre", "sampling",
+            "external_prng")
+EXAMPLE_CKKS_TOL = 1e-3     # simple_real_numbers at 28-bit scales
 
 
 def require(cond: bool, msg: str) -> None:
@@ -3527,6 +3570,289 @@ def protocols_phase(card, names) -> dict:
     return res
 
 
+def lattice_phase(card, names, cc, sk, ct) -> dict:
+    """The lattice toolbox, the native host library and the examples (see
+    the module docstring, phase 12); raises on any fault. Each part is
+    counted from a cleared counter; its host wall ends in a
+    synchronisation."""
+    import importlib
+    from openfhe_tpu_torch import _build, native
+    from openfhe_tpu_torch.lattice import dgsampling as dgs
+    from openfhe_tpu_torch.lattice import trapdoor as td
+    from openfhe_tpu_torch.lattice.field2n import Field2n
+    from openfhe_tpu_torch.lattice.ringq import RingParams, RingPoly
+    from openfhe_tpu_torch.math import crt
+    from openfhe_tpu_torch.math import cyclotomic as cy
+    from openfhe_tpu_torch.math import modops as mo
+    from openfhe_tpu_torch.math import nbtheory as nb
+    from openfhe_tpu_torch.math.dgg import sample_integers
+    from openfhe_tpu_torch.math.draws import (RecordingDraws, ReplayDraws,
+                                              TorchDraws, torch_draws)
+    from openfhe_tpu_torch.math.matrix import Matrix
+    from openfhe_tpu_torch.pke.schemes import rns_pke
+    t_phase = time.perf_counter()
+    res = {"parts": {}, "trapdoor": {}, "same": {}, "sampling": {},
+           "field2n": {}, "bluestein": {}, "decode": {}, "examples": {}}
+    launches = collections.Counter()
+    path = ("ntt_fwd", "ntt_inv") + SMALL
+
+    def counted(label, fn):
+        """fn() from a cleared counter: its wall (host clock, ending in a
+        synchronisation) and launches by kernel."""
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        per = {k: _build.LAUNCHES[k] for k in names if _build.LAUNCHES[k]}
+        launches.update(per)
+        res["parts"][label] = {"s": s, "launches": per}
+        print(f"  {label}: {s:.3f} s ({card}); launches {per}")
+        return out
+
+    def only(per, kernels, label):
+        want = {k: per.get(k, 0) for k in path}
+        require(all(want[k] > 0 for k in kernels)
+                and not any(want[k] for k in path if k not in kernels),
+                f"{label} launched {want}, expected only {kernels}")
+
+    # (a), (b) TrapdoorGen and GaussSamp, A [e; r; I] == G, A x == u
+    recorded = {}
+    for n, base in LAT_RINGS:
+        ring = RingParams.create(n, LAT_Q_BITS, device="cuda")
+        k = td.gadget_k(ring.q, base)
+        draws = RecordingDraws(torch_draws("cuda", seed=LAT_SEED + n))
+        label = f"n={n}, base {base}, k={k}"
+        A, T = counted(f"(a/b) TrapdoorGen {label}", lambda: td.trapdoor_gen(
+            ring, dgs.SIGMA, base, draws=draws))
+        u = RingPoly.uniform(ring, draws)
+        x = counted(f"(a/b) GaussSamp {label}",
+                    lambda: td.gauss_samp(n, k, A, T, u, draws, base))
+        gen_part = res["parts"][f"(a/b) TrapdoorGen {label}"]
+        samp_part = res["parts"][f"(a/b) GaussSamp {label}"]
+        # once more at the small ring, its caches warm (the large ring's
+        # first call is within about 10 % of a second one)
+        warm = torch_draws("cuda", seed=LAT_SEED)
+        u2 = RingPoly.uniform(ring, warm)
+        x2 = (counted(f"(a/b) GaussSamp {label}, again",
+                      lambda: td.gauss_samp(n, k, A, T, u2, warm, base))
+              if n == LAT_RINGS[0][0] else x)
+        u2 = u2 if n == LAT_RINGS[0][0] else u
+        alloc = lambda: RingPoly(ring, None, "EVALUATION")
+        eye = Matrix(alloc, k, k).Identity()
+        gadget = A.Mult(T.m_e.VStack(T.m_r).VStack(eye)) == Matrix(
+            alloc, 1, k).GadgetVector(base)
+        exact = td.verify_preimage(A, x, u) and td.verify_preimage(A, x2, u2)
+        norm, bound_s = x.Norm(), dgs.spectral_bound(n, k, base)
+        kernels = SMALL if n <= 2048 else ("ntt_fwd", "ntt_inv")
+        both = collections.Counter(gen_part["launches"])
+        both.update(samp_part["launches"])
+        only(both, kernels, label)
+        res["trapdoor"][n] = dict(
+            base=base, k=k, q=ring.q, trapdoor_gen_s=gen_part["s"],
+            gauss_samp_s=samp_part["s"],
+            gauss_samp_again_s=res["parts"].get(
+                f"(a/b) GaussSamp {label}, again", {}).get("s"),
+            launches_trapdoor_gen=gen_part["launches"],
+            launches_gauss_samp=samp_part["launches"], gadget=gadget,
+            preimage_exact=exact, norm=norm, spectral_bound=bound_s,
+            variates=len(draws.recorded))
+        print(f"(a/b) n={n}, q={ring.q}, base {base}, k={k}: A [e; r; I] "
+              f"== G {gadget}; A x == u (twice) {exact}; |x| {norm:.0f} = "
+              f"{norm / bound_s:.2f} spectral bounds (limit "
+              f"{LAT_NORM_FACTOR}); TrapdoorGen {gen_part['s']:.3f} s, "
+              f"GaussSamp {samp_part['s']:.3f} s, again "
+              f"{res['trapdoor'][n]['gauss_samp_again_s']} s ({card})")
+        require(gadget, f"n={n}: A [e; r; I] != G")
+        require(exact, f"n={n}: A x != u")
+        require(norm < LAT_NORM_FACTOR * bound_s,
+                f"n={n}: |x| = {norm} above {LAT_NORM_FACTOR} x {bound_s}")
+        if n == LAT_RINGS[0][0]:
+            recorded = dict(n=n, base=base, k=k, A=A, T=T, x=x,
+                            draws=draws.recorded)
+        del A, T, x, x2
+
+    # (c) the card against the CPU on the card's variates, and Field2n
+    n, base, k = recorded["n"], recorded["base"], recorded["k"]
+    cpu_ring = RingParams.create(n, LAT_Q_BITS, device="cpu")
+    replay = ReplayDraws(recorded["draws"], "cpu")
+    t0 = time.perf_counter()
+    A_c, T_c = td.trapdoor_gen(cpu_ring, dgs.SIGMA, base, draws=replay)
+    u_c = RingPoly.uniform(cpu_ring, replay)
+    x_c = td.gauss_samp(n, k, A_c, T_c, u_c, replay, base)
+    cpu_s = time.perf_counter() - t0
+    same = lambda m1, m2: all(torch.equal(m1(r, c).data.cpu(), m2(r, c).data)
+                              for r in range(m1.rows)
+                              for c in range(m1.cols))
+    res["same"] = {"A": same(recorded["A"], A_c),
+                   "T": same(recorded["T"].m_r, T_c.m_r)
+                   and same(recorded["T"].m_e, T_c.m_e),
+                   "x": same(recorded["x"], x_c),
+                   "every variate replayed": replay.exhausted()}
+    print(f"(c) n={n}: the CPU's plain path on the card's "
+          f"{len(recorded['draws'])} variates ({cpu_s:.2f} s): same words "
+          f"{res['same']}")
+    require(all(res["same"].values()),
+            f"card and CPU differ on the same variates: {res['same']}")
+    del recorded, A_c, T_c, x_c
+    fn = LAT_RINGS[-1][0]
+    rng = np.random.default_rng(LAT_SEED)
+    vals = [rng.normal(size=fn) * 1e3 for _ in range(2)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        a, b = (Field2n(v, "COEFFICIENT", device=dev) for v in vals)
+        ea, eb = a.SetFormat("EVALUATION"), b.SetFormat("EVALUATION")
+        outs[dev] = {"round trip": ea.SetFormat("COEFFICIENT").data.cpu(),
+                     "Times": (ea * eb).data.cpu(),
+                     "Inverse": ea.Inverse().data.cpu()}
+    a = Field2n(vals[0], "COEFFICIENT", device="cuda")
+    ea = a.SetFormat("EVALUATION")
+    f_ms = {"SwitchFormat": cuda_ms(lambda: a.SwitchFormat()),
+            "Times": cuda_ms(lambda: ea * ea),
+            "Inverse": cuda_ms(lambda: ea.Inverse())}
+    rel = {key: float((outs["cuda"][key] - want).abs().max()
+                      / want.abs().max())
+           for key, want in outs["cpu"].items()}
+    res["field2n"] = {"rel_err": rel, "ms": f_ms}
+    print(f"(c) Field2n at n={fn}, card against CPU: max relative error "
+          f"{rel} (limit {FIELD_TOL}); ms on the card {f_ms}")
+    require(all(v <= FIELD_TOL for v in rel.values()),
+            f"Field2n card vs CPU {rel} above {FIELD_TOL}")
+
+    # (d) sample_integers on the card
+    count = 1 << SAMPLE_LOG_COUNT
+    gen = torch.Generator(device="cuda").manual_seed(LAT_SEED)
+    centers = (torch.rand(count, generator=gen, device="cuda",
+                          dtype=torch.float64) - 0.5) * 200
+    for sigma in SAMPLE_SIGMAS:
+        draws = TorchDraws(gen)
+        ms = cuda_ms(lambda: sample_integers(centers, sigma, draws), reps=5,
+                     warmup=1)
+        d = sample_integers(centers, sigma, draws).double() - centers
+        mean, std = d.mean().item(), d.std().item()
+        # the rounding path adds a rounding of variance 1/12
+        want_std = math.sqrt(sigma * sigma + (sigma > 64) / 12)
+        lim_mean = SAMPLE_SE * sigma / math.sqrt(count)
+        lim_std = SAMPLE_SE / math.sqrt(2 * count)
+        rec = RecordingDraws(TorchDraws(gen))
+        part = centers[:SAMPLE_REPLAY]
+        on_card = sample_integers(part, sigma, rec).cpu()
+        on_cpu = sample_integers(part.cpu(), sigma,
+                                 ReplayDraws(rec.recorded, "cpu"))
+        replayed = bool(torch.equal(on_card, on_cpu))
+        res["sampling"][sigma] = dict(ms=ms, mean=mean, std=std,
+                                      limit_mean=lim_mean,
+                                      limit_std_rel=lim_std,
+                                      replayed_equal=replayed)
+        print(f"(d) sample_integers, 2^{SAMPLE_LOG_COUNT} centers in "
+              f"[-100, 100), sigma {sigma:g}: {ms:.3f} ms ({card}); mean of "
+              f"x - c {mean:.4g} (limit {lim_mean:.3g}), std {std:.6g} "
+              f"against {want_std:.6g} (relative limit {lim_std:.3g}); "
+              f"{SAMPLE_REPLAY} replayed on the CPU equal: {replayed}")
+        require(abs(mean) < lim_mean and abs(std / want_std - 1) < lim_std
+                and replayed, f"sample_integers at sigma {sigma}: "
+                f"{res['sampling'][sigma]}")
+
+    # (e) Bluestein at m = BLUESTEIN_M through kernels a/b
+    m = BLUESTEIN_M
+    q = nb.first_prime(LAT_Q_BITS, 2 * m)
+    t = nb.totient(m)
+    a, b = ([int(v) for v in rng.integers(0, q, t)] for _ in range(2))
+    prod = counted(f"(e) multiply_arb m={m}",
+                   lambda: cy.multiply_arb(a, b, q, m, device="cuda"))
+    per_arb = res["parts"][f"(e) multiply_arb m={m}"]["launches"]
+    fa = cy.forward_transform_arb(a, q, m, device="cuda")
+    back = cy.inverse_transform_arb(fa, q, m, device="cuda")
+    timed = {}
+    for where, dev in (("card", "cuda"), ("CPU", "cpu")):
+        t0 = time.perf_counter()
+        out = cy.multiply_arb(a, b, q, m, device=dev)
+        torch.cuda.synchronize()
+        timed[where] = time.perf_counter() - t0
+        require(out == prod, f"multiply_arb on the {where} differs")
+    fa_c = cy.forward_transform_arb(a, q, m, device="cpu")
+    res["bluestein"] = dict(
+        m=m, q=q, totient=t, s=res["parts"][f"(e) multiply_arb m={m}"]["s"],
+        warm_s=timed["card"], cpu_s=timed["CPU"], launches=per_arb,
+        round_trip=back == a, same_as_cpu=fa == fa_c)
+    print(f"(e) Bluestein m={m} (phi {t}, q={q}): multiply_arb "
+          f"{res['bluestein']['s']:.3f} s on the card (first call), "
+          f"{timed['card']:.3f} s warm, {timed['CPU']:.3f} s on the CPU; "
+          f"card == CPU (product and forward transform) {fa == fa_c}; round "
+          f"trip {back == a}; launches {per_arb}")
+    require(back == a and fa == fa_c,
+            f"Bluestein at m={m}: {res['bluestein']}")
+    require(per_arb == {"ntt_fwd": 3, "ntt_inv": 3},
+            f"multiply_arb launched {per_arb}, expected 3 ntt_fwd and 3 "
+            "ntt_inv")
+
+    # (f) the native host library on phase 4's ciphertext (N=2^16, L=30)
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    resid = mo.to_u32(rns_pke.decrypt_core(ct.elements, sk,
+                                           cc.basis_at(ct.level)))
+    moduli = tuple(cc.moduli_q[:resid.shape[0]])
+    t0 = time.perf_counter()
+    fast = crt.interpolate_centered_float(resid, moduli)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = crt._interpolate_centered_float_py(resid, moduli)
+    python_s = time.perf_counter() - t0
+    ulps = float(np.max(np.abs(fast - slow) / np.spacing(np.abs(slow))))
+    t0 = time.perf_counter()
+    cc.Decrypt(sk, ct)
+    decrypt_s = time.perf_counter() - t0
+    res["decode"] = dict(towers=len(moduli), n=resid.shape[1],
+                         native_s=native_s, python_s=python_s,
+                         max_ulps=ulps, decrypt_s=decrypt_s,
+                         build_or_load_s=build_s)
+    print(f"(f) CKKS decode of {len(moduli)} towers x {resid.shape[1]}: "
+          f"native {native_s * 1e3:.1f} ms, Python {python_s * 1e3:.1f} ms "
+          f"(host, {card}); max difference {ulps:.1f} ulps (limit 2); "
+          f"Decrypt {decrypt_s * 1e3:.1f} ms; library load {build_s:.2f} s")
+    require(ulps <= 2, f"native decode {ulps} ulps from the exact one")
+
+    # (g) the five examples at their own sizes
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        out = counted(f"(g) examples_torch/{name}.py",
+                      lambda: mod.main(device="cuda"))
+        if name == "simple_integers":
+            ok = (np.array_equal(out["add"], out["want_add"])
+                  and np.array_equal(out["mul"], out["want_mul"]))
+        elif name == "simple_real_numbers":
+            err = max(float(np.abs(g - w).max()) for g, w in out.values())
+            ok = err < EXAMPLE_CKKS_TOL
+            res["examples"]["simple_real_numbers_err"] = err
+        elif name == "pre":
+            ok = np.array_equal(out["got"], out["want"])
+        elif name == "sampling":
+            # the centers lie in [0, 1): the mean within SAMPLE_SE
+            # standard errors of 0, the spread within 10 % of sigma
+            ok = True
+            for row in out.values():
+                xs = row["samples"].astype(float)
+                ok &= bool(abs(xs.mean()) < SAMPLE_SE * mod.STD
+                           / math.sqrt(xs.size)
+                           and abs(xs.std() / mod.STD - 1) < 0.1)
+        else:
+            ok = (len(out["draws"]) == 5 and out["gaussians"].shape == (8,))
+        res["examples"][name] = bool(ok)
+        require(ok, f"examples_torch/{name}.py: wrong result")
+    print(f"(g) examples right: {res['examples']}")
+
+    for kernel in path:
+        require(launches[kernel] > 0,
+                f"phase 12 never launched {kernel}: {dict(launches)}")
+    res["launches"] = dict(launches)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"lattice phase: {res['seconds']:.1f} s; launches "
+          f"{res['launches']}")
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -4011,7 +4337,14 @@ def main() -> int:
     protocols = protocols_phase(card, names)
     per_proto = protocols["per_op"]
 
-    # 12. the kernels line, then the device line
+    # 12. the lattice toolbox, the native host library and the examples,
+    # each part counted over its own window
+    lattice = lattice_phase(card, names, cc, sk, ct_a)
+    per_trap = {n: collections.Counter(t["launches_trapdoor_gen"])
+                + collections.Counter(t["launches_gauss_samp"])
+                for n, t in lattice["trapdoor"].items()}
+
+    # 13. the kernels line, then the device line
     kernels = []
     for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
@@ -4045,6 +4378,11 @@ def main() -> int:
             launches_per_reencrypt=per_proto["ReEncrypt INDCPA"].get(name, 0),
             launches_per_intmpboot_round=per_proto[
                 "IntMPBoot round"].get(name, 0),
+            launches_lattice_phase=lattice["launches"].get(name, 0),
+            **{f"launches_per_trapdoor_gen_and_gauss_samp_{n}": per.get(
+                name, 0) for n, per in per_trap.items()},
+            launches_per_multiply_arb_4095=lattice["bluestein"][
+                "launches"].get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in rows),
             bit_exact=all(c["max_abs_err"] == 0 for c in rows),
             ms=head["ms"], plain_ms=head["plain_ms"],
@@ -4099,7 +4437,11 @@ def main() -> int:
                       "protocols": {k: protocols[k] for k in (
                           "parts", "steps", "errors", "limits", "exact",
                           "same", "per_op", "flooding_towers",
-                          "serialization", "times", "seconds")}}))
+                          "serialization", "times", "seconds")},
+                      "lattice": {k: lattice[k] for k in (
+                          "parts", "trapdoor", "same", "field2n",
+                          "sampling", "bluestein", "decode", "examples",
+                          "seconds")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

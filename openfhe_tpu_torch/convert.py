@@ -14,7 +14,10 @@ composite-Q GINX key too), and `scheme_switch_keys_from_jax` the keys of
 a scheme-switching state. The protocol objects of `pke/multiparty.py`
 travel too: ShareKeys' share dicts (`shares_from_numpy`), IntMPBootDecrypt's
 share pairs (`share_pair_from_jax`) and joint keys, which get their Shoup
-companions here as every carried hybrid key does.
+companions here as every carried hybrid key does. The lattice toolbox's
+objects travel as words too: `ring_poly_from_numpy`, `field2n_from_numpy`,
+`matrix_from_numpy` (a matrix of either) and `trapdoor_from_numpy`, so
+both packages compute on the same A, T and u.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ import numpy as np
 from openfhe_tpu_torch._device import resolve_device
 from openfhe_tpu_torch.binfhe import lwe
 from openfhe_tpu_torch.binfhe.constants import BINFHE_METHOD
+from openfhe_tpu_torch.lattice.field2n import Field2n
+from openfhe_tpu_torch.lattice.ringq import RingParams, RingPoly
+from openfhe_tpu_torch.lattice.trapdoor import RLWETrapdoorPair
+from openfhe_tpu_torch.math.matrix import Matrix
 from openfhe_tpu_torch.math.modops import to_u32, u32_tensor
 from openfhe_tpu_torch.pke.ciphertext import Ciphertext, Plaintext
 from openfhe_tpu_torch.pke import schemeswitch
@@ -227,6 +234,53 @@ def eval_key_from_jax(ek, moduli_qp, device=None) -> EvalKey:
     return eval_key_from_numpy(np.asarray(ek.bv), np.asarray(ek.av),
                                key_tag=ek.key_tag, device=device,
                                moduli_qp=moduli_qp)
+
+
+def ring_poly_from_numpy(words, q: int, fmt: str = "EVALUATION",
+                        device=None):
+    """n words mod q (a JAX `RingPoly`'s `.data`, uint64) -> RingPoly over
+    `RingParams.create(n, q=q)` on `device`."""
+    words = np.asarray(words)
+    params = RingParams.create(words.shape[-1], q=q, device=device)
+    return RingPoly(params, words.astype(np.int64), fmt)
+
+
+def field2n_from_numpy(data, fmt: str = "COEFFICIENT", device=None):
+    """n complex values (a JAX `Field2n`'s `.data`) -> Field2n on
+    `device`."""
+    return Field2n(np.asarray(data, np.complex128), fmt,
+                   device=resolve_device(device))
+
+
+def matrix_from_numpy(entries, q: int | None = None,
+                      fmt: str = "EVALUATION", device=None):
+    """A [rows, cols, n] array of a matrix's entries -> Matrix of RingPoly
+    (words mod `q`) or, with `q` None, of Field2n (complex values), each
+    in format `fmt`, on `device`."""
+    entries = np.asarray(entries)
+    rows, cols, n = entries.shape
+    dev = resolve_device(device)
+    if q is None:
+        zero = lambda: Field2n.zeros(n, fmt, device=dev)
+        make = lambda e: Field2n(e.astype(np.complex128), fmt, device=dev)
+    else:
+        params = RingParams.create(n, q=q, device=dev)
+        zero = lambda: RingPoly(params, None, fmt)
+        make = lambda e: RingPoly(params, e.astype(np.int64), fmt)
+    out = Matrix(zero, rows, cols)
+    for r in range(rows):
+        for c in range(cols):
+            out.set(r, c, make(entries[r, c]))
+    return out
+
+
+def trapdoor_from_numpy(r, e, q: int, device=None):
+    """The trapdoor pair's two rows of k EVALUATION polynomials ([k, n]
+    words mod q each, a JAX `RLWETrapdoorPair`'s `m_r` and `m_e`) ->
+    RLWETrapdoorPair on `device`."""
+    return RLWETrapdoorPair(
+        m_r=matrix_from_numpy(np.asarray(r)[None], q, device=device),
+        m_e=matrix_from_numpy(np.asarray(e)[None], q, device=device))
 
 
 def to_numpy(x) -> np.ndarray:

@@ -12,9 +12,10 @@ exponents 5^j, row 1 at exponents -5^j (N/2 each). EvalAtIndex(r) rotates
 row 0 (and row 1) cyclically by r, exactly like CKKS rotations.
 
 All host-side (numpy uint64, exact): encoding happens once per plaintext at
-the data boundary, like the reference. The exact host NTT mod t is numpy
-only (the JAX package may call its optional C++ helper for it; the words
-are the same).
+the data boundary, like the reference. The exact host NTT mod t runs in the
+native library (`native.host_ntt`, as the JAX package's does when its
+library is built); `_host_ntt_np` is its plain numpy twin, the same
+butterflies and the same words.
 """
 
 from __future__ import annotations
@@ -56,8 +57,17 @@ def _host_tables(t: int, n: int):
 
 
 def _host_ntt(a: np.ndarray, t: int, n: int, inverse: bool) -> np.ndarray:
-    """Exact negacyclic NTT mod t (the algorithm of ops/ntt.py), in
-    numpy uint64: products of two words below t < 2^32 are exact."""
+    """Exact negacyclic NTT mod t (the algorithm of ops/ntt.py), through
+    the native library."""
+    from openfhe_tpu_torch import native
+    psi_br, ipsi_br, ninv, _, _ = _host_tables(t, n)
+    return native.host_ntt(np.mod(np.asarray(a), t), t, psi_br, ipsi_br,
+                           ninv, inverse)
+
+
+def _host_ntt_np(a: np.ndarray, t: int, n: int, inverse: bool) -> np.ndarray:
+    """Plain numpy twin of `_host_ntt`, in uint64: products of two words
+    below t < 2^32 are exact."""
     psi_br, ipsi_br, ninv, _, _ = _host_tables(t, n)
     x = a.astype(np.uint64) % np.uint64(t)
     tt = np.uint64(t)

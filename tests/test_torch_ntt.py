@@ -204,11 +204,15 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
+    """The port's package, its examples and chip_smoke.py import neither
+    JAX nor the JAX package."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, names in os.walk(os.path.join(ROOT, "openfhe_tpu_torch")):
-        files += [os.path.join(d, f) for f in names if f.endswith(".py")]
+    for top in ("openfhe_tpu_torch", "examples_torch"):
+        for d, _, names in os.walk(os.path.join(ROOT, top)):
+            files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 20
     assert any(os.sep + "parallel" + os.sep in f for f in files)
+    assert sum(os.sep + "examples_torch" + os.sep in f for f in files) >= 5
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
