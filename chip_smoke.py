@@ -327,7 +327,21 @@ is not beside it. Phases, none of which catches its own failure:
    through the native library and the exact Python path, both timed,
    within 2 ulps; (g) the five examples at their own sizes, BFV and BGV
    exact, CKKS within EXAMPLE_CKKS_TOL, the samplers' statistics;
-13. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+13. the other examples of `examples_torch/`, each counted from a cleared
+   counter with its host wall: (a) OWN_EXAMPLES, every file of
+   `examples_torch/` but phase 12's five, at their own parameters (the JAX
+   examples'), every check an example returns holding (integer, LWE and
+   PRE results exact, CKKS within the JAX example's tolerance); (b)
+   FULL_WIDTH: `boolean`, `boolean_pke` and `boolean_truth_tables` at
+   STD128, `boolean_ap` at STD128_AP, `boolean_lmkcdey` at STD128_LMKCDEY,
+   each launching its set's blind rotation (row m'), and
+   `simple_integers_bgvrns`, `simple_complex_numbers` and `threshold_fhe`
+   at HEStd_128_classic with ring_dim=0 (the port's security tables
+   choose N), the first launching the fused chain's rows c-g, h and j
+   (EvalMult and EvalRotate), the second c-g, the third (EvalAdd only) the
+   NTTs of rows a and b; each with its N (or n, N), wall and launches by
+   `csrc/` entry printed;
+14. one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
    line.
 
 bound_ms is the least time the card could take for a call: the larger of
@@ -372,6 +386,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -764,6 +779,39 @@ BLUESTEIN_M = 4095          # phi 1728; its convolution a ring of 2 x 8192
 EXAMPLES = ("simple_integers", "simple_real_numbers", "pre", "sampling",
             "external_prng")
 EXAMPLE_CKKS_TOL = 1e-3     # simple_real_numbers at 28-bit scales
+
+# phase 13: the other 48 examples at their own parameters, then the gate
+# examples at the STD128 sets and three PKE examples at 128-bit security,
+# their N chosen by the port's security tables (ring_dim=0)
+OWN_EXAMPLES = tuple(sorted(
+    p.stem for p in (Path(__file__).resolve().parent / "examples_torch")
+    .glob("*.py") if p.stem not in ("__init__", *EXAMPLES)))
+# (example, its keyword arguments, the kernels it must launch): a gate
+# example its set's blind rotation (row m'), a PKE example the fused chain
+# of its ops (EvalMult: rows c-g; EvalRotate: h, d, e, f, j), and
+# threshold_fhe, whose only op under the joint key is EvalAdd, the NTTs of
+# its encryption and decryption shares (rows a and b); the JAX
+# example's t = 12289 admits no 128-bit ring at depth 2 (the tables need
+# t = 1 mod 2N), so the BGV one takes the reference example's 65537
+FULL_WIDTH = (
+    ("boolean", dict(param_set="STD128"), ("blind_rotate_cggi",)),
+    ("boolean_pke", dict(param_set="STD128"), ("blind_rotate_cggi",)),
+    ("boolean_ap", dict(param_set="STD128_AP"), ("blind_rotate_dm",)),
+    ("boolean_lmkcdey", dict(param_set="STD128_LMKCDEY"),
+     ("blind_rotate_lmkcdey",)),
+    ("boolean_truth_tables", dict(param_set="STD128"),
+     ("blind_rotate_cggi",)),
+    ("simple_integers_bgvrns", dict(plaintext_modulus=65537, ring_dim=0,
+                                    security_level="HEStd_128_classic"),
+     ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
+      "ntt_submul_final", "intt_scale", "ntt_subscale")),
+    ("simple_complex_numbers", dict(ring_dim=0,
+                                    security_level="HEStd_128_classic"),
+     ("tensor_intt", "conv_digits", "ntt_keymul_acc", "intt_conv_p",
+      "ntt_submul_final")),
+    ("threshold_fhe", dict(ring_dim=0, security_level="HEStd_128_classic"),
+     ("ntt_fwd", "ntt_inv")),
+)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -3853,6 +3901,68 @@ def lattice_phase(card, names, cc, sk, ct) -> dict:
     return res
 
 
+def examples_phase(card) -> dict:
+    """Every example of OWN_EXAMPLES at its own parameters on the card,
+    then FULL_WIDTH (see the module docstring, phase 13); raises on any
+    fault. Each run is counted from a cleared counter; its host wall ends
+    in a synchronisation and its own prints are kept out of the log."""
+    import contextlib
+    import importlib
+    import io
+    from examples_torch import failed, max_err
+    from openfhe_tpu_torch import SecurityLevel, _build
+    t_phase = time.perf_counter()
+    res = {"own": {}, "full_width": {}}
+    launches = collections.Counter()
+
+    def run(name, kw, part):
+        mod = importlib.import_module(f"examples_torch.{name}")
+        if isinstance(kw.get("security_level"), str):
+            kw = dict(kw, security_level=SecurityLevel[
+                kw["security_level"]])
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = mod.main(device="cuda", **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        per = {k: v for k, v in sorted(_build.LAUNCHES.items()) if v}
+        launches.update(per)
+        wrong = failed(out)
+        ring = {k: out[k] for k in ("ring_dim", "n", "N") if k in out}
+        row = dict(s=s, launches=per, wrong=wrong, max_err=max_err(out),
+                   checks=len(out["checks"]), **ring)
+        for k in ("precision_bits", "towers", "levels", "ms", "shards"):
+            if k in out:
+                row[k] = out[k]
+        res[part][name] = row
+        print(f"  ({'a' if part == 'own' else 'b'}) {name} {kw or ''}: "
+              f"{s:.3f} s ({card}); {len(out['checks'])} checks, wrong "
+              f"{wrong}, max err {row['max_err']:.3g}; {ring or ''} "
+              f"launches {per}")
+        require(not wrong, f"examples_torch/{name}.py {kw}: wrong {wrong}")
+        return per
+
+    require(OWN_EXAMPLES, "examples_torch/ holds no examples")
+    for name in OWN_EXAMPLES:
+        run(name, {}, "own")
+    for name, kw, want in FULL_WIDTH:
+        per = run(name, kw, "full_width")
+        for kernel in want:
+            require(per.get(kernel, 0) > 0,
+                    f"{name} {kw} never launched {kernel}: {per}")
+    res["launches"] = dict(launches)
+    res["seconds"] = time.perf_counter() - t_phase
+    own_s = sum(r["s"] for r in res["own"].values())
+    wide_s = sum(r["s"] for r in res["full_width"].values())
+    print(f"examples phase: {res['seconds']:.1f} s ({own_s:.1f} s for "
+          f"{len(res['own'])} examples at their own parameters, "
+          f"{wide_s:.1f} s for {len(res['full_width'])} at full width); "
+          f"launches {res['launches']}")
+    return res
+
+
 def same_words(x, y) -> bool:
     return len(x.elements) == len(y.elements) and all(
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(x.elements, y.elements))
@@ -4344,7 +4454,11 @@ def main() -> int:
                 + collections.Counter(t["launches_gauss_samp"])
                 for n, t in lattice["trapdoor"].items()}
 
-    # 13. the kernels line, then the device line
+    # 13. every example at its own parameters, then the full-width set,
+    # each counted over its own run
+    examples = examples_phase(card)
+
+    # 14. the kernels line, then the device line
     kernels = []
     for name, rows in {**cases, **staged, **small, **blind,
                        **sharded["cases"]}.items():
@@ -4379,6 +4493,7 @@ def main() -> int:
             launches_per_intmpboot_round=per_proto[
                 "IntMPBoot round"].get(name, 0),
             launches_lattice_phase=lattice["launches"].get(name, 0),
+            launches_examples_phase=examples["launches"].get(name, 0),
             **{f"launches_per_trapdoor_gen_and_gauss_samp_{n}": per.get(
                 name, 0) for n, per in per_trap.items()},
             launches_per_multiply_arb_4095=lattice["bluestein"][
@@ -4441,7 +4556,8 @@ def main() -> int:
                       "lattice": {k: lattice[k] for k in (
                           "parts", "trapdoor", "same", "field2n",
                           "sampling", "bluestein", "decode", "examples",
-                          "seconds")}}))
+                          "seconds")},
+                      "examples": examples}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

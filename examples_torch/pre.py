@@ -18,13 +18,16 @@ from openfhe_tpu_torch import (CCParams, GenCryptoContext,  # noqa: E402
                                PKESchemeFeature, Scheme, SecurityLevel)
 
 
-def main(device=None) -> dict:
+def main(device=None, plaintext_modulus=65537, mult_depth=2,
+         ring_dim=1 << 11, security_level=SecurityLevel.HEStd_NotSet,
+         seed=0) -> dict:
     """Alice encrypts, Bob decrypts after a re-encryption under a key
     from Alice's secret to Bob's public key; returns what Bob reads."""
-    params = CCParams(scheme=Scheme.BGVRNS_SCHEME, plaintext_modulus=65537,
-                      mult_depth=2, ring_dim=1 << 11,
-                      security_level=SecurityLevel.HEStd_NotSet)
-    cc = GenCryptoContext(params, device=device)
+    params = CCParams(scheme=Scheme.BGVRNS_SCHEME,
+                      plaintext_modulus=plaintext_modulus,
+                      mult_depth=mult_depth, ring_dim=ring_dim,
+                      security_level=security_level)
+    cc = GenCryptoContext(params, seed=seed, device=device)
     cc.Enable(PKESchemeFeature.PKE)
     cc.Enable(PKESchemeFeature.KEYSWITCH)
     cc.Enable(PKESchemeFeature.LEVELEDSHE)

@@ -20,15 +20,17 @@ from openfhe_tpu_torch import (CCParams, GenCryptoContext,  # noqa: E402
                                SecurityLevel)
 
 
-def main(device=None) -> dict:
+def main(device=None, mult_depth=2, scaling_mod_size=28,
+         first_mod_size=30, ring_dim=1 << 12,
+         security_level=SecurityLevel.HEStd_NotSet, seed=0) -> dict:
     """Six ops on two encrypted vectors of 8 reals; returns, per op, the
     decryption and what it should be."""
-    params = CCParams(scheme=Scheme.CKKSRNS_SCHEME, mult_depth=2,
-                      scaling_mod_size=28, first_mod_size=30,
-                      ring_dim=1 << 12, batch_size=8,
-                      security_level=SecurityLevel.HEStd_NotSet,
+    params = CCParams(scheme=Scheme.CKKSRNS_SCHEME, mult_depth=mult_depth,
+                      scaling_mod_size=scaling_mod_size,
+                      first_mod_size=first_mod_size, ring_dim=ring_dim,
+                      batch_size=8, security_level=security_level,
                       scaling_technique=ScalingTechnique.FLEXIBLEAUTO)
-    cc = GenCryptoContext(params, device=device)
+    cc = GenCryptoContext(params, seed=seed, device=device)
     cc.Enable(PKESchemeFeature.PKE)
     cc.Enable(PKESchemeFeature.KEYSWITCH)
     cc.Enable(PKESchemeFeature.LEVELEDSHE)

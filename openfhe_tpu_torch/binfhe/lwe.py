@@ -47,11 +47,17 @@ class LWECiphertext:
 class LWEPrivateKey:
     s: torch.Tensor                 # [n] int32 in {-1, 0, 1} (or small gauss)
 
+    def replace(self, **changes) -> "LWEPrivateKey":
+        return dataclasses.replace(self, **changes)
+
 
 @dataclasses.dataclass(frozen=True)
 class LWEPublicKey:
     A: torch.Tensor                 # [N, N] int32 mod Q
     v: torch.Tensor                 # [N] int32: A s + e
+
+    def replace(self, **changes) -> "LWEPublicKey":
+        return dataclasses.replace(self, **changes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +70,9 @@ class LWESwitchingKey:
     b: torch.Tensor
     mod_ks: int = 0
     base_ks: int = 0
+
+    def replace(self, **changes) -> "LWESwitchingKey":
+        return dataclasses.replace(self, **changes)
 
 
 def words(m, device) -> torch.Tensor:

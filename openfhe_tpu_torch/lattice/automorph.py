@@ -47,6 +47,12 @@ def coeff_indices(n: int, g: int) -> tuple:
     return idx.astype(np.int32), neg
 
 
+def rotation_generator(n: int) -> int:
+    """Generator for slot rotations: 5 generates the cyclic part of
+    Z_{2N}^* / {+-1} (conjugation is g = 2N - 1)."""
+    return 5
+
+
 def rotation_automorphism_index(rot: int, n: int) -> int:
     """Slot rotation by `rot` (positive: to the left) -> automorphism
     exponent g = 5^rot mod 2N (reference: cryptocontext.h
@@ -54,6 +60,9 @@ def rotation_automorphism_index(rot: int, n: int) -> int:
     two_n = 2 * n
     return pow(5, rot % (n // 2), two_n) if rot >= 0 else pow(
         pow(5, -1, two_n), (-rot) % (n // 2), two_n)
+
+
+CONJUGATION = "conj"
 
 
 def conjugation_index(n: int) -> int:

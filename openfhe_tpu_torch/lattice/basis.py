@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -45,6 +46,10 @@ class Basis:
     @property
     def device(self) -> torch.device:
         return self.q.device
+
+    def big_modulus(self) -> int:
+        """Q = prod(moduli) as an exact Python int."""
+        return math.prod(self.moduli)
 
     @functools.cached_property
     def red64(self) -> torch.Tensor:

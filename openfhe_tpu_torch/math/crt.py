@@ -42,6 +42,11 @@ def interpolate(residues: np.ndarray, moduli) -> tuple:
     return acc % big, big
 
 
+def to_float(centered_obj: np.ndarray) -> np.ndarray:
+    """An object array of Python ints as float64."""
+    return np.array([float(v) for v in centered_obj], np.float64)
+
+
 def interpolate_centered(residues: np.ndarray, moduli) -> np.ndarray:
     """Exact CRT lift of [k, N] residues centered to (-Q/2, Q/2], as an
     object (Python int) array."""

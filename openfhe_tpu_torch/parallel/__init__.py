@@ -120,6 +120,10 @@ class ParallelControls:
                              f"set_mesh a new one")
         return self._mesh
 
+    def enable(self) -> bool:
+        """More than one card visible."""
+        return torch.cuda.is_available() and torch.cuda.device_count() > 1
+
 
 OpenFHEParallelControls = ParallelControls()
 

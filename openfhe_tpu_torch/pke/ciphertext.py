@@ -6,7 +6,7 @@ EVAL residue tensors (k towers at its level) plus host metadata: the
 level, noise degree and scale, the encoding, BGV's integer scaling factor
 `scale_int` (reference m_scalingFactorInt) and the metadata map
 (reference m_metadataMap), whose entries are carried through every op
-untouched. `dataclasses.replace` derives a new one.
+untouched. `replace` (a `dataclasses.replace`) derives a new one.
 """
 
 from __future__ import annotations
@@ -36,6 +36,12 @@ class Ciphertext:
     @property
     def size(self) -> int:
         return len(self.elements)
+
+    def replace(self, **changes) -> "Ciphertext":
+        return dataclasses.replace(self, **changes)
+
+    def with_elements(self, elements) -> "Ciphertext":
+        return dataclasses.replace(self, elements=tuple(elements))
 
     # -- the metadata map (reference CiphertextImpl::*Metadata*) ----------
     def GetMetadataByKey(self, key: str):
@@ -79,6 +85,9 @@ class Plaintext:
     # log2 of the decryption noise seen (reference GetLogError), set by
     # Decrypt under EXEC_NOISE_ESTIMATION
     log_error: float = 0.0
+
+    def replace(self, **changes) -> "Plaintext":
+        return dataclasses.replace(self, **changes)
 
     def GetLogError(self) -> float:
         return self.log_error

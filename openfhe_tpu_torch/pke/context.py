@@ -266,6 +266,9 @@ class CryptoContext:
     def Enable(self, feature: PKESchemeFeature) -> None:
         self._features |= feature
 
+    def is_enabled(self, feature: PKESchemeFeature) -> bool:
+        return bool(self._features & feature)
+
     # -- accessors under the reference's names (cryptocontext.h) --------
     def GetRingDimension(self) -> int:
         return self.ring_dim
@@ -334,6 +337,9 @@ class CryptoContext:
 
     def basis_at(self, level: int) -> Basis:
         return self.basis_q.slice(0, self.size_ql(level))
+
+    def basis_at_size(self, size_ql: int) -> Basis:
+        return self.basis_q.slice(0, size_ql)
 
     def scale_at(self, level: int) -> float:
         """Scaling factor of a depth-1 ciphertext at `level` (CKKS; the

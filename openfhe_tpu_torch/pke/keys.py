@@ -18,6 +18,12 @@ class PrivateKey:
     s_qp: torch.Tensor                     # [kQ + kP, N]
     key_tag: str = ""
 
+    def s_q(self, size_ql: int) -> torch.Tensor:
+        return self.s_qp[:size_ql]
+
+    def replace(self, **changes) -> "PrivateKey":
+        return dataclasses.replace(self, **changes)
+
 
 @dataclasses.dataclass(frozen=True)
 class PublicKey:
@@ -25,6 +31,9 @@ class PublicKey:
     b: torch.Tensor                        # [kQ + kP, N]
     a: torch.Tensor
     key_tag: str = ""
+
+    def replace(self, **changes) -> "PublicKey":
+        return dataclasses.replace(self, **changes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +50,18 @@ class EvalKey:
     av_sh: torch.Tensor | None = None
     key_tag: str = ""
 
+    def replace(self, **changes) -> "EvalKey":
+        return dataclasses.replace(self, **changes)
+
 
 @dataclasses.dataclass(frozen=True)
 class KeyPair:
     public_key: PublicKey
     secret_key: PrivateKey
+
+    @property
+    def good(self) -> bool:
+        return self.public_key is not None and self.secret_key is not None
+
+    def replace(self, **changes) -> "KeyPair":
+        return dataclasses.replace(self, **changes)

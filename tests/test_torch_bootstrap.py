@@ -110,7 +110,7 @@ def boot():
     fct = SL.convert_rlwe_to_ckks(cc, polys, q0, slots=SLOTS, level=last,
                                   scale=q0 / P_IN)
     same(fct, jfct)
-    return dict(jcc=jcc, cc=cc, sk=sk, x=x, ct=port_ct(jct),
+    return dict(jcc=jcc, cc=cc, sk=sk, x=x, jct=jct, ct=port_ct(jct),
                 last=port_ct(jlast), lt_in=port_ct(jlt_in), want=want,
                 fct=dataclasses.replace(fct, key_tag=kp.secret_key.key_tag))
 
@@ -162,6 +162,18 @@ def test_eval_bootstrap_matches_jax(boot):
     cc = boot["cc"]
     out = cc.EvalBootstrap(boot["ct"])
     same(out, boot["want"]["boot"])
+    assert cc.size_ql(out.level) > 2
+    dec = cc.Decrypt(boot["sk"], out)
+    assert calculate_approximation_error(dec.values, boot["x"]) > 4.0
+
+
+def test_two_round_bootstrap_matches_jax(boot):
+    """EvalBootstrap(ct, num_iterations=2) on the same JAX-made
+    ciphertext: the JAX words, level, noise degree and scale."""
+    cc = boot["cc"]
+    want = boot["jcc"].EvalBootstrap(boot["jct"], num_iterations=2)
+    out = cc.EvalBootstrap(boot["ct"], num_iterations=2)
+    same(out, want)
     assert cc.size_ql(out.level) > 2
     dec = cc.Decrypt(boot["sk"], out)
     assert calculate_approximation_error(dec.values, boot["x"]) > 4.0
