@@ -219,14 +219,19 @@ is not beside it. Phases, none of which catches its own failure:
    gates with a = i % 2, b = (i // 2) % 2, counted from the context on:
    context, KeyGen, BTKeyGen, Encrypt, EvalBinGate AND/OR/NAND/XOR/XNOR,
    EvalNOT, Bootstrap and MAJORITY, every decryption against the truth
-   table; one AND launches kernel m alone, n + 1 times each way (a
-   forward NTT of the digits and an inverse NTT of both accumulator
-   halves each step, the test vector's and the extraction's), with plain
-   torch around it; 4 of its gates equal the port's plain path on the CPU
-   with the same keys; the batch's wall (CUDA events), gates/s, the device
-   busy share under torch.profiler and the peak memory; EvalFunc x^2 mod 4
-   at batch 4; STD192Q (34 bits) one AND; STD192_LMKCDEY raises
-   ValueError; (b) `examples/scheme_switching.py` at 128-bit security:
+   table; one AND launches one `blind_rotate_cggi_wide` (the n steps of
+   every gate, `csrc/blind_rotate.cu`) and kernel m once each way (the
+   test vector's forward NTT, the extraction's inverse NTT), with plain
+   torch around them; 4 of its gates equal the port's plain path on the
+   CPU with the same keys; the batch's wall (CUDA events), gates/s, the
+   device busy share under torch.profiler and the peak memory; the
+   kernel, with the context's key and random accumulators at batch 256
+   and 1, word-equal to the per-step loop on the card
+   (`rgsw_wide._eval_acc_cggi_wide_steps`, two kernel-m launches a step,
+   one call each) and to the direct wrapper call, and at 256 steps [0,
+   SPLIT_STEP) then the rest equal to the whole, its device time beside
+   its bound and the loop's; EvalFunc x^2 mod 4 at batch 4; STD192Q (34
+   bits) one AND; STD192_LMKCDEY raises ValueError; (b) `examples/scheme_switching.py` at 128-bit security:
    N=2^16 under HEStd_128_classic, FLEXIBLEAUTO, 28/30-bit moduli, depth
    16, 16 slots, the STD128 FHEW side (n = 1305) at q_LWE = 2^17: setup
    and keys (the inner BinFHE context on the card), EvalCKKStoFHEW of the
@@ -411,6 +416,8 @@ MULMOD_OPS = 10        # a 64-bit product reduced mod q
 CENTRE_OPS = 3         # compare, select, subtract
 DIGIT_OPS = 6          # a balanced digit: shift, shift, subtract, shift,
                        # the sign fix (compare and add)
+GARNER_OPS = 24        # x1 mod q2 and (x2 - x1) q1^-1 mod q2 (10 each),
+                       # the difference's select (2), x1 + q1 t (2)
 WORD = 4
 SLICE1 = ("ntt_fwd", "ntt_inv", "mod_matmul_rowmod")
 # the former forms: the staged NTT (csrc/ntt.cu) and K1t, K1/K4, K3, K45,
@@ -442,6 +449,8 @@ FORMER = {"tensor_intt": "tensor_intt_staged",
           "ntt_keymul_acc_rows": "ntt_keymul_acc_rows_staged"}
 SMALL = ("ntt_small_fwd", "ntt_small_inv")
 BLIND = ("blind_rotate_cggi", "blind_rotate_dm", "blind_rotate_lmkcdey")
+# the composite-Q ring's blind rotation (phase 10 (a))
+BLIND_WIDE = ("blind_rotate_cggi_wide",)
 FUSED = ("tensor_intt", "intt_scale", "conv_digits", "ntt_keymul_acc",
          "intt_conv_p", "ntt_subscale", "ntt_submul_final")
 # the kernels of one EvalMult, and of one Relinearize or automorphism
@@ -520,6 +529,9 @@ WHERE = {
     "blind_rotate_lmkcdey": ("csrc/blind_rotate.cu",
                              "openfhe_tpu/ops/ntt_small.py:157, "
                              "openfhe_tpu/binfhe/rgsw.py:571"),
+    "blind_rotate_cggi_wide": ("csrc/blind_rotate.cu",
+                               "openfhe_tpu/ops/ntt_small.py:157, "
+                               "openfhe_tpu/binfhe/rgsw_wide.py:273"),
     "mod_matmul": ("csrc/modmatmul.cu", "openfhe_tpu/ops/modmatmul.py:138"),
     "mod_matmul_simt": ("csrc/modmatmul.cu",
                         "openfhe_tpu/ops/modmatmul.py:138"),
@@ -2670,7 +2682,96 @@ def bootstrap_phase(card, names) -> dict:
     return res
 
 
-def wide_binfhe(card, names) -> dict:
+def blind_wide_work(params, batch, key, idx, lo, hi):
+    """(bytes, operations) of the composite-Q blind rotation's steps [lo,
+    hi): the key words of those steps, the table, the accumulators in and
+    out and both towers' twiddle and psi tables once; per gate-step and
+    tower the 2 + d2 transforms, N^-1, the key product's terms, reductions
+    and monomial products (`blind_work`'s GINX step), and once per
+    gate-step the Garner lift, centring and digits of the 2N coefficients
+    (the kernel lifts them in both blocks of a gate: counted once)."""
+    n, d2 = params.ring_dim, params.digits_g2
+    log_n = n.bit_length() - 1
+    nbytes = WORD * (key[lo:hi].numel() + idx.numel()
+                     + 4 * batch * 2 * n + 2 * 6 * n)
+    tower = ((2 + d2) * n // 2 * log_n * BUTTERFLY_OPS + 2 * n * SHOUP_OPS
+             + n * (4 * d2 * MATMUL_TERM_OPS + 6 * MULMOD_OPS
+                    + 4 * MATMUL_TERM_OPS))
+    lift = 2 * n * (GARNER_OPS + CENTRE_OPS + params.digits_g * DIGIT_OPS)
+    return nbytes, batch * (hi - lo) * (2 * tower + lift)
+
+
+def blind_wide_cases(cc, gen) -> dict:
+    """`blind_rotate_cggi_wide` at STD192 against the per-step loop on the
+    card (`rgsw_wide._eval_acc_cggi_wide_steps`), word for word, with the
+    context's key and random accumulators and a (any words are valid
+    inputs), at GATE_BATCH and 1: the dispatch (`eval_acc_cggi_wide`, one
+    launch) and the direct wrapper call equal the loop, and at GATE_BATCH
+    steps [0, SPLIT_STEP) then [SPLIT_STEP, n) equal the whole. `ms` is
+    the kernel's device time, `call_ms` the dispatch's, `plain_ms` one
+    call of the loop (CUDA events)."""
+    from openfhe_tpu_torch.binfhe import blind_rotate as br
+    from openfhe_tpu_torch.binfhe import rgsw_wide
+    name = BLIND_WIDE[0]
+    p = cc.rgsw_w.replace(q_lwe=cc.q)
+    key, big_n = cc.bt_key, cc.N
+    rows = []
+    for batch in (GATE_BATCH, 1):
+        acc0, acc1 = (torch.stack([torch.randint(
+            0, m, (batch, big_n), generator=gen, device="cuda",
+            dtype=torch.int32) for m in p.moduli], dim=1) for _ in range(2))
+        a = torch.randint(0, cc.q, (batch, cc.n), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        idx = br.cggi_idx(p, a)
+        kernel = lambda lo=0, hi=None: br.blind_rotate_cggi_wide(
+            p, key, idx, acc0, acc1, lo, hi)
+        fused = lambda: rgsw_wide.eval_acc_cggi_wide(p, key, acc0, acc1, a)
+        got, per = count_launches(fused, BLIND + BLIND_WIDE + SMALL)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = rgsw_wide._eval_acc_cggi_wide_steps(p, key, acc0, acc1, a)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        direct = kernel()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch.stack(got), torch.stack(want)),
+                  max_abs_err(torch.stack(got), torch.stack(direct)))
+        require(err == 0, f"{name} {WIDE_SET} batch {batch} differs from "
+                f"the per-step loop (max abs err {err})")
+        require(per == {k: int(k == name)
+                        for k in BLIND + BLIND_WIDE + SMALL},
+                f"{name}: one blind rotation launched {per}")
+        split = None
+        if batch == GATE_BATCH:
+            part = kernel(0, SPLIT_STEP)
+            part = br.blind_rotate_cggi_wide(p, key, idx, *part, SPLIT_STEP)
+            split = all(torch.equal(x, y) for x, y in zip(part, direct))
+            require(split, f"{name}: steps [0, {SPLIT_STEP}) then "
+                    f"[{SPLIT_STEP}, {cc.n}) differ from the whole")
+        nbytes, ops = blind_wide_work(p, batch, key, idx, 0, cc.n)
+        b_ms, b_by = bound(nbytes, ops)
+        rows.append(dict(
+            shape=[batch, cc.n, p.digits_g2, big_n], moduli=WIDE_SET,
+            max_abs_err=err, split_equal=split,
+            launches_per_call=per[name],
+            ms=device_ms(kernel, BLIND_REPS, 1),
+            call_ms=cuda_ms(fused, BLIND_REPS, 1),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            operations_ms=ops / INT32_OPS_PER_S * 1e3))
+        c = rows[-1]
+        print(f"(a) {name} {WIDE_SET} batch {batch}: kernel {c['ms']:.3f} "
+              f"ms device (dispatch {c['call_ms']:.3f} ms), bound "
+              f"{b_ms:.4f} ms ({b_by}; operations {c['operations_ms']:.4f},"
+              f" bytes {c['bytes_ms']:.4f}); per-step loop {plain_ms:.1f} "
+              f"ms (one call); equal to the loop and the direct call: "
+              f"{err == 0}; split equal: {split}")
+    return {name: rows}
+
+
+def wide_binfhe(card, names, gen) -> dict:
     """Phase 10 (a): GINX on the composite-Q ring at STD192 over a gate
     batch (see the module docstring); raises on any fault."""
     from openfhe_tpu_torch import _build
@@ -2719,11 +2820,14 @@ def wide_binfhe(card, names) -> dict:
           f"{res['launches']}")
     require(all(v == 0 for v in wrong.values()),
             f"{WIDE_SET} decryptions differ from the truth table: {wrong}")
-    # one inverse NTT a step and the extraction's; one forward NTT of the
-    # digits a step and the test vector's: kernel m and plain torch only
-    want_and = {k: (cc.n + 1) * (k in SMALL) for k in names}
+    # the test vector's forward NTT, the blind rotation and the
+    # extraction's inverse NTT: one launch each, plain torch around them
+    want_and = {k: int(k in SMALL + BLIND_WIDE) for k in names}
     require(per_and == want_and,
             f"{WIDE_SET} AND launches {per_and}, expected {want_and}")
+    require(all(res["launches"].get(k, 0) > 0 for k in BLIND_WIDE),
+            f"the {WIDE_SET} gates never launched {BLIND_WIDE}")
+    res["launches"] = {k: res["launches"].get(k, 0) for k in names}
 
     # 4 gates on the port's plain path on the CPU, with the same keys
     t0 = time.perf_counter()
@@ -2758,6 +2862,9 @@ def wide_binfhe(card, names) -> dict:
           f"{prof['busy_ms']:.1f} ms ({res['device_busy_share']:.0%}) in "
           f"{res['device_launches']} device launches; peak memory "
           f"{res['peak_memory_gb']:.2f} GiB")
+
+    # the kernel against the per-step loop, at the batch and at 1
+    res["cases"] = blind_wide_cases(cc, gen)
 
     # EvalFunc x^2 mod 4 at batch 4 (the JAX sweep's STD192 function)
     p = 4
@@ -4409,7 +4516,7 @@ def main() -> int:
             "words on the card differ from the plain path")
 
     # 5. BinFHE, counted from its context on
-    names = tuple(cases) + STAGED + SMALL + BLIND + SHARDED
+    names = tuple(cases) + STAGED + SMALL + BLIND + BLIND_WIDE + SHARDED
     binfhe = binfhe_phase(names)
     per_gate = binfhe["ginx_launches_per_gate"]
     launches.update({k: binfhe["launches"][k] for k in SMALL + BLIND})
@@ -4438,7 +4545,8 @@ def main() -> int:
 
     # 10. BinFHE's composite-Q ring, then scheme switching
     t0 = time.perf_counter()
-    wide = wide_binfhe(card, names)
+    wide = wide_binfhe(card, names, gen)
+    launches.update({k: wide["launches"][k] for k in BLIND_WIDE})
     switch = scheme_switch_phase(card, names)
     switch_s = time.perf_counter() - t0
     print(f"composite-Q and scheme-switching phase: {switch_s:.1f} s")
@@ -4460,7 +4568,7 @@ def main() -> int:
 
     # 14. the kernels line, then the device line
     kernels = []
-    for name, rows in {**cases, **staged, **small, **blind,
+    for name, rows in {**cases, **staged, **small, **blind, **wide["cases"],
                        **sharded["cases"]}.items():
         head = rows[0]        # level 0 / Q (31 towers) / digit 0
         kernels.append(dict(
@@ -4513,7 +4621,8 @@ def main() -> int:
             **({"former": FORMER[name]} if name in FORMER else {}),
             **({"call_ms": head["call_ms"]}
                if name in STAGED + SHARDED_STAGED else {}),
-            **({"call_ms": head["call_ms"]} if name in BLIND else {}),
+            **({"call_ms": head["call_ms"]}
+               if name in BLIND + BLIND_WIDE else {}),
             cases=rows))
     print(json.dumps({"kernels": kernels, "card": card, **times,
                       "decrypt_max_abs_err": err,
@@ -4542,7 +4651,7 @@ def main() -> int:
                           "batch_ms", "gates_per_s", "device_busy_ms",
                           "device_busy_share", "device_launches",
                           "peak_memory_gb", "wrong", "cpu_four_same",
-                          "keygen_encrypt_s")},
+                          "keygen_encrypt_s", "per_and")},
                       "scheme_switch": {k: switch[k] for k in (
                           "ops", "same", "keys_s", "compare_err",
                           "fhew_signs_right", "f2c_stage_errors",

@@ -67,7 +67,8 @@ SOURCES = {
                  "ntt_submul_final_staged": [_P] * 15 + [_I] * 5 + [_P]},
     "blind_rotate": {"blind_rotate_cggi": [_P] * 14 + [_I] * 6 + [_P],
                      "blind_rotate_dm": [_P] * 13 + [_I] * 6 + [_P],
-                     "blind_rotate_lmkcdey": [_P] * 14 + [_I] * 6 + [_P]},
+                     "blind_rotate_lmkcdey": [_P] * 14 + [_I] * 6 + [_P],
+                     "blind_rotate_cggi_wide": [_P] * 14 + [_I] * 8 + [_P]},
     "sharded": {"conv_digits_rows": [_P] * 6 + [_I] * 7 + [_P],
                 "conv_digits_rows_rowmod": [_P] * 5 + [_I] * 4 + [_P],
                 "conv_p_to_q_rows": [_P] * 6 + [_I] * 4 + [_P],

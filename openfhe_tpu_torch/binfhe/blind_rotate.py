@@ -20,6 +20,14 @@ raises. The kernel and the twin read the same per-step tables, built here:
   the key bank `[1 + n + w + 1, d2, 2, N]`.
 
 Accumulators are `[B, N]` int32 EVAL words; the results are new tensors.
+
+`blind_rotate_cggi_wide` is GINX on the composite-Q ring of `rgsw_wide.py`
+(Q = q1 q2, the STD192-class sets): the counterpart of the `lax.scan` of
+`openfhe_tpu/binfhe/rgsw_wide.py` `eval_acc_cggi_wide` with kernel m inside
+it. On the card one launch runs a cluster of two blocks a gate, a tower a
+block; its accumulators are `[B, 2, N]` (tower, slots), its key `[n, 2,
+d2, 2, 2, N]`, its table `idx [n, B]` (`cggi_idx`). On the CPU its twin is
+the per-step loop of `rgsw_wide._wide_step`.
 """
 
 from __future__ import annotations
@@ -28,37 +36,54 @@ import numpy as np
 import torch
 
 from openfhe_tpu_torch import _build
-from openfhe_tpu_torch.binfhe import rgsw
+from openfhe_tpu_torch.binfhe import rgsw, rgsw_wide
 
 MIN_RING_DIM = 128
 MAX_RING_DIM = 1 << 11
 MAX_SMEM_BYTES = 232448        # 227 KB, a block's most on the H100
-FORMS = ("cggi", "dm", "lmkcdey")
+# the composite-Q form's 64-bit sums: d2 products of two residues, then two
+# of a residue and X^+-ix - 1, stay below 2^63 for towers below 2^29
+MAX_WIDE_TOWER = 1 << 29
+MAX_WIDE_D2 = 16
+FORMS = ("cggi", "dm", "lmkcdey")      # the narrow ring's
+WIDE_FORM = "cggi_wide"                 # the composite-Q ring's GINX
 
 
 def smem_bytes(ring_dim: int, d2: int, form: str) -> int:
     """Shared memory of one block: the accumulator pair, d2 digit rows,
-    four twiddle tables and, for GINX, the 2N powers of psi."""
-    if form not in FORMS:
+    four twiddle tables and, for GINX, the 2N powers of psi (the composite-Q
+    form: of one tower, one block of a gate's cluster)."""
+    if form not in FORMS + (WIDE_FORM,):
         raise ValueError(f"unknown blind-rotation form {form!r}")
-    return 4 * ring_dim * (2 + d2 + 4 + (2 if form == "cggi" else 0))
+    ginx = form in ("cggi", WIDE_FORM)
+    return 4 * ring_dim * (2 + d2 + 4 + (2 if ginx else 0))
 
 
-def supported(params: rgsw.RGSWParams, form: str) -> bool:
-    """Whether the kernel takes this ring: one tower, Q < 2^31, 128 <= N <=
-    2048 a power of two, a gadget base that is a power of two, and the
-    block's shared memory within 227 KB."""
+def supported(params, form: str) -> bool:
+    """Whether the kernel takes this ring: 128 <= N <= 2048 a power of two,
+    a gadget base that is a power of two, the block's shared memory within
+    227 KB, and one tower with Q < 2^31 (the composite-Q form: two towers
+    below 2^29 and at most 16 gadget rows)."""
     return _unsupported(params, form) is None
 
 
-def _unsupported(params: rgsw.RGSWParams, form: str) -> str | None:
+def _unsupported(params, form: str) -> str | None:
     """Why the kernel does not take this ring, or None."""
     n = params.ring_dim
-    if params.basis.k != 1:
-        return f"takes one tower, not {params.basis.k}"
+    wide = form == WIDE_FORM
+    if params.basis.k != (2 if wide else 1):
+        return (f"takes {'two towers' if wide else 'one tower'}, not "
+                f"{params.basis.k}")
     if not (MIN_RING_DIM <= n <= MAX_RING_DIM and n & (n - 1) == 0):
         return f"takes 128 <= N <= 2048 (a power of 2), not N={n}"
-    if params.big_q >= 1 << 31:
+    if wide:
+        if max(params.basis.moduli) >= MAX_WIDE_TOWER:
+            return (f"takes towers below 2^29, not "
+                    f"{max(params.basis.moduli)}")
+        if params.digits_g2 > MAX_WIDE_D2:
+            return (f"takes at most {MAX_WIDE_D2} gadget rows, not "
+                    f"{params.digits_g2}")
+    elif params.big_q >= 1 << 31:
         return f"takes Q < 2^31, not {params.big_q}"
     if params.base_g & (params.base_g - 1):
         return f"base {params.base_g} is not a power of 2"
@@ -73,8 +98,8 @@ def _unsupported(params: rgsw.RGSWParams, form: str) -> str | None:
 # per-step tables
 # ---------------------------------------------------------------------------
 
-def cggi_idx(params: rgsw.RGSWParams, a_lwe: torch.Tensor) -> torch.Tensor:
-    """GINX monomial exponents [n, B] int32 of a_lwe [B, n]."""
+def cggi_idx(params, a_lwe: torch.Tensor) -> torch.Tensor:
+    """GINX monomial exponents [n, B] int32 of a_lwe [B, n] (either ring)."""
     q_lwe = params.q_lwe
     idx = torch.remainder(q_lwe - a_lwe.long(), q_lwe) \
         * (2 * params.ring_dim // q_lwe)
@@ -172,30 +197,57 @@ def blind_rotate_lmkcdey(params: rgsw.RGSWParams, key_bank: torch.Tensor,
     return out
 
 
-def _basis_args(params: rgsw.RGSWParams) -> tuple:
+def blind_rotate_cggi_wide(params: rgsw_wide.RGSWWideParams,
+                           bskey: torch.Tensor, idx: torch.Tensor,
+                           acc0: torch.Tensor, acc1: torch.Tensor,
+                           lo: int = 0, hi: int | None = None):
+    """GINX steps [lo, hi) of every gate on the composite-Q ring:
+    acc += sum_k (sum_r NTT(digit_r) * bskey[i, k, r]) * (X^(+-idx[i]) - 1)
+    per tower, the digits cut from the Garner lift of both towers. acc0,
+    acc1 [B, 2, N]; returns (acc0, acc1) [B, 2, N]. The ring is checked on
+    every device, the operands off the CPU."""
+    name = "blind_rotate_cggi_wide"
+    why = _unsupported(params, WIDE_FORM)
+    if why:
+        raise ValueError(f"{name}: {why}")
+    hi = bskey.shape[0] if hi is None else hi
+    if acc0.device.type == "cpu":
+        return _cggi_wide_ref(params, bskey, idx, acc0, acc1, lo, hi)
+    n, d2 = params.ring_dim, params.digits_g2
+    steps = bskey.shape[0]
+    out = _prepare(params, WIDE_FORM, acc0, acc1, lo, hi, steps, {
+        "bskey": (bskey, (steps, 2, d2, 2, 2, n)),
+        "idx": (idx, (steps, acc0.shape[0]))})
+    q1, q2 = params.moduli
+    _build.launch("blind_rotate", name, acc0, acc1, *out, bskey, idx,
+                  *_basis_args(params), params.psi_pow.int(),
+                  pow(q1, -1, q2), *_shape_args(params, acc0, lo, hi),
+                  steps)
+    return out
+
+
+def _basis_args(params) -> tuple:
     b = params.basis
     return (b.psi_br, b.psi_br_sh, b.ipsi_br, b.ipsi_br_sh, b.q, b.ninv,
             b.ninv_sh)
 
 
-def _shape_args(params: rgsw.RGSWParams, acc0: torch.Tensor, lo: int,
-                hi: int) -> tuple:
+def _shape_args(params, acc0: torch.Tensor, lo: int, hi: int) -> tuple:
     return (acc0.shape[0], params.ring_dim.bit_length() - 1,
             params.digits_g2, params.base_g.bit_length() - 1, lo, hi)
 
 
-def _prepare(params: rgsw.RGSWParams, form: str, acc0: torch.Tensor,
-             acc1: torch.Tensor, lo: int, hi: int, steps: int,
-             operands: dict):
+def _prepare(params, form: str, acc0: torch.Tensor, acc1: torch.Tensor,
+             lo: int, hi: int, steps: int, operands: dict):
     """Check a kernel call's operands (operands: name -> (tensor, shape));
     allocate its outputs."""
     name = f"blind_rotate_{form}"
     why = _unsupported(params, form)
     if why:
         raise ValueError(f"{name}: {why}")
-    n = params.ring_dim
-    batch = acc0.shape[0] if acc0.dim() == 2 else -1
-    tensors = {"acc0": (acc0, (batch, n)), "acc1": (acc1, (batch, n)),
+    row = (2, params.ring_dim) if form == WIDE_FORM else (params.ring_dim,)
+    batch = acc0.shape[0] if acc0.dim() == 1 + len(row) else -1
+    tensors = {"acc0": (acc0, (batch, *row)), "acc1": (acc1, (batch, *row)),
                **operands}
     for label, (t, _) in tensors.items():
         if t.dtype != torch.int32:
@@ -235,6 +287,16 @@ def _cggi_ref(params, bskey, idx, acc0, acc1, lo: int = 0,
     for i in range(lo, hi):
         acc = rgsw._cggi_step(params, bskey[i], idx[i], acc)
     return acc[..., 0, :].int(), acc[..., 1, :].int()
+
+
+def _cggi_wide_ref(params, bskey, idx, acc0, acc1, lo: int = 0,
+                   hi: int | None = None):
+    hi = bskey.shape[0] if hi is None else hi
+    acc = torch.stack([acc0, acc1], dim=1).long()         # [B, 2, 2, N]
+    idx = idx.long()
+    for i in range(lo, hi):
+        acc = rgsw_wide._wide_step(params, bskey[i].long(), idx[i], acc)
+    return acc[:, 0].int(), acc[:, 1].int()
 
 
 def _dm_ref(params, keys, row, acc0, acc1, lo: int = 0,

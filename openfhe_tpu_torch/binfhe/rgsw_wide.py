@@ -8,23 +8,29 @@ the binfhecontext.cpp rows with 34-39 bits of Q).
 The ring is the JAX package's: two NTT-friendly towers Q = q1 * q2, each
 below 2^31, so every ring operation is per-tower residue arithmetic and the
 NTTs are the port's `ops/ntt.py` calls (kernel m, `csrc/ntt_small.cu`, on
-the card at N <= 2048). Only the signed gadget decomposition needs the
-integer value of a coefficient. The JAX package rebuilds it as a (hi, lo)
-uint32 pair (its lanes have no 64-bit words); here it is one int64,
-x = x1 + q1 * t with t = (x2 - x1) * q1^-1 mod q2 (Garner), and the
-balanced base-2^g digits are int64 shifts of the centred value. The digits
-and the residues are the JAX package's words.
+the card at N <= 2048) outside the blind rotation. Only the signed gadget
+decomposition needs the integer value of a coefficient. The JAX package
+rebuilds it as a (hi, lo) uint32 pair (its lanes have no 64-bit words);
+here it is one int64, x = x1 + q1 * t with t = (x2 - x1) * q1^-1 mod q2
+(Garner), and the balanced base-2^g digits are int64 shifts of the
+centred value. The digits and the residues are the JAX package's words.
 
 Layouts: an accumulator is [..., 2, N] (tower, slots) in EVAL; the GINX
 key is [n, 2, d2, 2, 2, N]: coordinate, CMUX key, gadget row, (a, b) pair,
 tower, slots (the JAX keygen stacks the pair at axis -3, before the tower
 axis, and its blind rotation reads it so).
 
-A blind rotation is the per-step loop of the JAX package's `lax.scan`,
-batched over the gates: each step one inverse NTT of both accumulator
-halves, the Garner digits, one forward NTT of the [..., d2, 2, N] digits
-and the key products in plain int64 torch. Every modular sum is exact, so
-the words equal the JAX package's add_mod trees.
+A blind rotation (`eval_acc_cggi_wide`) is one launch of
+`blind_rotate.blind_rotate_cggi_wide` on the card (`csrc/blind_rotate.cu`:
+the n steps of every gate in a cluster of two blocks, a tower a block),
+the counterpart of the JAX package's `lax.scan` with kernel m in it. Its
+plain twin, on the CPU, is the per-step loop `_wide_step` batched over the
+gates: each step one inverse NTT of both accumulator halves, the Garner
+digits, one forward NTT of the [..., d2, 2, N] digits and the key products
+in plain int64 torch. `_eval_acc_cggi_wide_steps` runs that loop on any
+device (on the card: two kernel-m launches a step and plain torch around
+them), the yardstick the kernel is held against. Every modular sum is
+exact, so the words equal the JAX package's add_mod trees.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import math
 import numpy as np
 import torch
 
+from openfhe_tpu_torch.binfhe import blind_rotate
 from openfhe_tpu_torch.lattice.basis import Basis, _bitrev_indices, make_basis
 from openfhe_tpu_torch.math import nbtheory, sampling
 from openfhe_tpu_torch.math.modops import to_u32
@@ -221,28 +228,36 @@ def _wide_step(params: RGSWWideParams, key: torch.Tensor, ix: torch.Tensor,
     return torch.remainder(acc + (t * (mono - 1).unsqueeze(2)).sum(1), q)
 
 
+def _cggi_wide(rotate, params: RGSWWideParams, bskey: torch.Tensor, acc0,
+               acc1, a_lwe: torch.Tensor):
+    lead = torch.broadcast_shapes(acc0.shape[:-2], acc1.shape[:-2],
+                                  a_lwe.shape[:-1])
+    big_n = params.ring_dim
+    a = a_lwe.expand(lead + a_lwe.shape[-1:]).reshape(-1, a_lwe.shape[-1])
+    acc = [x.expand(lead + (2, big_n)).reshape(-1, 2, big_n).contiguous()
+           for x in (acc0, acc1)]                             # [B, 2, N]
+    out = rotate(params, bskey, blind_rotate.cggi_idx(params, a), *acc)
+    return tuple(x.reshape(lead + (2, big_n)) for x in out)
+
+
 def eval_acc_cggi_wide(params: RGSWWideParams, bskey: torch.Tensor, acc0,
                        acc1, a_lwe: torch.Tensor):
     """GINX blind rotation over the composite-Q ring.
 
     acc0 / acc1: [..., 2, N] EVAL; a_lwe: [..., n] mod q_lwe; bskey
-    [n, 2, d2, 2, 2, N] from `keygen_cggi_pair_wide`. The n steps run one
-    after another, each batched over the gates."""
-    if max(params.moduli) >= 1 << 29 or params.digits_g2 > 16:
-        raise ValueError("the wide blind rotation's sums take towers below "
-                         "2^29 and at most 16 gadget rows")
-    lead = torch.broadcast_shapes(acc0.shape[:-2], acc1.shape[:-2],
-                                  a_lwe.shape[:-1])
-    big_n = params.ring_dim
-    q_lwe = params.q_lwe
-    a = a_lwe.expand(lead + a_lwe.shape[-1:]).reshape(-1, a_lwe.shape[-1])
-    idx = (torch.remainder(q_lwe - a.long(), q_lwe)
-           * (2 * big_n // q_lwe)).t()                        # [n, B]
-    acc = torch.stack([x.expand(lead + (2, big_n)).reshape(-1, 2, big_n)
-                       for x in (acc0, acc1)], dim=1).long()  # [B, 2, 2, N]
-    key = bskey.long()
-    for k in range(params.n_lwe):
-        acc = _wide_step(params, key[k], idx[k], acc)
-    acc = acc.int()
-    return (acc[:, 0].reshape(lead + (2, big_n)),
-            acc[:, 1].reshape(lead + (2, big_n)))
+    [n, 2, d2, 2, 2, N] from `keygen_cggi_pair_wide`. The n steps of every
+    gate run as one `blind_rotate_cggi_wide` launch on the card, the
+    per-step loop on the CPU (`blind_rotate.py`)."""
+    return _cggi_wide(blind_rotate.blind_rotate_cggi_wide, params, bskey,
+                      acc0, acc1, a_lwe)
+
+
+def _eval_acc_cggi_wide_steps(params: RGSWWideParams, bskey: torch.Tensor,
+                              acc0, acc1, a_lwe: torch.Tensor):
+    """eval_acc_cggi_wide as the per-step loop on any device (on the card
+    two kernel-m calls a step and plain torch around them)."""
+    why = blind_rotate._unsupported(params, blind_rotate.WIDE_FORM)
+    if why:
+        raise ValueError(f"the wide blind rotation {why}")
+    return _cggi_wide(blind_rotate._cggi_wide_ref, params, bskey, acc0,
+                      acc1, a_lwe)

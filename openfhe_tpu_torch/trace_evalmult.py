@@ -29,7 +29,10 @@ whose blind rotation is one launch of `csrc/blind_rotate.cu` between
 kernel m's transforms of the test vector and the extraction
 (`csrc/ntt_small.cu`); `--op lmkcdey` does the same on a STD128_LMKCDEY
 context over a batch of 64 gates and also times the host's per-gate
-schedule (`binfhe/blind_rotate.lmkcdey_sched`). `--op sharded`
+schedule (`binfhe/blind_rotate.lmkcdey_sched`); `--op std192` does the
+same as `ginx` on a STD192 context (the composite-Q ring of
+`binfhe/rgsw_wide.py`: Q = q1 q2 of 38 bits, n = 821, N = 2048), whose
+blind rotation is one launch of `blind_rotate_cggi_wide`. `--op sharded`
 traces the limb-sharded EvalMult of `parallel/sharded_fused.py` at level 3
 (28 Q towers) over a limb axis of 4 on the visible cards (all four shards
 on one card when there is one), inputs sharded beforehand. `--op
@@ -70,8 +73,9 @@ import torch
 
 CALLS = {"evalmult": 5, "relinearize": 5, "rotate": 5, "rescale": 5,
          "fastrotation": 5, "encrypt": 5, "decrypt": 5, "ginx": 2,
-         "lmkcdey": 2, "sharded": 5, "logistic": 2, "logistic119": 2,
-         "bgvmult": 5, "bgvmodreduce": 5, "bfvmult": 5, "bootstrap": 1}
+         "lmkcdey": 2, "std192": 2, "sharded": 5, "logistic": 2,
+         "logistic119": 2, "bgvmult": 5, "bgvmodreduce": 5, "bfvmult": 5,
+         "bootstrap": 1}
 # warm-up calls before the timed ones (3 unless named)
 WARMUPS = {"bootstrap": 1}
 # idle gaps listed, the largest first
@@ -91,7 +95,7 @@ OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "fwd_cluster",
        "keymul_cluster", "pconv", "submul_cluster", "tensor_intt_cluster",
        "subscale_cluster",
        "ntt_small_kernel", "mod_matmul_kernel", "mod_matmul_tc",
-       "blind_rotate_kernel")
+       "blind_rotate_kernel", "blind_rotate_wide_kernel")
 
 
 def main(argv=None) -> int:
@@ -111,7 +115,8 @@ def main(argv=None) -> int:
     _build.build()
     worst = 0
     for name in ops:
-        op = {"ginx": _ginx_op, "lmkcdey": _lmkcdey_op,
+        op = {"ginx": lambda: _ginx_op("STD128"),
+              "std192": lambda: _ginx_op("STD192"), "lmkcdey": _lmkcdey_op,
               "sharded": _sharded_op,
               "logistic": lambda: _logistic_op(name),
               "logistic119": lambda: _logistic_op(name),
@@ -229,12 +234,13 @@ def profile_device(fn, calls: int = 1) -> dict:
                 largest_gaps_ms=gaps[:TOP_GAPS])
 
 
-def _ginx_op():
-    """EvalBinGate(AND) over a batch of 256 on a STD128 GINX context."""
+def _ginx_op(param_set: str):
+    """EvalBinGate(AND) over a batch of 256 on a GINX context of
+    `param_set` (STD128, or STD192 on the composite-Q ring)."""
     from openfhe_tpu_torch.binfhe.constants import BINGATE
     from openfhe_tpu_torch.binfhe.context import BinFHEContext
 
-    cc = BinFHEContext(seed=11).GenerateBinFHEContext("STD128")
+    cc = BinFHEContext(seed=11).GenerateBinFHEContext(param_set)
     sk = cc.KeyGen()
     cc.BTKeyGen(sk)
     i = np.arange(GATE_BATCH)

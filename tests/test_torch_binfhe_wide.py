@@ -13,7 +13,8 @@ one blind rotation from a JAX key, and the exact mod switch from Q = 2^38
 (int64) and from a 50-bit Q (Python integers past 2^63). The JAX package
 runs with the exact mod switch of `test_torch_binfhe.py` in place of its
 device one, as that file does. On the CPU the NTTs are the plain stage
-loop; on the card they are kernel m, which `chip_smoke.py` runs in its
+loop and the blind rotation the per-step loop; on the card they are
+kernel m and `blind_rotate_cggi_wide`, which `chip_smoke.py` runs in its
 STD192 phase.
 """
 
