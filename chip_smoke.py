@@ -70,9 +70,11 @@ is not beside it. Phases, none of which catches its own failure:
    must have been launched;
 5. BinFHE (the JAX repo's binfhe benchmark, `bench.py`'s binfhe rows):
    kernel m (`ntt_small_fwd` / `ntt_small_inv`) against its dense plain
-   version word for word at a gate batch's shapes and at two more
-   (N=2048 with 2 towers, N=128 with 4), each beside `ntt.cu`'s transform
-   of the same input (equal words, timed); these small calls cost the
+   version word for word at a gate batch's shapes, at N=2048 with 2
+   towers, N=128 with 4, one ring element at N=1024 and the STD128 RGSW
+   key's rows at keygen (its largest launch), each beside `ntt.cu`'s
+   transform of the same input (equal words, timed), each printed with
+   the card's name and power limit; these small calls cost the
    host more than the card, so their `ms` is device time with the host's
    launch cost taken out (`device_ms`) and `call_ms` the time of one call
    as the other kernels are timed; the blind-rotation kernel
@@ -548,11 +550,13 @@ WHERE = {
     "ntt_keymul_acc_rows_staged": (
         "csrc/sharded.cu", "openfhe_tpu/parallel/sharded_fused.py:396"),
 }
-# kernel m's cases: (N, towers, rows, what the shape is)
+# kernel m's cases: (N, towers, rows, what the shape is); ntt_small_cases
+# adds the STD128 RGSW key's rows at keygen, read from its parameters
 SMALL_CASES = ((1024, 1, 1536, "the per-step loop's digits: 256 x d2 6"),
                (1024, 1, 512, "a gate batch's extraction: 256 x 2"),
                (2048, 2, 64, "the STD192 ring's shape"),
-               (128, 4, 8, "smallest ring, 4 towers"))
+               (128, 4, 8, "smallest ring, 4 towers"),
+               (1024, 1, 1, "one ring element: the lattice toolbox's"))
 GINX_SET = "STD128"       # bench.py's GINX configuration
 LMK_SET = "STD128_LMKCDEY"
 AP_SET = "STD128_AP"
@@ -1219,14 +1223,26 @@ def device_kernels(fn, want: int | None = None) -> list:
     return names
 
 
-def ntt_small_cases(gen) -> dict:
+def rgsw_keygen_case() -> tuple:
+    """Kernel m's largest launch, a SMALL_CASES entry: the a and e rows of
+    GINX_SET's RGSW bootstrapping key at keygen, [n, 2, d2] rows of N
+    (`rgsw.keygen_cggi_pair`), each one `ntt_fwd`."""
+    from openfhe_tpu_torch.binfhe.context import BinFHEContext
+    p = BinFHEContext(device="cpu").GenerateBinFHEContext(GINX_SET).rgsw
+    return (p.ring_dim, 1, p.n_lwe * 2 * p.digits_g2,
+            f"{GINX_SET} RGSW key's rows at keygen: {p.n_lwe} x 2 x "
+            f"d2 {p.digits_g2}")
+
+
+def ntt_small_cases(gen, card: str) -> dict:
     """Kernel m vs its dense plain version, and beside it ntt.cu's
-    transform of the same input (equal words), each timed."""
+    transform of the same input (equal words), each timed and printed
+    with the card's name and power limit."""
     from openfhe_tpu_torch.lattice.basis import make_basis
     from openfhe_tpu_torch.math import nbtheory
     from openfhe_tpu_torch.ops import ntt, ntt_small
     out = {name: [] for name in SMALL}
-    for n, k, rows, label in SMALL_CASES:
+    for n, k, rows, label in SMALL_CASES + (rgsw_keygen_case(),):
         moduli, q = [], 1 << 27
         while len(moduli) < k:
             q = nbtheory.previous_prime(q, 2 * n)
@@ -1251,14 +1267,21 @@ def ntt_small_cases(gen) -> dict:
             if name == "ntt_small_inv":
                 ops += x.numel() * SHOUP_OPS
             b_ms, b_by = bound(nbytes, ops)
-            out[name].append(dict(
+            c = dict(
                 shape=[rows, n], towers=k, moduli=label, max_abs_err=err,
                 ms=device_ms(lambda: kern(x, basis)),
                 call_ms=cuda_ms(lambda: kern(x, basis)),
                 plain_ms=device_ms(lambda: ref(x, basis)),
                 ntt_cu_ms=device_ms(lambda: tile(x, basis)),
                 ntt_cu_call_ms=cuda_ms(lambda: tile(x, basis)),
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by)
+            out[name].append(c)
+            print(f"  {name:13s} {str(c['shape']):12s} k={k} {label:45s} "
+                  f"kernel {c['ms']:.4f} ms (call {c['call_ms']:.4f})  "
+                  f"ntt.cu {c['ntt_cu_ms']:.4f} ms (call "
+                  f"{c['ntt_cu_call_ms']:.4f})  plain {c['plain_ms']:.4f} "
+                  f"ms  bound {b_ms:.4f} ms ({b_by})  max_abs_err {err}  "
+                  f"[{card}]")
     return out
 
 
@@ -4236,7 +4259,7 @@ def main() -> int:
             (staged if name in STAGED else cases)[name].append(case)
     del convq, adds
     del ext
-    small = ntt_small_cases(gen)
+    small = ntt_small_cases(gen, card)
     blind = blind_rotate_cases(gen)
     for name, rows in blind.items():
         for c in rows:
@@ -4248,14 +4271,6 @@ def main() -> int:
                   + ("" if c["split_equal"] is None else
                      f"  split at step {SPLIT_STEP} == whole: "
                      f"{c['split_equal']}"))
-    for name, rows in small.items():
-        for c in rows:
-            print(f"  {name:18s} {str(c['shape']):18s} k={c['towers']} "
-                  f"{c['moduli']:45s} kernel {c['ms']:.4f} ms (call "
-                  f"{c['call_ms']:.4f})  ntt.cu {c['ntt_cu_ms']:.4f} ms "
-                  f"(call {c['ntt_cu_call_ms']:.4f})  plain "
-                  f"{c['plain_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
-                  f"({c['bound_by']})  max_abs_err {c['max_abs_err']}")
     for name, rows in {**cases, **staged}.items():
         for c in rows:
             extra = "" if "staged_ms" not in c else (

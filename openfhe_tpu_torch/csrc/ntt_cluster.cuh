@@ -61,7 +61,15 @@
 // tile is stored with bits 0-4 of each index XORed with bits 5-9 (`phys`,
 // linear over the index bits, so a slot's word is phys(base) ^ a
 // constant), and a warp's 32 lanes take index bits chosen so that the 32
-// words of every access fall in 32 different banks (`thread_bit_pos`).
+// words of every access fall in 32 different banks (`thread_bit_pos`). A
+// tile of fewer than 1024 words (N <= 512, at most 32 threads, all of them
+// lanes of one warp) XORs bits 4-8 into bits 0-4 instead, which does the
+// same for its rounds.
+//
+// The round helpers take a `Pass`: the threads that run one row's tile,
+// their barrier and how they read a twiddle. The cluster transform's is
+// BlockPass; ntt_small.cu runs several rows a block, a group of threads
+// each, with its own.
 
 #pragma once
 
@@ -95,7 +103,7 @@ __host__ __device__ constexpr int cluster_log_w(int log_n) {
 // Shared-memory word of tile index i.
 template <int LOG_W>
 __host__ __device__ constexpr uint32_t phys(uint32_t i) {
-  return LOG_W >= kSwizzleLog ? i ^ ((i >> 5) & 31u) : i;
+  return LOG_W >= kSwizzleLog ? i ^ ((i >> 5) & 31u) : i ^ ((i >> 4) & 31u);
 }
 
 // The tile index bit that thread bit t takes in a round whose slots are
@@ -160,24 +168,38 @@ struct Twiddles {
   uint32_t w[kR - 1], w_sh[kR - 1];
 };
 
+// The threads that run one row's tile: thread tid() of them, sync() their
+// barrier between rounds, twiddle(t, i0, h) the tower's twiddle t[i0 + h]
+// (the bits of h are clear in i0). The cluster transform's: a block (of a
+// cluster) a row, __syncthreads, the table read from device memory
+// through the read-only cache.
+struct BlockPass {
+  __device__ __forceinline__ uint32_t tid() const { return threadIdx.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ uint32_t twiddle(const uint32_t* __restrict__ t,
+                                              uint32_t i0, uint32_t h) const {
+    return __ldg(t + i0 + h);
+  }
+};
+
 // Load the twiddles of the stages of spans 2^(LO + RB) for RB = RB up to
 // RB_HI, for a thread whose slot 0 is global word x0 (slot bits clear):
 // the butterflies of slot group h of stage RB share
 // psi[N / 2t + (x0 >> (b + 1)) + h], b = LO + RB.
-template <int LOG_N, int LO, int RB, int RB_HI>
+template <int LOG_N, int LO, int RB, int RB_HI, typename Pass = BlockPass>
 __device__ __forceinline__ void load_twiddles(
     Twiddles& tw, uint32_t x0, const uint32_t* __restrict__ psi,
-    const uint32_t* __restrict__ psi_sh) {
+    const uint32_t* __restrict__ psi_sh, const Pass& pass = Pass()) {
   constexpr int kB = LO + RB;
   constexpr int kAt = (1 << (kLogR - 1 - RB)) - 1;
   const uint32_t t0 = (1u << (LOG_N - 1 - kB)) + (x0 >> (kB + 1));
 #pragma unroll
   for (int h = 0; h < (kR >> (RB + 1)); ++h) {
-    tw.w[kAt + h] = __ldg(psi + t0 + h);
-    tw.w_sh[kAt + h] = __ldg(psi_sh + t0 + h);
+    tw.w[kAt + h] = pass.twiddle(psi, t0, h);
+    tw.w_sh[kAt + h] = pass.twiddle(psi_sh, t0, h);
   }
   if constexpr (RB < RB_HI)
-    load_twiddles<LOG_N, LO, RB + 1, RB_HI>(tw, x0, psi, psi_sh);
+    load_twiddles<LOG_N, LO, RB + 1, RB_HI>(tw, x0, psi, psi_sh, pass);
 }
 
 // The forward (Cooley-Tukey) stages RB = RB_HI down to RB_LO of a round on
@@ -248,13 +270,14 @@ struct Geometry {
 // `tw` holds this round's twiddles on entry. The last round (slots on
 // bits 0 .. kLogR - 1) hands its kR consecutive words, row words
 // x_tile + base .. + kR - 1, to epi(a, x_tile + base).
-template <int LOG_N, int HI, typename Epi>
+template <int LOG_N, int HI, typename Epi, typename Pass = BlockPass>
 __device__ __forceinline__ void fwd_rounds(uint32_t (&a)[kR], Twiddles& tw,
                                            uint32_t* tile, uint32_t tid,
                                            uint32_t x_tile, Epi& epi,
                                            const uint32_t* __restrict__ psi,
                                            const uint32_t* __restrict__ psi_sh,
-                                           uint32_t q) {
+                                           uint32_t q,
+                                           const Pass& pass = Pass()) {
   constexpr int kLogW = Geometry<LOG_N>::kLogW;
   constexpr int kLo = HI >= kLogR ? HI - kLogR + 1 : 0;
   const uint32_t base = round_base<kLogW, kLo>(tid);
@@ -273,9 +296,10 @@ __device__ __forceinline__ void fwd_rounds(uint32_t (&a)[kR], Twiddles& tw,
     constexpr int kHi2 = kLo - 1;
     constexpr int kLo2 = kHi2 >= kLogR ? kHi2 - kLogR + 1 : 0;
     load_twiddles<LOG_N, kLo2, 0, kHi2 - kLo2>(
-        tw, x_tile + round_base<kLogW, kLo2>(tid), psi, psi_sh);
-    __syncthreads();
-    fwd_rounds<LOG_N, kHi2>(a, tw, tile, tid, x_tile, epi, psi, psi_sh, q);
+        tw, x_tile + round_base<kLogW, kLo2>(tid), psi, psi_sh, pass);
+    pass.sync();
+    fwd_rounds<LOG_N, kHi2>(a, tw, tile, tid, x_tile, epi, psi, psi_sh, q,
+                            pass);
   }
 }
 
@@ -295,13 +319,14 @@ __host__ __device__ constexpr int inv_round_hi(int lo_b, int top) {
 // consecutive words, row words x_tile + base .. + kR - 1, from the load
 // hook, load(a, x_tile + base), and then loads its twiddles. Every round
 // leaves its words in the tile.
-template <int LOG_N, int LO_B, typename Load>
+template <int LOG_N, int LO_B, typename Load, typename Pass = BlockPass>
 __device__ __forceinline__ void inv_rounds(uint32_t (&a)[kR], Twiddles& tw,
                                            uint32_t* tile, uint32_t tid,
                                            uint32_t x_tile, Load& load,
                                            const uint32_t* __restrict__ ipsi,
                                            const uint32_t* __restrict__ ipsi_sh,
-                                           uint32_t q) {
+                                           uint32_t q,
+                                           const Pass& pass = Pass()) {
   using G = Geometry<LOG_N>;
   constexpr int kLo = inv_round_lo(LO_B, G::kLo1);
   constexpr int kHi = inv_round_hi(LO_B, G::kLo1);
@@ -310,7 +335,7 @@ __device__ __forceinline__ void inv_rounds(uint32_t (&a)[kR], Twiddles& tw,
   if constexpr (LO_B == 0) {
     load(a, x_tile + base);
     load_twiddles<LOG_N, kLo, 0, kHi - 1 - kLo>(tw, x_tile + base, ipsi,
-                                                ipsi_sh);
+                                                ipsi_sh, pass);
   } else {
 #pragma unroll
     for (int s = 0; s < kR; ++s)
@@ -324,10 +349,10 @@ __device__ __forceinline__ void inv_rounds(uint32_t (&a)[kR], Twiddles& tw,
     constexpr int kLo2 = inv_round_lo(kHi, G::kLo1);
     constexpr int kHi2 = inv_round_hi(kHi, G::kLo1);
     load_twiddles<LOG_N, kLo2, kHi - kLo2, kHi2 - 1 - kLo2>(
-        tw, x_tile + round_base<G::kLogW, kLo2>(tid), ipsi, ipsi_sh);
-    __syncthreads();
+        tw, x_tile + round_base<G::kLogW, kLo2>(tid), ipsi, ipsi_sh, pass);
+    pass.sync();
     inv_rounds<LOG_N, kHi>(a, tw, tile, tid, x_tile, load, ipsi, ipsi_sh,
-                           q);
+                           q, pass);
   }
 }
 
@@ -468,16 +493,18 @@ __global__ void __launch_bounds__(Geometry<LOG_N>::kThreads,
 // read in place for ntt_inv and K45, the tensor product for ks_fused.cu's
 // K1t). Every block of the cluster must call it together; it ends with a
 // cluster barrier, so that no block's tile is read after the block exits.
-template <int LOG_N, typename Load>
+// With one block a row (kLogC = 0) the row's threads may be any `pass`
+// (ntt_small.cu's groups).
+template <int LOG_N, typename Load, typename Pass = BlockPass>
 __device__ __forceinline__ void inv_cluster_row(
     Load& load, uint32_t* dst, const uint32_t* __restrict__ ipsi,
     const uint32_t* __restrict__ ipsi_sh, uint32_t q,
     const uint32_t* __restrict__ c, const uint32_t* __restrict__ c_sh,
-    uint32_t* tile) {
+    uint32_t* tile, const Pass& pass = Pass()) {
   using G = Geometry<LOG_N>;
   constexpr int kP = kLogR - G::kLogC;
   const uint32_t rank = blockIdx.x & ((1u << G::kLogC) - 1);
-  const uint32_t tid = threadIdx.x;
+  const uint32_t tid = pass.tid();
   const uint32_t j = rank * G::kThreads + tid;
   const uint32_t x_tile = rank << G::kLogW;
   uint32_t a[kR];
@@ -485,16 +512,17 @@ __device__ __forceinline__ void inv_cluster_row(
 
   // 1. the tile's stages below bit kLo1, kLogR a round from the bottom
   if constexpr (G::kLo1 > 0)
-    inv_rounds<LOG_N, 0>(a, tw, tile, tid, x_tile, load, ipsi, ipsi_sh, q);
+    inv_rounds<LOG_N, 0>(a, tw, tile, tid, x_tile, load, ipsi, ipsi_sh, q,
+                         pass);
 
   // 2. the last kLogR stages on words j + (s << kLo1): the tile's top kP
   // and the cross-block ones, then the constant
   if constexpr (G::kLo1 == 0) {
     // the whole row is one round (N = 2^kLogR): its words are the input
     load(a, j);
-    load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, ipsi, ipsi_sh);
+    load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, ipsi, ipsi_sh, pass);
   } else {
-    load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, ipsi, ipsi_sh);
+    load_twiddles<LOG_N, G::kLo1, 0, kLogR - 1>(tw, j, ipsi, ipsi_sh, pass);
     const uint32_t pj = phys<G::kLogW>(j);
     if constexpr (G::kLogC > 0) {
       cg::cluster_group cluster = cg::this_cluster();
@@ -508,7 +536,7 @@ __device__ __forceinline__ void inv_cluster_row(
               from[pj ^ phys<G::kLogW>(static_cast<uint32_t>(p) << G::kLo1)];
       }
     } else {
-      __syncthreads();
+      pass.sync();
 #pragma unroll
       for (int s = 0; s < kR; ++s)
         a[s] = tile[pj ^ phys<G::kLogW>(static_cast<uint32_t>(s) << G::kLo1)];

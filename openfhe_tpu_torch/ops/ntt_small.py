@@ -8,9 +8,11 @@ roots, so the words equal the JAX package's.
 
 `ntt_small_fwd` / `ntt_small_inv` take `[..., k, N]` int32 residues and a
 `Basis`. On a CUDA tensor they launch the butterfly kernel of
-`csrc/ntt_small.cu` (or raise); on a CPU tensor they run the plain
-versions `_ntt_small_fwd_ref` / `_ntt_small_inv_ref`, which follow the
-TPU kernel's own formulation, the dense matrices of `_tables_from_psi`:
+`csrc/ntt_small.cu` (or raise): a row a group of N / 16 threads with 16
+words each in registers, several groups a block, a block a tower, its
+grid from `launch_geometry`. On a CPU tensor they run the plain versions
+`_ntt_small_fwd_ref` / `_ntt_small_inv_ref`, which follow the TPU
+kernel's own formulation, the dense matrices of `_tables_from_psi`:
 
     fwd[j, i] = psi^(i * e_j),  inv[i, j] = N^-1 * psi^(-i * e_j),
     e_j = 2 * brv(j) + 1,
@@ -37,6 +39,29 @@ MAX_RING_DIM = 1 << 11
 MAX_TOWERS = 4
 LIMB_BITS = 8
 LIMBS = 4
+# The kernel's launch geometry (`csrc/ntt_small.cu`: kLogR of
+# `ntt_cluster.cuh`, kBlockThreads, kBlocksPerSm); the tests hold the two
+# equal.
+LOG_THREAD_WORDS = 4
+BLOCK_THREADS = 128
+BLOCKS_PER_SM = 4
+
+
+def launch_geometry(polys: int, k: int, n: int, sms: int) -> tuple:
+    """(blocks a tower, groups a block) of the kernel over `polys` rows of
+    each of k towers at ring N on a card of `sms` SMs, as its launch
+    computes them: a group of N / 16 threads a row; as many groups as the
+    card holds at once (BLOCKS_PER_SM blocks of BLOCK_THREADS threads an
+    SM), each with the same share of its tower's rows, taken one after
+    another; at most BLOCK_THREADS threads a block. Group g of block b of
+    tower t takes the rows p * k + t, p = b * groups + g + i * blocks *
+    groups < polys."""
+    per_block = BLOCK_THREADS // (n >> LOG_THREAD_WORDS)
+    slots = sms * BLOCKS_PER_SM * per_block
+    per_group = -(-polys * k // slots)
+    groups = -(-polys // per_group)
+    gpb = min(per_block, groups)
+    return -(-groups // gpb), gpb
 
 
 def supported(b: Basis) -> bool:

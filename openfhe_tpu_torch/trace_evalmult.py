@@ -94,7 +94,7 @@ OWN = ("fwd_stage", "fwd_tile", "inv_stage", "inv_tile", "fwd_cluster",
        "tensor_intt_tile", "keymul_tile", "subscale_tile", "submul_tile",
        "keymul_cluster", "pconv", "submul_cluster", "tensor_intt_cluster",
        "subscale_cluster",
-       "ntt_small_kernel", "mod_matmul_kernel", "mod_matmul_tc",
+       "ntt_small_group", "mod_matmul_kernel", "mod_matmul_tc",
        "blind_rotate_kernel", "blind_rotate_wide_kernel")
 
 

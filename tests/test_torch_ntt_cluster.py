@@ -42,8 +42,9 @@ SWIZZLE_LOG = 10
 # ---------------------------------------------------------------------------
 
 def phys(i, log_w):
-    """Shared-memory word of tile index i."""
-    return i ^ ((i >> 5) & 31) if log_w >= SWIZZLE_LOG else i
+    """Shared-memory word of tile index i: bits 0-4 XORed with bits 5-9,
+    or with bits 4-8 in a tile of fewer than 2^SWIZZLE_LOG words."""
+    return i ^ ((i >> 5) & 31) if log_w >= SWIZZLE_LOG else i ^ ((i >> 4) & 31)
 
 
 def round_base(tid, lo, log_w):
@@ -307,18 +308,19 @@ def test_schedule_model_matches_jax_fused_kernel(fused14, log_c):
 
 def test_round_base_covers_each_tile_once_without_bank_conflicts():
     """Every round's (thread, slot) -> index map is a bijection on the
-    tile, and each warp's 32 lanes hit 32 banks for every slot."""
-    for log_w in (4, 9, 10, 13, 14):
+    tile, and each warp's lanes (32, or the block's threads when fewer)
+    hit as many banks for every slot, both swizzles."""
+    for log_w in (4, 7, 8, 9, 10, 13, 14):
         tid = np.arange(1 << (log_w - LOG_R))
+        lanes = min(32, tid.size)
         for lo in range(log_w - LOG_R + 1):
             idx = round_base(tid, lo, log_w)[:, None] | (
                 np.arange(R) << lo)[None, :]
             assert np.array_equal(np.sort(idx.ravel()),
                                   np.arange(1 << log_w))
-            if log_w >= SWIZZLE_LOG:
-                banks = phys(idx, log_w).reshape(-1, 32, R) % 32
-                assert all(len(set(banks[w, :, s])) == 32
-                           for w in range(banks.shape[0]) for s in range(R))
+            banks = phys(idx, log_w).reshape(-1, lanes, R) % 32
+            assert all(len(set(banks[w, :, s])) == lanes
+                       for w in range(banks.shape[0]) for s in range(R))
 
 
 # ---------------------------------------------------------------------------
